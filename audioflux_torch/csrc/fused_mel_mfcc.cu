@@ -47,6 +47,11 @@ using afx::seq_stride;
 
 namespace {
 
+// STAGES cuts the kernel after a stage, to time the stages apart: 1 loads
+// and windows the frames, 2 adds the transform, 3 the power spectrum and
+// the filterbank, 4 (the kernel the wrapper runs) the DCT.  Every cut
+// writes both outputs in full, so each moves the same device bytes.
+template <int STAGES>
 __global__ void __launch_bounds__(1024)
 fused_mel_mfcc_kernel(const float* __restrict__ x, long long n, int n_frames,
                       int slide, int log2n, const float* __restrict__ window,
@@ -79,7 +84,9 @@ fused_mel_mfcc_kernel(const float* __restrict__ x, long long n, int n_frames,
     const long long s0 = static_cast<long long>(t0) * slide;
     const int span_len = tile * slide + nfft - slide;
     const float* src = xb + s0;
-    if (((b * n) & 3) == 0 && s0 + span_len <= n) {
+    // 16-byte loads need a 16-byte aligned address: x may be a view at
+    // any offset, so test the address itself
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && s0 + span_len <= n) {
       const float4* src4 = reinterpret_cast<const float4*>(src);
       float4* dst4 = reinterpret_cast<float4*>(span);
       for (int i = threadIdx.x; i < span_len / 4; i += blockDim.x) {
@@ -113,7 +120,11 @@ fused_mel_mfcc_kernel(const float* __restrict__ x, long long n, int n_frames,
       z[q * stride + pad(i)] = make_float2(a, c);
     }
     __syncthreads();
-    fft_smem(z, log2n, tw, log2n);
+    if (STAGES >= 2) fft_smem(z, log2n, tw, log2n);
+    if (STAGES < 3) {
+      __syncthreads();
+      continue;
+    }
 
     // power of both frames into slot k: (P_a[k], P_b[k]), k <= n/2
     for (int idx = threadIdx.x; idx < np * nb; idx += blockDim.x) {
@@ -165,29 +176,20 @@ fused_mel_mfcc_kernel(const float* __restrict__ x, long long n, int n_frames,
     if (t >= n_frames) continue;
     const float* d = dct + static_cast<size_t>(c) * num;
     float acc = 0.f;
-    for (int m = 0; m < num; ++m) acc = fmaf(__ldg(&d[m]), logmel[m * tile + f], acc);
+    if (STAGES >= 4) {
+      for (int m = 0; m < num; ++m) acc = fmaf(__ldg(&d[m]), logmel[m * tile + f], acc);
+    }
     cc_out[(static_cast<size_t>(b) * cc + c) * n_frames + t] = acc;
   }
 }
 
-}  // namespace
-
-// x: (batch, n) fp32 clips.  window: n_fft.  tw: n_fft float2,
-// exp(-2 pi i k / n_fft).  band_lo / band_len / band_off: num int32;
-// band_w: packed band weights.  dct: (cc, num).  mel: (batch, num,
-// n_frames); cc_out: (batch, cc, n_frames).  `tile` (even) frames per
-// block, `np` pairs per round (np divides tile / 2; np * n_fft / 16
-// threads); `staged`: hold the tile's audio span in shared memory.  The
-// caller sizes all three to the shared memory.  Returns the CUDA error
-// code of the launch (0 on success).
-extern "C" int af_fused_mel_mfcc(const float* x, long long batch, long long n,
-                                 int n_frames, int slide, int log2n,
-                                 const float* window, const void* tw,
-                                 const int* band_lo, const int* band_len,
-                                 const int* band_off, const float* band_w,
-                                 const float* dct, int num, int cc,
-                                 float* mel, float* cc_out, int tile, int np,
-                                 int staged, void* stream) {
+template <int STAGES>
+int launch(const float* x, long long batch, long long n, int n_frames,
+           int slide, int log2n, const float* window, const void* tw,
+           const int* band_lo, const int* band_len, const int* band_off,
+           const float* band_w, const float* dct, int num, int cc,
+           float* mel, float* cc_out, int tile, int np, int staged,
+           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (batch <= 0 || n_frames <= 0) return 0;
   const long long threads = (static_cast<long long>(np) << log2n) / 16;
@@ -201,13 +203,40 @@ extern "C" int af_fused_mel_mfcc(const float* x, long long batch, long long n,
   const size_t smem = sizeof(float2) * seq_stride(1 << log2n) * np +
                       sizeof(float) * (2 * tile * num + span_len);
   cudaError_t e = cudaFuncSetAttribute(
-      fused_mel_mfcc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      fused_mel_mfcc_kernel<STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  fused_mel_mfcc_kernel<<<static_cast<unsigned>(batch * n_tiles),
-                          static_cast<unsigned>(threads), smem, st>>>(
+  fused_mel_mfcc_kernel<STAGES><<<static_cast<unsigned>(batch * n_tiles),
+                                  static_cast<unsigned>(threads), smem, st>>>(
       x, n, n_frames, slide, log2n, window, static_cast<const float2*>(tw),
       band_lo, band_len, band_off, band_w, dct, num, cc, mel, cc_out, tile,
       np, static_cast<int>(n_tiles), staged);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x: (batch, n) fp32 clips.  window: n_fft.  tw: n_fft float2,
+// exp(-2 pi i k / n_fft).  band_lo / band_len / band_off: num int32;
+// band_w: packed band weights.  dct: (cc, num).  mel: (batch, num,
+// n_frames); cc_out: (batch, cc, n_frames).  `tile` (even) frames per
+// block, `np` pairs per round (np divides tile / 2; np * n_fft / 16
+// threads); `staged`: hold the tile's audio span in shared memory.  The
+// caller sizes all three to the shared memory.  `stages` 4 runs the whole
+// kernel; 1..3 cut it after a stage (see fused_mel_mfcc_kernel), for
+// timing only.  Returns the CUDA error code of the launch (0 on success).
+extern "C" int af_fused_mel_mfcc(const float* x, long long batch, long long n,
+                                 int n_frames, int slide, int log2n,
+                                 const float* window, const void* tw,
+                                 const int* band_lo, const int* band_len,
+                                 const int* band_off, const float* band_w,
+                                 const float* dct, int num, int cc,
+                                 float* mel, float* cc_out, int tile, int np,
+                                 int staged, int stages, void* stream) {
+  using Launch = decltype(&launch<4>);
+  constexpr Launch by_stages[] = {launch<1>, launch<2>, launch<3>, launch<4>};
+  if (stages < 1 || stages > 4) return static_cast<int>(cudaErrorInvalidValue);
+  return by_stages[stages - 1](x, batch, n, n_frames, slide, log2n, window,
+                               tw, band_lo, band_len, band_off, band_w, dct,
+                               num, cc, mel, cc_out, tile, np, staged, stream);
 }

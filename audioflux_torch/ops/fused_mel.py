@@ -94,7 +94,7 @@ def _lib():
     fn = _build.load("fused_mel_mfcc").af_fused_mel_mfcc
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [p, ll, ll, i, i, i, p, p, p, p, p, p, p, i, i, p, p,
-                   i, i, i, p]
+                   i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -119,7 +119,11 @@ def _launch_shape(n_fft: int, num: int, slide: int):
     raise ValueError(f"n_fft={n_fft}, num={num} do not fit shared memory")
 
 
-def _launch(plan: FusedMelPlan, x: torch.Tensor, n_frames: int):
+def _launch(plan: FusedMelPlan, x: torch.Tensor, n_frames: int,
+            stages: int = 4):
+    """Run the kernel on contiguous (batch, n) CUDA audio.  ``stages`` < 4
+    cuts it after a stage (1 framing, 2 transform, 3 filterbank; the
+    outputs are then not mel and cc) to time the stages apart."""
     if plan.n_fft & (plan.n_fft - 1) or plan.n_fft.bit_length() - 1 > _MAX_LOG2_FFT:
         raise ValueError(f"the fused kernel needs pow2 n_fft <= "
                          f"{1 << _MAX_LOG2_FFT}, got {plan.n_fft}")
@@ -142,7 +146,7 @@ def _launch(plan: FusedMelPlan, x: torch.Tensor, n_frames: int):
                  plan.band_len.data_ptr(), plan.band_off.data_ptr(),
                  plan.band_w.data_ptr(), plan.dct.data_ptr(), plan.num_mel,
                  plan.cc_num, mel.data_ptr(), cc.data_ptr(), tile, np_,
-                 staged, stream)
+                 staged, stages, stream)
     if err:
         raise RuntimeError(f"fused_mel_mfcc launch failed: CUDA error {err}")
     fused_mel_mfcc.launches += 1

@@ -12,11 +12,13 @@ Phases (any failure exits non-zero; no result line is printed then):
    radix2_exp=11, slide_length=512).spectrogram_mfcc_fused`` on 1000 clips
    of T=1000 frames, the T<8 path on 1000 clips of 4096 samples and
    ``.spectrogram()`` on the card, each gated against ``.spectrogram()``
-   on the CPU at 1e-4 of the peak; both kernels' launch counts must be
-   nonzero;
+   on the CPU at 1e-4 of the peak (first and last clips), and the whole
+   batch against the plain versions on the card; both kernels' launch
+   counts must be nonzero;
 4. timing with CUDA events: each kernel, its plain version and the
-   library yardstick at the main path's shapes, and the headline
-   audio-hours per second.
+   library yardstick at the main path's shapes, the fused kernel cut
+   after each stage (its split), and the headline audio-hours per
+   second.
 
 The second-to-last line is the kernels JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -38,7 +40,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from audioflux_torch.ops import _build  # noqa: E402
 from audioflux_torch.ops.cuda_fft import fft_fwd, fft_fwd_ref  # noqa: E402
 from audioflux_torch.ops.fused_mel import (FusedMelPlan,  # noqa: E402
-                                           fused_mel_mfcc,
+                                           _launch, fused_mel_mfcc,
                                            fused_mel_mfcc_ref)
 from audioflux_torch.transforms.spectrogram import (  # noqa: E402
     ErbSpectrogram, MelSpectrogram)
@@ -184,6 +186,22 @@ def phase2_kernels(gen):
                     errs["fused_mel_mfcc"] = max(
                         errs["fused_mel_mfcc"],
                         float((a - b).abs().max()))
+
+    # inputs at addresses that are not 16-byte aligned: a 1-D clip viewed
+    # at an offset of one sample, and clips of odd length (every other
+    # clip starts off alignment)
+    sp = MelSpectrogram(num=NUM, samplate=SR, radix2_exp=R2E,
+                        slide_length=SLIDE, device="cuda")
+    plan = FusedMelPlan(sp.window, sp.filter_bank, sp._dct[:CC], SLIDE,
+                        device="cuda")
+    n = (40 - 1) * SLIDE + sp.fft_length
+    for label, x in (("1-D view at offset 1", randn(n + 1, gen, 0.2)[1:]),
+                     ("4 clips of odd length", randn((4, n + 1), gen, 0.2))):
+        mel, cc = fused_mel_mfcc(plan, x)
+        torch.cuda.synchronize()
+        mel_r, cc_r = fused_mel_mfcc_ref(plan, x.clone())
+        for what, a, b in (("mel", mel, mel_r), ("cc", cc, cc_r)):
+            check(f"fused {label} {what}", rel_err(a, b), FP32_TOL)
     return errs
 
 
@@ -222,15 +240,46 @@ def phase3_main_path(gen):
         if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{name}: shape {tuple(t.shape)} or "
                                  "non-finite values")
-    ref = gate("fused mel (T=1000, 2 clips)", mel[:2], plan_cpu, x[:2].cpu())
-    check("fused cc (T=1000, 2 clips) vs CPU xxcc",
-          rel_err(cc[:2].cpu(), plan_cpu.xxcc(ref, CC)), GATE_TOL)
-    ref_s = gate("small-T mel (T=5, 2 clips)", mel_s[:2], plan_cpu,
-                 xs[:2].cpu())
-    check("small-T cc (T=5, 2 clips) vs CPU xxcc",
-          rel_err(cc_s[:2].cpu(), plan_cpu.xxcc(ref_s, CC)), GATE_TOL)
-    gate(".spectrogram() on the card (2 of 8 clips)", spec[:2], plan_cpu,
-         x[:2].cpu())
+    # the whole batch against the plain version on the card, in chunks
+    fplan = plan._fused_cache[CC]
+    err_mel = err_cc = 0.0
+    for lo in range(0, N_CLIPS, 250):
+        mel_r, cc_r = fused_mel_mfcc_ref(fplan, x[lo:lo + 250])
+        err_mel = max(err_mel, rel_err(mel[lo:lo + 250], mel_r))
+        err_cc = max(err_cc, rel_err(cc[lo:lo + 250], cc_r))
+        del mel_r, cc_r
+    check(f"fused mel (T=1000, all {N_CLIPS} clips) vs plain", err_mel,
+          FP32_TOL)
+    check(f"fused cc (T=1000, all {N_CLIPS} clips) vs plain", err_cc,
+          FP32_TOL)
+    mel_r, cc_r = fused_mel_mfcc_ref(fplan, xs)
+    check(f"small-T mel (T=5, all {N_CLIPS} clips) vs plain",
+          rel_err(mel_s, mel_r), FFT_TOL)
+    check(f"small-T cc (T=5, all {N_CLIPS} clips) vs plain",
+          rel_err(cc_s, cc_r), FFT_TOL)
+    rows_w = (xs.unfold(-1, plan.fft_length, SLIDE)
+              * plan._window_t).contiguous()
+    yr, yi = fft_fwd(rows_w)
+    rr, ri = fft_fwd_ref(rows_w)
+    peak = float(torch.sqrt(rr.double() ** 2 + ri.double() ** 2).max())
+    check(f"fft_pow2 all {rows_w.numel() // plan.fft_length} small-T rows "
+          "vs plain", max(float((yr - rr).abs().max()),
+                          float((yi - ri).abs().max())) / peak, FFT_TOL)
+
+    # the exact path on the CPU, at the first and the last clips
+    for sl, at in ((slice(0, 2), "first"), (slice(-2, None), "last")):
+        ref = gate(f"fused mel (T=1000, {at} 2 clips)", mel[sl], plan_cpu,
+                   x[sl].cpu())
+        check(f"fused cc (T=1000, {at} 2 clips) vs CPU xxcc",
+              rel_err(cc[sl].cpu(), plan_cpu.xxcc(ref, CC)), GATE_TOL)
+        ref_s = gate(f"small-T mel (T=5, {at} 2 clips)", mel_s[sl],
+                     plan_cpu, xs[sl].cpu())
+        check(f"small-T cc (T=5, {at} 2 clips) vs CPU xxcc",
+              rel_err(cc_s[sl].cpu(), plan_cpu.xxcc(ref_s, CC)), GATE_TOL)
+    gate(".spectrogram() on the card (first 2 of 8 clips)", spec[:2],
+         plan_cpu, x[:2].cpu())
+    gate(".spectrogram() on the card (last 2 of 8 clips)", spec[-2:],
+         plan_cpu, x[6:8].cpu())
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"{k} was not launched on the main path")
@@ -278,12 +327,23 @@ def phase4_timing(plan, x, xs, launches, errs):
           f"{p_ms:.3f} ms, library {l_ms:.3f} ms, bound {b_ms:.3f} ms "
           f"({b_by}: {n_bytes / 1e9:.3f} GB, {n_flops / 1e9:.2f} GFLOP)")
 
+    # the kernel cut after each stage: the differences split its time
+    cut_ms = [cuda_ms(lambda s=s: _launch(fplan, x, T, stages=s), reps=10)
+              for s in (1, 2, 3)] + [k_ms]
+    for s, name in enumerate(("framing (audio load + window)",
+                              "transform", "power + filterbank + log10",
+                              "DCT")):
+        prev = cut_ms[s - 1] if s else 0.0
+        print(f"  split: {name}: {cut_ms[s] - prev:.3f} ms "
+              f"(cut after it: {cut_ms[s]:.3f} ms)")
+
     # headline end to end: the user's call, audio-hours per second
     e2e_ms = cuda_ms(lambda: plan.spectrogram_mfcc_fused(x, cc_num=CC),
                      reps=10)
     audio_hours = B * n / SR / 3600.0
     print(f"  headline spectrogram_mfcc_fused {B}x T={T}: {e2e_ms:.3f} ms, "
-          f"{audio_hours / (e2e_ms / 1e3):.1f} audio-hours/s")
+          f"{audio_hours / (e2e_ms / 1e3):.1f} audio-hours/s; outside the "
+          f"kernel (difference of medians): {e2e_ms - k_ms:.3f} ms")
 
     # --- fft_pow2 at the small-T path's shape (1000 clips x 5 frames) --
     rows_w = (xs.unfold(-1, nfft, SLIDE) * plan._window_t).contiguous()
@@ -309,6 +369,10 @@ def phase4_timing(plan, x, xs, launches, errs):
     hours_s = xs.shape[0] * xs.shape[1] / SR / 3600.0
     print(f"  small-T spectrogram_mfcc_fused {xs.shape[0]}x{xs.shape[1]}: "
           f"{e2e_s:.4f} ms, {hours_s / (e2e_s / 1e3):.1f} audio-hours/s")
+    # the fused kernel at the same T=5 batch, beside the small-T route
+    f_ms = cuda_ms(lambda: fused_mel_mfcc(fplan, xs), reps=20)
+    print(f"  fused_mel_mfcc at the small-T batch {xs.shape[0]}x"
+          f"{xs.shape[1]}: {f_ms:.4f} ms (small-T route {e2e_s:.4f} ms)")
     return rows
 
 

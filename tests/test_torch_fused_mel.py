@@ -84,6 +84,24 @@ def test_fused_1d_and_odd_frames():
     _assert_close(cc_t, cc_j, 1e-5, "cc")
 
 
+@pytest.mark.parametrize("layout", ["1-D view at offset 1", "odd length"])
+def test_fused_unaligned_inputs(layout):
+    """Clips that do not start on a 16-byte boundary (on the card the
+    kernel then takes scalar loads): a 1-D view at a storage offset, and
+    a batch of odd-length clips, against the JAX entry."""
+    jplan = JMel(num=32, samplate=32000, radix2_exp=11, slide_length=512)
+    fp_j, fp_t = _both(jplan, 13, 512)
+    n = 11 * 512 + 1536 + 1
+    base = torch.from_numpy((np.random.default_rng(8).standard_normal(
+        2 * n) * 0.2).astype(np.float32))
+    x = base[1:n] if layout.startswith("1-D") else base.reshape(2, n)
+    assert x.is_contiguous()
+    mel_j, cc_j = j_fused(fp_j, x.numpy(), tile=8, interpret=True)
+    mel_t, cc_t = fused_mel_mfcc(fp_t, x)
+    _assert_close(mel_t, mel_j, 1e-5, "mel")
+    _assert_close(cc_t, cc_j, 1e-5, "cc")
+
+
 def test_fused_leading_dims_and_ref():
     """(..., n) batches; the wrapper's CPU route is its plain version."""
     jplan = JMel(num=64, samplate=32000, radix2_exp=11, slide_length=512)
