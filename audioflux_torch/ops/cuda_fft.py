@@ -1,11 +1,13 @@
-"""Batched forward FFT for power-of-two n in [2048, 32768]: the CUDA kernel
-``csrc/fft_pow2.cu`` and its plain PyTorch version.
+"""Batched FFTs for power-of-two n in [2048, 32768]: the CUDA kernels of
+``csrc/fft_pow2.cu`` (forward, inverse, fused autocorrelation) and their
+plain PyTorch versions.
 
 Counterpart of ``audioflux_tpu/ops/pallas_fft.py`` (``fft4_fwd``,
-``supports``).  The kernel returns the spectrum in natural bin order, so
-the TPU package's layout converters (``t_to_natural``, ``permute_bins_t``)
-have no counterpart here: consumers slice the first n//2+1 bins of the
-natural spectrum and never add the mirror half.
+``fft4_inv``, ``fft4_autocorr``, ``supports``).  The kernels read and
+write natural bin order, so the TPU package's layout converters
+(``t_to_natural``, ``natural_to_t``, ``permute_bins_t``) have no
+counterpart here: consumers slice the first n//2+1 bins of the natural
+spectrum and never add the mirror half.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch
 from audioflux_torch.ops import _build
 from audioflux_torch.ops.backend import require_sm90
 
-__all__ = ["supports", "fft_fwd", "fft_fwd_ref", "twiddle_table"]
+__all__ = ["supports", "fft_fwd", "fft_fwd_ref", "fft_inv", "fft_inv_ref",
+           "fft_autocorr", "fft_autocorr_ref", "twiddle_table"]
 
 
 def supports(n: int) -> bool:
@@ -39,11 +42,52 @@ def twiddle_table(n: int, device: torch.device) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("fft_pow2")
-    fn = lib.af_fft_pow2_fwd
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_int, p]
-    fn.restype = ctypes.c_int
-    return fn
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for fn, argtypes in ((lib.af_fft_pow2_fwd, [p, p, p, p, p, p, ll, i, p]),
+                         (lib.af_fft_pow2_inv, [p, p, p, p, p, p, ll, i, p]),
+                         (lib.af_fft_pow2_autocorr, [p, p, p, p, p, ll, i, p])):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_rows(who: str, **tensors) -> int:
+    """The checks every wrapper makes: pow2 n in the kernels' domain,
+    float32, contiguous, one shape and one device.  Returns n."""
+    first = next(t for t in tensors.values() if t is not None)
+    n = first.shape[-1]
+    if not supports(n):
+        raise ValueError(f"{who} needs pow2 n in [2048, 32768], got {n}")
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.shape != first.shape or t.device != first.device:
+            raise ValueError(f"{' and '.join(tensors)} must share shape and "
+                             "device")
+    if first.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {first.device}")
+    return n
+
+
+def _call(fn, who: str, x: torch.Tensor, n: int, *ptrs):
+    """Launch ``fn(*ptrs, scratch, tw, batch, log2n, stream)`` on ``x``'s
+    device and stream; raise on a CUDA error.  ``scratch`` is the four-step
+    split's device buffer (n > 16384 only)."""
+    require_sm90(x.device)
+    batch, log2n = x.numel() // n, n.bit_length() - 1
+    scratch = (torch.empty((batch, n, 2), dtype=torch.float32,
+                           device=x.device) if log2n > 14 else None)
+    tw = twiddle_table(n, x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*ptrs, None if scratch is None else scratch.data_ptr(),
+                 tw.data_ptr(), batch, log2n, stream)
+    if err:
+        raise RuntimeError(f"{who} launch failed: CUDA error {err}")
 
 
 def fft_fwd_ref(xr: torch.Tensor, xi: torch.Tensor | None = None):
@@ -60,43 +104,74 @@ def fft_fwd(xr: torch.Tensor, xi: torch.Tensor | None = None):
     A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
     takes the plain version.  ~1e-6 of the peak (the TPU kernel's contract
     is 5e-5)."""
-    n = xr.shape[-1]
-    if not supports(n):
-        raise ValueError(f"fft_fwd needs pow2 n in [2048, 32768], got {n}")
-    for name, t in (("xr", xr), ("xi", xi)):
-        if t is None:
-            continue
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if xi is not None and (xi.shape != xr.shape or xi.device != xr.device):
-        raise ValueError("xr and xi must share shape and device")
+    n = _check_rows("fft_fwd", xr=xr, xi=xi)
     if xr.device.type == "cpu":
         return fft_fwd_ref(xr, xi)
-    if xr.device.type != "cuda":
-        raise ValueError(f"unsupported device {xr.device}")
-    require_sm90(xr.device)
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xr)
-    batch = xr.numel() // n
-    if batch == 0:
+    if xr.numel() == 0:
         return yr, yi
-    log2n = n.bit_length() - 1
-    scratch = (torch.empty((batch, n, 2), dtype=torch.float32,
-                           device=xr.device) if log2n > 14 else None)
-    tw = twiddle_table(n, xr.device)
-    fn = _lib()
-    with torch.cuda.device(xr.device):
-        stream = torch.cuda.current_stream(xr.device).cuda_stream
-        err = fn(xr.data_ptr(), None if xi is None else xi.data_ptr(),
-                 yr.data_ptr(), yi.data_ptr(),
-                 None if scratch is None else scratch.data_ptr(),
-                 tw.data_ptr(), batch, log2n, stream)
-    if err:
-        raise RuntimeError(f"fft_pow2 launch failed: CUDA error {err}")
+    _call(_lib().af_fft_pow2_fwd, "fft_pow2 forward", xr, n, xr.data_ptr(),
+          None if xi is None else xi.data_ptr(), yr.data_ptr(),
+          yi.data_ptr())
     fft_fwd.launches += 1
     return yr, yi
 
 
+def fft_inv_ref(yr: torch.Tensor, yi: torch.Tensor, out_imag: bool = True):
+    """Plain version: ``torch.fft.ifft`` of ``yr + i yi`` -> (re, im or
+    None)."""
+    x = torch.fft.ifft(torch.complex(yr, yi), dim=-1)
+    return x.real.contiguous(), (x.imag.contiguous() if out_imag else None)
+
+
+def fft_inv(yr: torch.Tensor, yi: torch.Tensor, out_imag: bool = True):
+    """Inverse FFT of a natural-order (..., n) fp32 spectrum pair -> (re,
+    im), each (..., n), 1/n included: the exact inverse of :func:`fft_fwd`.
+    ``out_imag=False`` returns ``(re, None)`` and writes no imaginary
+    output (use when the result is known to be real).
+
+    A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
+    takes the plain version."""
+    n = _check_rows("fft_inv", yr=yr, yi=yi)
+    if yr.device.type == "cpu":
+        return fft_inv_ref(yr, yi, out_imag)
+    xr = torch.empty_like(yr)
+    xi = torch.empty_like(yr) if out_imag else None
+    if yr.numel() == 0:
+        return xr, xi
+    _call(_lib().af_fft_pow2_inv, "fft_pow2 inverse", yr, n, yr.data_ptr(),
+          yi.data_ptr(), xr.data_ptr(), None if xi is None else xi.data_ptr())
+    fft_inv.launches += 1
+    return xr, xi
+
+
+def fft_autocorr_ref(xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``0.5 * Im(ifft(fft(xr + i xi)^2))``."""
+    z = torch.fft.fft(torch.complex(xr, xi), dim=-1)
+    return (0.5 * torch.fft.ifft(z * z, dim=-1).imag).contiguous()
+
+
+def fft_autocorr(xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """``0.5 * Im(ifft(fft(xr + i xi)^2))`` of two (..., n) fp32 rows: the
+    circular convolution of ``xr`` with ``xi``, in one pass over the two
+    operands (the square never leaves the card's on-chip memory at
+    n <= 16384).
+
+    A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
+    takes the plain version."""
+    n = _check_rows("fft_autocorr", xr=xr, xi=xi)
+    if xr.device.type == "cpu":
+        return fft_autocorr_ref(xr, xi)
+    out = torch.empty_like(xr)
+    if xr.numel() == 0:
+        return out
+    _call(_lib().af_fft_pow2_autocorr, "fft_pow2 autocorrelation", xr, n,
+          xr.data_ptr(), xi.data_ptr(), out.data_ptr())
+    fft_autocorr.launches += 1
+    return out
+
+
 fft_fwd.launches = 0
+fft_inv.launches = 0
+fft_autocorr.launches = 0

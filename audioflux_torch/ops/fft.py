@@ -2,9 +2,10 @@
 
 Counterpart of ``audioflux_tpu/ops/fft.py``.  Two tiers:
 
-* pow2 2048 <= n <= 32768: ``ops.cuda_fft.fft_fwd`` — the hand-written
-  CUDA kernel for a CUDA tensor, its plain version for a CPU tensor;
-* everything else (and every inverse transform): ``torch.fft``.
+* pow2 2048 <= n <= 32768: ``ops.cuda_fft.fft_fwd`` / ``fft_inv`` — the
+  hand-written CUDA kernels for a CUDA tensor, their plain versions for a
+  CPU tensor;
+* everything else: ``torch.fft``.
 
 ``exact=True`` skips the kernel tier: log-magnitude cepstral consumers
 amplify a kernel's small error on near-zero bins through log() into argmax
@@ -60,10 +61,37 @@ def fft(x: torch.Tensor, n=None, dim=-1, exact=False) -> torch.Tensor:
 
 
 def irfft(x: torch.Tensor, n=None, dim=-1, exact=False) -> torch.Tensor:
-    """Inverse real FFT (``torch.fft``; the inverse kernel is not ported)."""
-    return torch.fft.irfft(x, n=n, dim=dim)
+    ln = n if n is not None else 2 * (x.shape[dim] - 1)
+    if not _kernel_tier(ln, exact):
+        return torch.fft.irfft(x, n=n, dim=dim)
+    v = _prep(x, ln // 2 + 1, dim)
+    # hermitian extension, then the inverse kernel; the imaginary parts of
+    # the DC and Nyquist bins are dropped, torch.fft.irfft's convention on
+    # hermitian-inconsistent input
+    if v.is_complex():
+        vr = v.real.to(torch.float32)
+        vi = v.imag.to(torch.float32).clone()
+        vi[..., 0] = 0
+        vi[..., -1] = 0
+    else:
+        vr = v.to(torch.float32)
+        vi = torch.zeros_like(vr)
+    yr = torch.cat([vr, vr[..., 1:ln // 2].flip(-1)], dim=-1)
+    yi = torch.cat([vi, -vi[..., 1:ln // 2].flip(-1)], dim=-1)
+    out, _ = cuda_fft.fft_inv(yr, yi, out_imag=False)
+    return out.movedim(-1, dim)
 
 
 def ifft(x: torch.Tensor, n=None, dim=-1, exact=False) -> torch.Tensor:
-    """Inverse FFT (``torch.fft``; the inverse kernel is not ported)."""
-    return torch.fft.ifft(x, n=n, dim=dim)
+    ln = n if n is not None else x.shape[dim]
+    if not _kernel_tier(ln, exact):
+        return torch.fft.ifft(x, n=n, dim=dim)
+    v = _prep(x, ln, dim)
+    if v.is_complex():
+        vr = v.real.to(torch.float32).contiguous()
+        vi = v.imag.to(torch.float32).contiguous()
+    else:
+        vr = v.to(torch.float32).contiguous()
+        vi = torch.zeros_like(vr)
+    outr, outi = cuda_fft.fft_inv(vr, vi)
+    return torch.complex(outr, outi).movedim(-1, dim)

@@ -53,20 +53,6 @@ def _power_spec(frames, window, fft_length):
     return spec.real.square() + spec.imag.square()
 
 
-def _small_t_mel_cc(x, window, fb, dct, *, fft_length, slide_length):
-    """Short-clip (T < 8) mel+cc: batched FFT + two matmuls.
-
-    The FFT is ``ops.fft.rfft``, so pow2 2048..32768 runs the CUDA FFT
-    kernel for a CUDA tensor; the filterbank contracts the natural half
-    spectrum (n//2+1 bins)."""
-    P = _power_spec(frame_signal(x, fft_length, slide_length), window,
-                    fft_length)
-    mel = torch.matmul(P, fb.T)
-    cc = torch.matmul(torch.log10(torch.clamp(mel, min=1e-8)), dct.T)
-    return (mel.transpose(-1, -2).contiguous(),
-            cc.transpose(-1, -2).contiguous())
-
-
 def dct_matrix(n: int, dtype=np.float32) -> np.ndarray:
     """Orthonormal DCT-II matrix (row k applied to length-n frames).
 
@@ -388,17 +374,14 @@ class Spectrogram:
                                tile: int = 200, fast: bool = True):
         """Fused band spectrogram + cepstral coefficients.
 
-        Clips of 8 or more frames run the fused CUDA kernel
-        (``ops.fused_mel``): framing -> FFT -> power -> filterbank ->
-        log-DCT with only the audio and the two outputs in device memory.
-        Shorter clips run one batched FFT (the CUDA FFT kernel at pow2
-        2048..32768) and two matmuls.  Requires a plain power-domain
-        filterbank config (POWER data type, no chroma fold, norm_value 1);
-        for the kernel, slide dividing fft and 128 | slide; any frame count
-        works.  ``tile`` (the TPU kernel's frame tile; the CUDA kernel sizes
-        its own) and ``fast`` are accepted for call compatibility with the
-        TPU package: both modes run fp32.  Returns
-        ((..., num, T), (..., cc_num, T)).
+        Every frame count runs the fused CUDA kernel (``ops.fused_mel``):
+        framing -> FFT -> power -> filterbank -> log-DCT with only the
+        audio and the two outputs in device memory.  Requires a plain
+        power-domain filterbank config (POWER data type, no chroma fold,
+        norm_value 1), slide dividing fft and 128 | slide.  ``tile`` (the
+        TPU kernel's frame tile; the CUDA kernel sizes its own) and
+        ``fast`` are accepted for call compatibility with the TPU package:
+        both modes run fp32.  Returns ((..., num, T), (..., cc_num, T)).
         """
         S = SpectralFilterBankScaleType
         if (self.filter_bank is None
@@ -407,20 +390,13 @@ class Spectrogram:
                 or self.norm_value != 1):
             raise ValueError("fused path needs a plain POWER filterbank "
                              "spectrogram; use .spectrogram()")
-        x = as_tensor(data_arr, self.device)
-        n_frames = (x.shape[-1] - self.fft_length) // self.slide_length + 1
-        if n_frames < 8:
-            return _small_t_mel_cc(x, self._window_t, self._fb_t,
-                                   self._dct_t[:cc_num],
-                                   fft_length=self.fft_length,
-                                   slide_length=self.slide_length)
         plan = self._fused_cache.get(cc_num)
         if plan is None:
             plan = FusedMelPlan(self.window, self.filter_bank,
                                 self._dct[:cc_num], self.slide_length,
                                 device=self.device)
             self._fused_cache[cc_num] = plan
-        return fused_mel_mfcc(plan, x, fast=fast)
+        return fused_mel_mfcc(plan, data_arr, fast=fast)
 
     def xxcc(self, m_data_arr, cc_num: int = 13,
              rectify_type: CepstralRectifyType = CepstralRectifyType.LOG):

@@ -6,22 +6,34 @@ Phases (any failure exits non-zero; no result line is printed then):
 
 0. card identity (nvidia-smi name and power limit, torch and CUDA
    versions; sm_90 required; fp32 matmuls must not use TF32);
-1. build every kernel from ``audioflux_torch/csrc`` with nvcc;
-2. each kernel against its plain PyTorch version on the card;
-3. the main path at full size: ``MelSpectrogram(num=128, samplate=32000,
-   radix2_exp=11, slide_length=512).spectrogram_mfcc_fused`` on 1000 clips
-   of T=1000 frames, the T<8 path on 1000 clips of 4096 samples and
-   ``.spectrogram()`` on the card, each gated against ``.spectrogram()``
-   on the CPU at 1e-4 of the peak (first and last clips), and the whole
-   batch against the plain versions on the card; both kernels' launch
-   counts must be nonzero;
+1. build every kernel from ``audioflux_torch/csrc`` with nvcc (one process
+   per source, started together) and print ptxas' register, stack and
+   spill lines;
+2. each kernel against its plain PyTorch version on the card: the forward
+   and inverse FFT and the fused autocorrelation at every n in
+   2048..32768, the fused mel+MFCC kernel over eight shape classes, the
+   median kernel (``torch.equal``) over orders, odd shapes and both axes;
+3. the main paths at full size, each with the launch counts set to 0 just
+   before it and read just after:
+   a. mel+MFCC: ``MelSpectrogram(num=128, samplate=32000, radix2_exp=11,
+      slide_length=512).spectrogram_mfcc_fused`` on 1000 clips of T=1000
+      frames and on 1000 clips of 4096 samples (T=5), and
+      ``.spectrogram()``, gated against ``.spectrogram()`` on the CPU at
+      1e-4 of the peak and against the plain versions on the card;
+   b. MIR: 64 clips of 30 s at 32 kHz through ``HPSS(radix2_exp=11, HAMM,
+      slide_length=512, h_order=21, p_order=31).hpss``,
+      ``PitchYIN(samplate=32000, radix2_exp=12, slide_length=1024).pitch``
+      and ``STFT(radix2_exp=11, HANN, 512).stft`` -> ``.istft``; every
+      kernel's whole-batch output against its plain version on the card,
+      and the first and last clips against the port on the CPU;
 4. timing with CUDA events: each kernel, its plain version and the
-   library yardstick at the main path's shapes, the fused kernel cut
-   after each stage (its split), and the headline audio-hours per
-   second.
+   library yardstick at the main paths' shapes, the fused kernel cut
+   after each stage (its split), and audio-hours per second of the
+   users' calls.
 
 The second-to-last line is the kernels JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+``--upto N`` stops after phase N (a development aid: no result lines).
 """
 
 from __future__ import annotations
@@ -37,17 +49,29 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from audioflux_torch.mir import HPSS, PitchYIN  # noqa: E402
 from audioflux_torch.ops import _build  # noqa: E402
-from audioflux_torch.ops.cuda_fft import fft_fwd, fft_fwd_ref  # noqa: E402
+from audioflux_torch.ops.cuda_fft import (fft_autocorr,  # noqa: E402
+                                          fft_autocorr_ref, fft_fwd,
+                                          fft_fwd_ref, fft_inv, fft_inv_ref)
+from audioflux_torch.ops.cuda_median import (  # noqa: E402
+    median_filter_last_axis, median_filter_last_axis_ref)
 from audioflux_torch.ops.fused_mel import (FusedMelPlan,  # noqa: E402
                                            _launch, fused_mel_mfcc,
                                            fused_mel_mfcc_ref)
 from audioflux_torch.transforms.spectrogram import (  # noqa: E402
     ErbSpectrogram, MelSpectrogram)
+from audioflux_torch.transforms.stft import STFT  # noqa: E402
 from audioflux_torch.types import WindowType  # noqa: E402
 
 SR, NUM, R2E, SLIDE, T_HEAD, N_CLIPS, CC = 32000, 128, 11, 512, 1000, 1000, 13
 FFT_TOL, FP32_TOL, FAST_TOL, GATE_TOL = 5e-5, 1e-5, 2e-4, 1e-4
+# the MIR path: 64 clips of 30 s; HPSS 2048/512 orders 21/31, YIN 4096/1024
+MIR_CLIPS, MIR_SECONDS, MIR_SMALL = 64, 30, 8
+H_ORDER, P_ORDER, YIN_R2E, YIN_SLIDE = 21, 31, 12, 1024
+CE_COUNT = {21: 149, 31: 157}   # compare-exchanges of the pruned networks
+YIN_TOL, FRE_TOL_HZ, FRE_SHARE = 2e-4, 1e-2, 0.99
+FORK_SHORT_CLIP_MS = 0.3646     # the T<8 fork's call, NVIDIA H100 80GB HBM3, 700 W
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, fp32 outside tensor cores
 
@@ -65,6 +89,14 @@ def check(name, err, tol):
     print(f"  {name}: max err / peak = {err:.3e} (tol {tol:.0e})", flush=True)
     if not err <= tol:
         raise AssertionError(f"{name}: {err:.3e} > {tol:.0e}")
+
+
+def pair_err(got, ref):
+    """(max abs error, peak of |ref|) of (re, im) pairs; im may be None."""
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref)
+              if r is not None)
+    sq = sum(r.double() ** 2 for r in ref if r is not None)
+    return err, float(sq.max().sqrt())
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -122,28 +154,68 @@ def phase1_build():
     seconds = time.perf_counter() - t0
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                # the mangled name holds the kernel's own name
+                print(f"  {name}: {line.split("'")[1]}")
+            elif "registers" in line or "spill" in line:
+                print(f"  {name}:   {line.strip()}")
     print(f"  build seconds: {seconds:.2f}")
 
 
 def phase2_kernels(gen):
     phase("phase 2: kernels against their plain versions")
-    # max |kernel - plain| at the main path's n_fft, for the kernels line
-    errs = {"fft_pow2": 0.0, "fused_mel_mfcc": 0.0}
+    # max |kernel - plain| at the main paths' n, for the kernels line
+    errs = {"fft_pow2": 0.0, "fused_mel_mfcc": 0.0, "fft_inv": 0.0,
+            "fft_autocorr": 0.0, "median_filter": 0.0}
     for n in (2048, 4096, 8192, 16384, 32768):
         xr = randn((64, n), gen)
         xi = randn((64, n), gen)
         for label, args in (("real", (xr,)), ("complex", (xr, xi))):
-            yr, yi = fft_fwd(*args)
-            rr, ri = fft_fwd_ref(*args)
-            torch.cuda.synchronize()
-            peak = float(torch.sqrt(rr.double() ** 2 + ri.double() ** 2).max())
-            abs_err = max(float((yr - rr).abs().max()),
-                          float((yi - ri).abs().max()))
+            abs_err, peak = pair_err(fft_fwd(*args), fft_fwd_ref(*args))
             check(f"fft_pow2 n={n} {label}", abs_err / peak, FFT_TOL)
             if n == 1 << R2E:
                 errs["fft_pow2"] = max(errs["fft_pow2"], abs_err)
+        for out_imag in (True, False):
+            got = fft_inv(xr, xi, out_imag=out_imag)
+            if (got[1] is None) == out_imag:
+                raise AssertionError("fft_inv: wrong imaginary output")
+            abs_err, peak = pair_err(got, fft_inv_ref(xr, xi, out_imag))
+            check(f"fft_inv n={n} out_imag={out_imag}", abs_err / peak,
+                  FFT_TOL)
+            if n == 1 << R2E:
+                errs["fft_inv"] = max(errs["fft_inv"], abs_err)
+        yr, yi = fft_fwd(xr, xi)
+        abs_err, peak = pair_err(fft_inv(yr, yi), (xr, xi))
+        check(f"fft_inv(fft_fwd(x)) n={n} round trip", abs_err / peak,
+              FFT_TOL)
+        abs_err, peak = pair_err((fft_autocorr(xr, xi),),
+                                 (fft_autocorr_ref(xr, xi),))
+        check(f"fft_autocorr n={n}", abs_err / peak, FFT_TOL)
+        if n == 1 << YIN_R2E:
+            errs["fft_autocorr"] = abs_err
+    torch.cuda.synchronize()
+
+    # the median kernel, value for value: network orders (21, 31), rank
+    # counting (the rest), odd row counts, rows shorter than the order,
+    # one column, 1-D, and the strided axis (dim=-2)
+    for shape, dim in (((37, 1025), -1), ((5, 7), -1), ((9, 1), -1),
+                       ((1000,), -1), ((3, 50, 70), -2), ((2, 129, 1025), -2),
+                       ((3, 5, 4, 3), 1)):
+        x = randn(shape, gen).abs()
+        x = torch.where(x < 0.3, torch.zeros_like(x), x)  # ties and zeros
+        for order in (3, 9, 21, 31, 33):
+            ref = median_filter_last_axis_ref(x, order, dim)
+            got = median_filter_last_axis(x, order, dim)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    f"median {shape} dim={dim} order={order}: "
+                    f"{int((got != ref).sum())} cells differ")
+        print(f"  median {shape} dim={dim}: orders 3, 9, 21, 31, 33 equal "
+              "to the full sort")
+    for order in (1, 4):
+        if median_filter_last_axis(x, order) is not x:
+            raise AssertionError(f"median order {order} must return its input")
 
     # the headline, then every shape class of the kernel: n_fft 128..16384
     # (one round per tile up to four), odd bands, cosine and plain windows
@@ -212,8 +284,15 @@ def gate(label, dev_out, plan_cpu, x_cpu):
     return ref
 
 
-def phase3_main_path(gen):
-    phase("phase 3: main path at full size")
+def require_launched(path, launches):
+    print(f"  launches on the {path} path: {launches}")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"{k} was not launched on the {path} path")
+
+
+def phase3_mel_path(gen):
+    phase("phase 3a: mel+MFCC path at full size")
     plan = MelSpectrogram(num=NUM, samplate=SR, radix2_exp=R2E,
                           slide_length=SLIDE, device="cuda")
     plan_cpu = MelSpectrogram(num=NUM, samplate=SR, radix2_exp=R2E,
@@ -231,7 +310,7 @@ def phase3_main_path(gen):
     torch.cuda.synchronize()
     launches = {"fused_mel_mfcc": fused_mel_mfcc.launches,
                 "fft_pow2": fft_fwd.launches}
-    print(f"  launches on the main path: {launches}")
+    require_launched("mel+MFCC", launches)
 
     for name, t, shape in (("mel", mel, (N_CLIPS, NUM, T_HEAD)),
                            ("cc", cc, (N_CLIPS, CC, T_HEAD)),
@@ -253,18 +332,10 @@ def phase3_main_path(gen):
     check(f"fused cc (T=1000, all {N_CLIPS} clips) vs plain", err_cc,
           FP32_TOL)
     mel_r, cc_r = fused_mel_mfcc_ref(fplan, xs)
-    check(f"small-T mel (T=5, all {N_CLIPS} clips) vs plain",
-          rel_err(mel_s, mel_r), FFT_TOL)
-    check(f"small-T cc (T=5, all {N_CLIPS} clips) vs plain",
-          rel_err(cc_s, cc_r), FFT_TOL)
-    rows_w = (xs.unfold(-1, plan.fft_length, SLIDE)
-              * plan._window_t).contiguous()
-    yr, yi = fft_fwd(rows_w)
-    rr, ri = fft_fwd_ref(rows_w)
-    peak = float(torch.sqrt(rr.double() ** 2 + ri.double() ** 2).max())
-    check(f"fft_pow2 all {rows_w.numel() // plan.fft_length} small-T rows "
-          "vs plain", max(float((yr - rr).abs().max()),
-                          float((yi - ri).abs().max())) / peak, FFT_TOL)
+    check(f"fused mel (T=5, all {N_CLIPS} clips) vs plain",
+          rel_err(mel_s, mel_r), FP32_TOL)
+    check(f"fused cc (T=5, all {N_CLIPS} clips) vs plain",
+          rel_err(cc_s, cc_r), FP32_TOL)
 
     # the exact path on the CPU, at the first and the last clips
     for sl, at in ((slice(0, 2), "first"), (slice(-2, None), "last")):
@@ -272,22 +343,193 @@ def phase3_main_path(gen):
                    x[sl].cpu())
         check(f"fused cc (T=1000, {at} 2 clips) vs CPU xxcc",
               rel_err(cc[sl].cpu(), plan_cpu.xxcc(ref, CC)), GATE_TOL)
-        ref_s = gate(f"small-T mel (T=5, {at} 2 clips)", mel_s[sl],
+        ref_s = gate(f"fused mel (T=5, {at} 2 clips)", mel_s[sl],
                      plan_cpu, xs[sl].cpu())
-        check(f"small-T cc (T=5, {at} 2 clips) vs CPU xxcc",
+        check(f"fused cc (T=5, {at} 2 clips) vs CPU xxcc",
               rel_err(cc_s[sl].cpu(), plan_cpu.xxcc(ref_s, CC)), GATE_TOL)
     gate(".spectrogram() on the card (first 2 of 8 clips)", spec[:2],
          plan_cpu, x[:2].cpu())
     gate(".spectrogram() on the card (last 2 of 8 clips)", spec[-2:],
          plan_cpu, x[6:8].cpu())
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"{k} was not launched on the main path")
     return plan, x, xs, launches
 
 
+def mir_signal(n_clips, n, gen):
+    """(n_clips, n) test audio: per clip a tone with vibrato and one
+    overtone (so that YIN finds real troughs), a click train (so that HPSS
+    has a percussive part) and low noise."""
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand((n_clips, 1), generator=gen,
+                                           device="cuda")
+    t = torch.arange(n, device="cuda", dtype=torch.float32) / SR
+    f0, rate, depth = u(110.0, 880.0), u(4.0, 7.0), u(0.002, 0.01)
+    ph = 2 * math.pi * (f0 * t + depth * f0 / (2 * math.pi * rate)
+                        * torch.sin(2 * math.pi * rate * t))
+    x = 0.4 * torch.sin(ph) + 0.15 * torch.sin(2 * ph)
+    del ph
+    period = (u(0.3, 0.7) * SR).long()
+    idx = torch.arange(n, device="cuda")
+    clicks = ((idx % period) < 64).to(torch.float32)
+    x += clicks * randn((n_clips, n), gen, 0.6)
+    x += randn((n_clips, n), gen, 0.01)
+    return x
+
+
+def whole_batch(label, fn, ref_fn, tensors, chunk, tol=None):
+    """Hold ``fn(*tensors)`` against ``ref_fn`` over the whole batch, the
+    plain version run in chunks of ``chunk`` along axis 0.  ``tol=None``
+    demands equality value for value."""
+    got = fn(*tensors)
+    got = got if isinstance(got, tuple) else (got,)
+    err = peak = 0.0
+    for lo in range(0, tensors[0].shape[0], chunk):
+        ref = ref_fn(*(t[lo:lo + chunk] for t in tensors))
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        part = tuple(g[lo:lo + chunk] for g in got)
+        if tol is None:
+            if not all(torch.equal(g, r) for g, r in zip(part, ref)):
+                raise AssertionError(f"{label}: differs from the plain "
+                                     f"version in clips {lo}..{lo + chunk}")
+        else:
+            e, pk = pair_err(part, ref)
+            err, peak = max(err, e), max(peak, pk)
+        del ref
+    if tol is None:
+        print(f"  {label}: equal to the plain version, value for value")
+        return 0.0
+    check(label, err / peak, tol)
+    return err
+
+
+def phase3_mir_path(gen, errs):
+    phase(f"phase 3b: MIR path at full size ({MIR_CLIPS} clips of "
+          f"{MIR_SECONDS} s)")
+    n = MIR_SECONDS * SR
+    hp = HPSS(radix2_exp=R2E, window_type=WindowType.HAMM, slide_length=SLIDE,
+              h_order=H_ORDER, p_order=P_ORDER)
+    yin = PitchYIN(samplate=SR, radix2_exp=YIN_R2E, slide_length=YIN_SLIDE)
+    st = STFT(radix2_exp=R2E, window_type=WindowType.HANN, slide_length=SLIDE)
+    x = mir_signal(MIR_CLIPS, n, gen)
+    torch.cuda.synchronize()
+
+    kernels = {"fft_pow2": fft_fwd, "fft_inv": fft_inv,
+               "fft_autocorr": fft_autocorr,
+               "median_filter": median_filter_last_axis}
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    h, p = hp.hpss(x)
+    fre, val = yin.pitch(x)
+    D = st.stft(x)
+    xrt = st.istft(D)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    require_launched("MIR", launches)
+    print(f"  peak device memory on the MIR path: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    T = hp.cal_time_length(n)
+    Ty = yin.cal_time_length(n)
+    for name, t, shape in (("h", h, (MIR_CLIPS, hp.cal_data_length(n))),
+                           ("p", p, (MIR_CLIPS, hp.cal_data_length(n))),
+                           ("fre", fre, (MIR_CLIPS, Ty)),
+                           ("val", val, (MIR_CLIPS, Ty)),
+                           ("stft", D, (MIR_CLIPS, (1 << R2E) // 2 + 1, T)),
+                           ("istft", xrt, (MIR_CLIPS, st.cal_data_length(T)))):
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{name}: shape {tuple(t.shape)} or "
+                                 "non-finite values")
+    voiced = float((fre > 0).float().mean())
+    print(f"  YIN: {voiced:.1%} of {fre.numel()} frames voiced")
+    if voiced < 0.5:
+        raise AssertionError("the test signal left YIN mostly unvoiced")
+    span = slice(1 << R2E, xrt.shape[-1] - (1 << R2E))
+    check("STFT -> ISTFT round trip vs the input (interior, all clips)",
+          rel_err(xrt[:, span], x[:, span]), GATE_TOL)
+    check("h + p vs the input (interior, all clips)",
+          rel_err((h + p)[:, span], x[:, span]), GATE_TOL)
+    del D, xrt
+
+    # every kernel's whole-batch output against its plain version, at the
+    # inputs the entry points gave it (rebuilt here as hpss and pitch do)
+    m = (1 << R2E) // 2 + 1
+    rows = (x.unfold(-1, 1 << R2E, SLIDE) * hp._window_t).contiguous()
+    errs["fft_pow2"] = max(errs["fft_pow2"], whole_batch(
+        f"fft_pow2 forward, all {rows.numel() >> R2E} HPSS rows vs plain",
+        fft_fwd, fft_fwd_ref, (rows,), 8, FFT_TOL))
+    zr, zi = fft_fwd(rows)
+    del rows
+    mag = torch.sqrt(zr * zr + zi * zi)[..., :m].contiguous()
+    errs["median_filter"] = whole_batch(
+                f"median order {H_ORDER} over time, {mag.numel()} cells",
+                lambda t: median_filter_last_axis(t, H_ORDER, dim=-2),
+                lambda t: median_filter_last_axis_ref(t, H_ORDER, dim=-2),
+                (mag,), 4)
+    errs["median_filter"] += whole_batch(
+                f"median order {P_ORDER} over frequency, {mag.numel()} cells",
+                lambda t: median_filter_last_axis(t, P_ORDER),
+                lambda t: median_filter_last_axis_ref(t, P_ORDER),
+                (mag,), 4)
+    hm = median_filter_last_axis(mag, H_ORDER, dim=-2)
+    pm = median_filter_last_axis(mag, P_ORDER)
+    h2, p2 = hm * hm, pm * pm
+    del hm, pm
+    denom = torch.clamp(h2 + p2, min=1e-16)
+    mirror = lambda M: torch.cat([M, M[..., 1:m - 1].flip(-1)], dim=-1)
+    Mh, Mp = mirror(h2 / denom), mirror(p2 / denom)
+    del h2, p2, denom
+    pr, pi = Mh * zr - Mp * zi, Mh * zi + Mp * zr
+    del Mh, Mp, zr, zi
+    errs["fft_inv"] = max(errs["fft_inv"], whole_batch(
+        f"fft_inv, all {pr.numel() >> R2E} HPSS rows vs plain",
+        fft_inv, fft_inv_ref, (pr, pi), 8, FFT_TOL))
+    auto = yin.auto_length
+    fr = x.unfold(-1, 1 << YIN_R2E, YIN_SLIDE).contiguous()
+    rev = torch.nn.functional.pad(fr[..., :auto + 1].flip(-1),
+                                  (0, (1 << YIN_R2E) - auto - 1))
+    errs["fft_autocorr"] = max(errs["fft_autocorr"], whole_batch(
+        f"fft_autocorr, all {fr.numel() >> YIN_R2E} YIN rows vs plain",
+        fft_autocorr, fft_autocorr_ref, (fr, rev), 8, FFT_TOL))
+
+    # the first and the last clip against the port on the CPU
+    ends = [0, MIR_CLIPS - 1]
+    x_cpu = x[ends].cpu()
+    cpu = {"device": "cpu"}
+    h_c, p_c = HPSS(radix2_exp=R2E, window_type=WindowType.HAMM,
+                    slide_length=SLIDE, h_order=H_ORDER, p_order=P_ORDER,
+                    **cpu).hpss(x_cpu)
+    peak = float(x_cpu.abs().max())
+    check("gate HPSS h (first and last clip) vs CPU",
+          float((h[ends].cpu() - h_c).abs().max()) / peak, GATE_TOL)
+    check("gate HPSS p (first and last clip) vs CPU",
+          float((p[ends].cpu() - p_c).abs().max()) / peak, GATE_TOL)
+    st_c = STFT(radix2_exp=R2E, window_type=WindowType.HANN,
+                slide_length=SLIDE, **cpu)
+    check("gate STFT -> ISTFT (first and last clip) vs CPU",
+          rel_err(st.istft(st.stft(x[ends])).cpu(),
+                  st_c.istft(st_c.stft(x_cpu))), GATE_TOL)
+    yin_c = PitchYIN(samplate=SR, radix2_exp=YIN_R2E, slide_length=YIN_SLIDE,
+                     **cpu)
+    fre_c, val_c = yin_c.pitch(x_cpu)
+    fre_e, _ = yin.pitch(x[ends])
+    got, ref = yin._yin_mat.cpu(), yin_c._yin_mat
+    excess = float(((got - ref).abs() - YIN_TOL * ref.abs()).max())
+    print(f"  gate YIN CMND matrix (first and last clip) vs CPU: max "
+          f"|diff| - rtol*|ref| = {excess:.3e} (atol {YIN_TOL:.0e})")
+    if not excess <= YIN_TOL:
+        raise AssertionError("YIN CMND matrix outside atol = rtol = 2e-4")
+    near = (fre_e.cpu() - fre_c).abs() <= FRE_TOL_HZ
+    print(f"  gate YIN fre within {FRE_TOL_HZ} Hz of the CPU on "
+          f"{int(near.sum())} of {near.numel()} frames "
+          f"({near.numel() - int(near.sum())} knife-edge frames)")
+    if float(near.float().mean()) < FRE_SHARE:
+        raise AssertionError("YIN fre agrees on fewer than 99% of the frames")
+    return dict(hp=hp, yin=yin, st=st, x=x, mag=mag, pr=pr, pi=pi, fr=fr,
+                rev=rev, launches=launches)
+
+
 def phase4_timing(plan, x, xs, launches, errs):
-    phase("phase 4: timing (CUDA events, median)")
+    phase("phase 4a: mel+MFCC timing (CUDA events, median)")
     rows = []
 
     # --- fused_mel_mfcc at the headline shape --------------------------
@@ -315,17 +557,11 @@ def phase4_timing(plan, x, xs, launches, errs):
     n_bytes = 4 * (B * n + B * (NUM + CC) * T)
     n_flops = frames * (2.5 * nfft * math.log2(nfft) + 2 * fplan.band_nnz
                         + NUM + 2 * CC * NUM)
-    b_ms, b_by = bound_ms(n_bytes, n_flops)
-    rows.append({"name": "fused_mel_mfcc", "route": "cuda",
-                 "source": "audioflux_torch/csrc/fused_mel_mfcc.cu",
-                 "replaces": "audioflux_tpu/ops/pallas_spectrogram.py:1250",
-                 "launches": launches["fused_mel_mfcc"],
-                 "max_abs_err": errs["fused_mel_mfcc"], "ms": k_ms,
-                 "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                 "library_ms": l_ms})
-    print(f"  fused_mel_mfcc {B}x{n}: kernel {k_ms:.3f} ms, plain "
-          f"{p_ms:.3f} ms, library {l_ms:.3f} ms, bound {b_ms:.3f} ms "
-          f"({b_by}: {n_bytes / 1e9:.3f} GB, {n_flops / 1e9:.2f} GFLOP)")
+    rows.append(kernel_row(
+        "fused_mel_mfcc", "fused_mel_mfcc",
+        "audioflux_tpu/ops/pallas_spectrogram.py:1250",
+        launches["fused_mel_mfcc"], errs["fused_mel_mfcc"], k_ms, p_ms, l_ms,
+        n_bytes, n_flops, f"{B}x{n}"))
 
     # the kernel cut after each stage: the differences split its time
     cut_ms = [cuda_ms(lambda s=s: _launch(fplan, x, T, stages=s), reps=10)
@@ -345,45 +581,168 @@ def phase4_timing(plan, x, xs, launches, errs):
           f"{audio_hours / (e2e_ms / 1e3):.1f} audio-hours/s; outside the "
           f"kernel (difference of medians): {e2e_ms - k_ms:.3f} ms")
 
-    # --- fft_pow2 at the small-T path's shape (1000 clips x 5 frames) --
-    rows_w = (xs.unfold(-1, nfft, SLIDE) * plan._window_t).contiguous()
-    k_ms = cuda_ms(lambda: fft_fwd(rows_w), reps=20)
-    p_ms = cuda_ms(lambda: fft_fwd_ref(rows_w), reps=20)
-    l_ms = cuda_ms(lambda: torch.fft.fft(rows_w, dim=-1), reps=20)
-    nrows = rows_w.numel() // nfft
-    n_bytes = 4 * rows_w.numel() + 8 * rows_w.numel()
-    n_flops = nrows * 5.0 * nfft * math.log2(nfft)
-    b_ms, b_by = bound_ms(n_bytes, n_flops)
-    rows.append({"name": "fft_pow2", "route": "cuda",
-                 "source": "audioflux_torch/csrc/fft_pow2.cu",
-                 "replaces": "audioflux_tpu/ops/pallas_fft.py:346",
-                 "launches": launches["fft_pow2"],
-                 "max_abs_err": errs["fft_pow2"], "ms": k_ms,
-                 "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                 "library_ms": l_ms})
-    print(f"  fft_pow2 {nrows}x{nfft} real: kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by})")
+    # short clips (1000 x 4096 samples, T=5): the fused kernel runs every
+    # frame count; until the T<8 fork was removed this call took
+    # FORK_SHORT_CLIP_MS through a batched FFT and two matmuls
     e2e_s = cuda_ms(lambda: plan.spectrogram_mfcc_fused(xs, cc_num=CC),
                     reps=20)
     hours_s = xs.shape[0] * xs.shape[1] / SR / 3600.0
-    print(f"  small-T spectrogram_mfcc_fused {xs.shape[0]}x{xs.shape[1]}: "
-          f"{e2e_s:.4f} ms, {hours_s / (e2e_s / 1e3):.1f} audio-hours/s")
-    # the fused kernel at the same T=5 batch, beside the small-T route
-    f_ms = cuda_ms(lambda: fused_mel_mfcc(fplan, xs), reps=20)
-    print(f"  fused_mel_mfcc at the small-T batch {xs.shape[0]}x"
-          f"{xs.shape[1]}: {f_ms:.4f} ms (small-T route {e2e_s:.4f} ms)")
+    print(f"  short-clip spectrogram_mfcc_fused {xs.shape[0]}x{xs.shape[1]}: "
+          f"{e2e_s:.4f} ms, {hours_s / (e2e_s / 1e3):.1f} audio-hours/s "
+          f"(the removed T<8 fork: {FORK_SHORT_CLIP_MS} ms)")
+    if not e2e_s <= FORK_SHORT_CLIP_MS:
+        raise AssertionError("the short-clip call is slower than the fork "
+                             "it replaced")
+    return rows
+
+
+def kernel_row(name, source, replaces, launches, err, k_ms, p_ms, l_ms,
+               n_bytes, n_ops, what):
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    print(f"  {name} {what}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+          f"library {l_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}: "
+          f"{n_bytes / 1e9:.3f} GB, {n_ops / 1e9:.2f} G operations)")
+    return {"name": name, "route": "cuda",
+            "source": f"audioflux_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": l_ms}
+
+
+def chunked(fn, tensors, chunk):
+    """``fn`` over chunks of ``chunk`` along axis 0 (what fits the card)."""
+    def run():
+        for lo in range(0, tensors[0].shape[0], chunk):
+            fn(*(t[lo:lo + chunk] for t in tensors))
+    return run
+
+
+def phase4_mir_timing(mir, mel_launches, errs):
+    phase("phase 4b: MIR path timing (CUDA events, median)")
+    rows = []
+    hp, yin, st, x = mir["hp"], mir["yin"], mir["st"], mir["x"]
+    launches = mir["launches"]
+    nfft, ny = 1 << R2E, 1 << YIN_R2E
+
+    # --- fft_pow2 forward at the HPSS shape (real input) ----------------
+    frames = (x.unfold(-1, nfft, SLIDE) * hp._window_t).contiguous()
+    nrows = frames.numel() // nfft
+    k_ms = cuda_ms(lambda: fft_fwd(frames), reps=10)
+    p_ms = cuda_ms(chunked(fft_fwd_ref, (frames,), 16), reps=3, warmup=1)
+    l_ms = cuda_ms(chunked(lambda t: torch.fft.fft(t, dim=-1), (frames,),
+                           16), reps=3, warmup=1)
+    rows.append(kernel_row(
+        "fft_pow2", "fft_pow2", "audioflux_tpu/ops/pallas_fft.py:346",
+        launches["fft_pow2"] + mel_launches["fft_pow2"], errs["fft_pow2"],
+        k_ms, p_ms, l_ms, 12 * frames.numel(),
+        nrows * 5.0 * nfft * math.log2(nfft), f"forward {nrows}x{nfft} real"))
+    del frames
+
+    # --- fft_inv at the HPSS shape (complex in, complex out) ------------
+    pr, pi = mir["pr"], mir["pi"]
+    z = torch.complex(pr, pi)
+    k_ms = cuda_ms(lambda: fft_inv(pr, pi), reps=10)
+    p_ms = cuda_ms(chunked(fft_inv_ref, (pr, pi), 16), reps=3, warmup=1)
+    l_ms = cuda_ms(chunked(lambda t: torch.fft.ifft(t, dim=-1), (z,), 16),
+                   reps=3, warmup=1)
+    rows.append(kernel_row(
+        "fft_inv", "fft_pow2", "audioflux_tpu/ops/pallas_fft.py:360",
+        launches["fft_inv"], errs["fft_inv"], k_ms, p_ms, l_ms, 16 * pr.numel(),
+        nrows * 5.0 * nfft * math.log2(nfft), f"{nrows}x{nfft} complex"))
+    r_ms = cuda_ms(lambda: fft_inv(pr, pi, out_imag=False), reps=10)
+    print(f"  fft_inv out_imag=False (the ISTFT's call): {r_ms:.3f} ms")
+    del z
+
+    # --- fft_autocorr at the YIN shape ----------------------------------
+    fr, rev = mir["fr"], mir["rev"]
+    yrows = fr.numel() // ny
+    z = torch.complex(fr, rev)
+
+    def library(t):
+        s = torch.fft.fft(t, dim=-1)
+        return torch.fft.ifft(s * s, dim=-1)
+    k_ms = cuda_ms(lambda: fft_autocorr(fr, rev), reps=10)
+    p_ms = cuda_ms(chunked(fft_autocorr_ref, (fr, rev), 16), reps=3,
+                   warmup=1)
+    l_ms = cuda_ms(chunked(library, (z,), 16), reps=3, warmup=1)
+    rows.append(kernel_row(
+        "fft_autocorr", "fft_pow2", "audioflux_tpu/ops/pallas_fft.py:267",
+        launches["fft_autocorr"], errs["fft_autocorr"], k_ms, p_ms, l_ms,
+        12 * fr.numel(), yrows * (10.0 * ny * math.log2(ny) + 6.0 * ny),
+        f"{yrows}x{ny}"))
+    del z
+
+    # --- the median kernel: HPSS's two calls, timed apart and together --
+    mag = mir["mag"]
+    cells = mag.numel()
+    h_ms = cuda_ms(lambda: median_filter_last_axis(mag, H_ORDER, dim=-2),
+                   reps=10)
+    f_ms = cuda_ms(lambda: median_filter_last_axis(mag, P_ORDER), reps=10)
+    for what, ms, order in (("time axis, strided", h_ms, H_ORDER),
+                            ("frequency axis, last", f_ms, P_ORDER)):
+        b_ms, b_by = bound_ms(8 * cells, 2 * CE_COUNT[order] * cells)
+        print(f"  median order {order} ({what}) over {cells} cells: "
+              f"{ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    g_ms = cuda_ms(lambda: median_filter_last_axis(mag, P_ORDER + 2),
+                   reps=3, warmup=1)
+    print(f"  median order {P_ORDER + 2} by rank counting (the path of the "
+          f"orders without a network): {g_ms:.3f} ms")
+
+    def both(fn):
+        def run(t):
+            fn(t, H_ORDER, -2)
+            fn(t, P_ORDER, -1)
+        return run
+
+    def library_median(t, order, dim):
+        t = t.movedim(dim, -1)
+        half = order // 2
+        torch.nn.functional.pad(t, (half, half)).unfold(-1, order, 1).median(
+            dim=-1)
+    p_ms = cuda_ms(chunked(both(median_filter_last_axis_ref), (mag,), 4),
+                   reps=2, warmup=1)
+    l_ms = cuda_ms(chunked(both(library_median), (mag,), 4), reps=2,
+                   warmup=1)
+    rows.append(kernel_row(
+        "median_filter", "median_filter",
+        "audioflux_tpu/ops/pallas_median.py:108",
+        launches["median_filter"], errs["median_filter"], h_ms + f_ms, p_ms,
+        l_ms, 2 * 8 * cells,
+        2 * (CE_COUNT[H_ORDER] + CE_COUNT[P_ORDER]) * cells,
+        f"orders {H_ORDER} + {P_ORDER} over {cells} cells (both HPSS calls)"))
+
+    # --- the users' calls: audio-hours per second ------------------------
+    for clips in (MIR_CLIPS, MIR_SMALL):
+        xb = x[:clips]
+        hours = clips * x.shape[1] / SR / 3600.0
+        for name, fn in (("HPSS.hpss", lambda: hp.hpss(xb)),
+                         ("PitchYIN.pitch", lambda: yin.pitch(xb)),
+                         ("STFT.stft -> .istft",
+                          lambda: st.istft(st.stft(xb)))):
+            ms = cuda_ms(fn, reps=5, warmup=1)
+            print(f"  {name} {clips}x{MIR_SECONDS} s: {ms:.3f} ms, "
+                  f"{hours / (ms / 1e3):.1f} audio-hours/s")
     return rows
 
 
 def main():
+    upto = int(sys.argv[sys.argv.index("--upto") + 1]) if "--upto" in sys.argv else 4
     smi = phase0_identity()
     phase1_build()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    if upto < 2:
+        return
     errs = phase2_kernels(gen)
-    plan, x, xs, launches = phase3_main_path(gen)
-    rows = phase4_timing(plan, x, xs, launches, errs)
+    if upto < 3:
+        return
+    plan, x, xs, mel_launches = phase3_mel_path(gen)
+    mir = phase3_mir_path(gen, errs)
+    if upto < 4:
+        return
+    rows = phase4_timing(plan, x, xs, mel_launches, errs)
+    del plan, x, xs
+    rows += phase4_mir_timing(mir, mel_launches, errs)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

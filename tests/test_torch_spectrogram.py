@@ -133,8 +133,8 @@ def test_xxcc_standard(signals):
 
 @pytest.mark.parametrize("n_frames", [1, 5, 8, 37])
 def test_spectrogram_mfcc_fused_routes(n_frames):
-    """T < 8 runs the batched-FFT route, T >= 8 the fused kernel's route;
-    both against the JAX exact path (and its own small-T route)."""
+    """Every frame count runs the fused kernel's route; against the JAX
+    exact path (and, at T < 8, the JAX package's small-T route)."""
     j, t = _pair("MelSpectrogram", num=128, samplate=SR, radix2_exp=R2E,
                  slide_length=SLIDE)
     x = (np.random.default_rng(n_frames).standard_normal(
@@ -147,9 +147,7 @@ def test_spectrogram_mfcc_fused_routes(n_frames):
         mel_j, cc_j = j.spectrogram_mfcc_fused(x, cc_num=13)
         _close(mel, mel_j, 1e-4, "mel small-T")
         _close(cc, cc_j, 1e-4, "cc small-T")
-        assert not t._fused_cache
-    else:
-        assert list(t._fused_cache) == [13]
+    assert list(t._fused_cache) == [13]
 
 
 def test_fused_rejections_and_norm_value(signals):
@@ -252,6 +250,14 @@ def test_port_imports_no_jax():
     code = ("import sys; import audioflux_torch; "
             "import audioflux_torch.transforms.spectrogram; "
             "import audioflux_torch.ops.fused_mel, audioflux_torch.core; "
+            "import audioflux_torch.transforms.stft, audioflux_torch.mir; "
+            "import audioflux_torch.mir.hpss, audioflux_torch.mir.pitch_yin; "
+            "import audioflux_torch.ops.pad, audioflux_torch.ops.filter; "
+            "import audioflux_torch.ops.cuda_fft; "
+            "import audioflux_torch.ops.cuda_median; "
+            "import audioflux_torch.convert, audioflux_torch.ops.fft; "
+            "from audioflux_torch import (STFT, StreamingSTFT, stft, istft, "
+            "HPSS, PitchYIN); "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'audioflux_tpu', "
             "'ml_dtypes'))]; "
