@@ -2,10 +2,13 @@
 
 It carries the filterbank spectrograms (mel/bark/erb/linear/octave/
 chroma), the cepstral family, the fused mel+MFCC throughput path,
-STFT/ISTFT (also streaming), HPSS and YIN pitch, with hand-written Hopper
-(sm_90a) kernels for the fused pipeline (``ops.fused_mel``), the pow2 FFT
-forward, inverse and fused autocorrelation (``ops.cuda_fft``) and the
-sliding median (``ops.cuda_median``).
+STFT/ISTFT (also streaming), HPSS, YIN pitch and the wavelet family (CWT,
+PWT, synchrosqueezing, WSST), with hand-written Hopper (sm_90a) kernels
+for the fused pipeline (``ops.fused_mel``), the pow2 FFT forward, inverse
+and fused autocorrelation (``ops.cuda_fft``), the sliding median
+(``ops.cuda_median``), the wavelet filterbank convolution
+(``ops.cuda_cwt``), the phase unwrap + difference (``ops.cuda_unwrap``)
+and the reassignment scatter (``ops.cuda_scatter``).
 
 Plans and one-shots take ``device=None``, which means ``cuda``: with no
 CUDA device they raise; pass ``device="cpu"`` to run the plain PyTorch
@@ -24,6 +27,7 @@ from audioflux_torch.types import (
     CepstralEnergyType,
     PaddingPositionType,
     PaddingModeType,
+    WaveletContinueType,
 )
 from audioflux_torch.transforms.spectrogram import (
     Spectrogram, MelSpectrogram, BarkSpectrogram, ErbSpectrogram,
@@ -31,6 +35,10 @@ from audioflux_torch.transforms.spectrogram import (
 from audioflux_torch.transforms.stft import (
     STFT, StreamingSTFT, stft, istft,
 )
+from audioflux_torch.transforms.cwt import CWT, cwt_filter_bank
+from audioflux_torch.transforms.pwt import PWT
+from audioflux_torch.transforms.synsq import Synsq
+from audioflux_torch.transforms.wsst import WSST
 from audioflux_torch.features.xxcc import XXCC
 from audioflux_torch.mir import HPSS, PitchYIN
 from audioflux_torch.core import (

@@ -24,7 +24,8 @@ __all__ = ["SOURCES", "build", "load"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fft_pow2", "fused_mel_mfcc", "median_filter")
+SOURCES = ("fft_pow2", "fused_mel_mfcc", "median_filter", "cwt_ifft_bank",
+           "unwrap_diff", "columnar_scatter")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 

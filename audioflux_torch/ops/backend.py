@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "require_sm90", "as_tensor"]
+__all__ = ["resolve_device", "require_sm90", "as_tensor", "f32_scalar"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -51,3 +51,11 @@ def as_tensor(x, device: torch.device) -> torch.Tensor:
     if not x.flags.writeable:  # e.g. a read-only view of another library's buffer
         x = x.copy()
     return torch.from_numpy(x).to(device)
+
+
+def f32_scalar(value: float, device) -> torch.Tensor:
+    """``float32(value)`` as a 0-dim tensor on ``device``.  Dividing by it
+    is a true IEEE division on both devices; dividing a CUDA tensor by a
+    Python number multiplies by the reciprocal instead, which differs from
+    the CPU's quotient on knife-edge cells."""
+    return torch.tensor(np.float32(value), dtype=torch.float32, device=device)

@@ -1,3 +1,7 @@
 from audioflux_torch.transforms.spectrogram import (
     Spectrogram, MelSpectrogram, BarkSpectrogram, ErbSpectrogram,
 )
+from audioflux_torch.transforms.cwt import CWT, cwt_filter_bank
+from audioflux_torch.transforms.pwt import PWT
+from audioflux_torch.transforms.synsq import Synsq
+from audioflux_torch.transforms.wsst import WSST

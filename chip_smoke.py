@@ -13,8 +13,13 @@ Phases (any failure exits non-zero; no result line is printed then):
    and inverse FFT and the fused autocorrelation at every n in
    2048..32768, the fused mel+MFCC kernel over eight shape classes, the
    median kernel (``torch.equal``) over orders, odd shapes and both axes;
+   ``cwt_ifft_bank`` at N = 16384..131072 (``det`` both ways, padded,
+   ``pad = 0`` and an odd slice, with and without the support rows, a PWT
+   bank; 1e-5 of the peak); ``unwrap_diff`` and ``columnar_scatter``
+   (``torch.equal``) over phases, index patterns and odd shapes;
 3. the main paths at full size, each with the launch counts set to 0 just
-   before it and read just after:
+   before it and read just after (3c runs after 4b, when the MIR path's
+   tensors are freed):
    a. mel+MFCC: ``MelSpectrogram(num=128, samplate=32000, radix2_exp=11,
       slide_length=512).spectrogram_mfcc_fused`` on 1000 clips of T=1000
       frames and on 1000 clips of 4096 samples (T=5), and
@@ -26,6 +31,12 @@ Phases (any failure exits non-zero; no result line is printed then):
       and ``STFT(radix2_exp=11, HANN, 512).stft`` -> ``.istft``; every
       kernel's whole-batch output against its plain version on the card,
       and the first and last clips against the port on the CPU;
+   c. wavelet: ``CWT(num=84, radix2_exp=15, MORLET, OCTAVE).cwt`` ->
+      ``Synsq(num=84, radix2_exp=15).synsq`` on 16 and on 128 noise clips
+      of 32768 samples, ``WSST.wsst`` and ``PWT.pwt`` on 16; the three
+      wavelet kernels' whole-batch outputs against their plain versions,
+      the kernel path against ``force_xla_unwrap=True`` (bin flips and
+      mass), and the first and last clips against the port on the CPU;
 4. timing with CUDA events: each kernel, its plain version and the
    library yardstick at the main paths' shapes, the fused kernel cut
    after each stage (its split), and audio-hours per second of the
@@ -50,19 +61,34 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from audioflux_torch.mir import HPSS, PitchYIN  # noqa: E402
+from audioflux_torch.filterbank.auditory import (  # noqa: E402
+    auditory_filter_bank)
 from audioflux_torch.ops import _build  # noqa: E402
+from audioflux_torch.ops.cuda_cwt import (band_row_counts,  # noqa: E402
+                                          cwt_ifft_bank, cwt_ifft_bank_ref)
 from audioflux_torch.ops.cuda_fft import (fft_autocorr,  # noqa: E402
                                           fft_autocorr_ref, fft_fwd,
                                           fft_fwd_ref, fft_inv, fft_inv_ref)
 from audioflux_torch.ops.cuda_median import (  # noqa: E402
     median_filter_last_axis, median_filter_last_axis_ref)
+from audioflux_torch.ops.cuda_scatter import (  # noqa: E402
+    columnar_scatter, columnar_scatter_ref)
+from audioflux_torch.ops.cuda_unwrap import (unwrap_diff,  # noqa: E402
+                                             unwrap_diff_ref)
 from audioflux_torch.ops.fused_mel import (FusedMelPlan,  # noqa: E402
                                            _launch, fused_mel_mfcc,
                                            fused_mel_mfcc_ref)
 from audioflux_torch.transforms.spectrogram import (  # noqa: E402
     ErbSpectrogram, MelSpectrogram)
+from audioflux_torch.transforms.cwt import (CWT,  # noqa: E402
+                                            _symmetric_pad)
+from audioflux_torch.transforms.pwt import PWT  # noqa: E402
 from audioflux_torch.transforms.stft import STFT  # noqa: E402
-from audioflux_torch.types import WindowType  # noqa: E402
+from audioflux_torch.transforms.synsq import (Synsq, _bin_map,  # noqa: E402
+                                              _synsq_map)
+from audioflux_torch.transforms.wsst import WSST  # noqa: E402
+from audioflux_torch.types import (  # noqa: E402
+    SpectralFilterBankScaleType, WaveletContinueType, WindowType)
 
 SR, NUM, R2E, SLIDE, T_HEAD, N_CLIPS, CC = 32000, 128, 11, 512, 1000, 1000, 13
 FFT_TOL, FP32_TOL, FAST_TOL, GATE_TOL = 5e-5, 1e-5, 2e-4, 1e-4
@@ -72,6 +98,12 @@ H_ORDER, P_ORDER, YIN_R2E, YIN_SLIDE = 21, 31, 12, 1024
 CE_COUNT = {21: 149, 31: 157}   # compare-exchanges of the pruned networks
 YIN_TOL, FRE_TOL_HZ, FRE_SHARE = 2e-4, 1e-2, 0.99
 FORK_SHORT_CLIP_MS = 0.3646     # the T<8 fork's call, NVIDIA H100 80GB HBM3, 700 W
+# the wavelet path: CWT morlet, 84 octave bands, 2^15 samples (padded
+# transform length 65536) -> synchrosqueezing; 16 clips and 128 clips
+WAV_NUM, WAV_R2E, WAV_CLIPS, WAV_SMALL = 84, 15, 128, 16
+WAV_KW = dict(num=WAV_NUM, radix2_exp=WAV_R2E, samplate=SR)
+OCTAVE = SpectralFilterBankScaleType.OCTAVE
+FLIP_TOL, FLIP_SHARE, MASS_TOL = 1e-5, 5e-3, 1e-4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, fp32 outside tensor cores
 
@@ -275,6 +307,106 @@ def phase2_kernels(gen):
         for what, a, b in (("mel", mel, mel_r), ("cc", cc, cc_r)):
             check(f"fused {label} {what}", rel_err(a, b), FP32_TOL)
     return errs
+
+
+def complex_err(got, ref):
+    """(max abs error, peak of |ref|) of two complex tensors."""
+    return float((got - ref).abs().max()), float(ref.abs().max())
+
+
+def wrapped_phases(rows, T, gen):
+    """Wrapped phases that stress the unwrap: large random steps (wraps
+    both ways, counts far past 2 pi), a slow drift, steady steps next to pi
+    (the knife edge) and plain noise."""
+    def wrap(t):
+        return torch.atan2(torch.sin(t), torch.cos(t))
+    u = torch.rand((rows, T), generator=gen, device="cuda")
+    j = torch.arange(T, device="cuda", dtype=torch.float32)
+    return {"wrapping": wrap(torch.cumsum(u * 5.5 - 2.5, dim=-1)),
+            "drifting": wrap(torch.cumsum(0.3 + 0.05 * u, dim=-1)),
+            "steady": wrap((3.1 * j).expand(rows, T).contiguous()),
+            "noise": (u * 2 - 1) * math.pi}
+
+
+def phase2_wavelet_kernels(gen, errs):
+    phase("phase 2 (wavelet): kernels against their plain versions")
+    # --- cwt_ifft_bank: every N, det both ways, padded / pad = 0 / odd
+    # pad and length, with and without the support rows, a PWT bank -------
+    for n in (16384, 32768, 65536, 131072):
+        F = torch.complex(randn((3, n), gen), randn((3, n), gen))
+        bank = torch.zeros((6, n), device="cuda")
+        for j, hi in enumerate((40, 300, 700, 1500, n // 8, n // 2)):
+            bank[j, 1:hi] = randn((hi - 1,), gen).abs()
+        pwt_bank, _, _ = auditory_filter_bank(
+            12, n, SR, low_fre=32.703, high_fre=SR / 2.0, scale_type=5,
+            is_pseudo=True)
+        banks = {"graded": bank, "dense": randn((3, n), gen).abs(),
+                 "pwt": torch.from_numpy(pwt_bank).cuda()}
+        worst = 0.0
+        for label, bk in banks.items():
+            rows = torch.tensor(band_row_counts(bk.cpu().numpy(), n),
+                                dtype=torch.int32, device="cuda")
+            for pad, length in ((n // 4, n // 2), (0, n), (1000, 12345)):
+                for det in (False, True):
+                    ref = cwt_ifft_bank_ref(F, bk, pad=pad, length=length,
+                                            det=det)
+                    for row_h in (None, rows):
+                        got = cwt_ifft_bank(F, bk, pad=pad, length=length,
+                                            det=det, row_h=row_h)
+                        torch.cuda.synchronize()
+                        e, pk = complex_err(got, ref)
+                        worst = max(worst, e / pk)
+                        if not e / pk <= FP32_TOL:
+                            raise AssertionError(
+                                f"cwt_ifft_bank n={n} {label} pad={pad} "
+                                f"length={length} det={det} row_h="
+                                f"{row_h is not None}: {e / pk:.3e}")
+            # one band-row per pair of launches, and all in one pair
+            for chunk in (1, 1 << 30):
+                got = cwt_ifft_bank(F, bk, pad=n // 4, length=n // 2,
+                                    row_h=rows, chunk=chunk)
+                e, pk = complex_err(got, cwt_ifft_bank_ref(
+                    F, bk, pad=n // 4, length=n // 2))
+                worst = max(worst, e / pk)
+        check(f"cwt_ifft_bank n={n} (3 banks x 3 slices x det x row_h, "
+              "chunk 1 and whole)", worst, FP32_TOL)
+
+    # --- unwrap_diff: bit-equal on every kind of phase and odd shapes ----
+    for rows, T in ((7, 1000), (1, 1), (3, 513), (1344, 32768)):
+        for label, ph in wrapped_phases(rows, T, gen).items():
+            got = unwrap_diff(ph)
+            torch.cuda.synchronize()
+            ref = unwrap_diff_ref(ph)
+            if not torch.equal(got, ref):
+                raise AssertionError(
+                    f"unwrap_diff {rows}x{T} {label}: "
+                    f"{int((got != ref).sum())} cells differ")
+        print(f"  unwrap_diff {rows}x{T}: wrapping, drifting, steady and "
+              "noise phases equal to the plain version, bit for bit")
+
+    # --- columnar_scatter: bit-equal; R = F, R != F, out_size 512, all
+    # dropped, T = 1 and T = 32768 -----------------------------------------
+    for B, R, F_, T, lo in ((3, 84, 84, 1000, -1), (2, 16, 40, 129, -3),
+                            (2, 40, 16, 32768, 0), (1, 100, 512, 300, -1),
+                            (2, 84, 84, 1, -1), (2, 84, 84, 32768, -1),
+                            (2, 8, 8, 128, None)):
+        v = torch.complex(randn((B, R, T), gen), randn((B, R, T), gen))
+        if lo is None:     # every cell dropped
+            fi = torch.full((B, R, T), F_, dtype=torch.int32, device="cuda")
+        else:              # duplicates, the drop bin and negative indices
+            fi = torch.randint(lo, F_ + 2, (B, R, T), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        got = columnar_scatter(v, fi, F_)
+        torch.cuda.synchronize()
+        ref = columnar_scatter_ref(v, fi, F_)
+        if not torch.equal(torch.view_as_real(got), torch.view_as_real(ref)):
+            raise AssertionError(f"columnar_scatter B={B} R={R} F={F_} T={T}: "
+                                 "differs from the plain version")
+        if lo is None and bool((got != 0).any()):
+            raise AssertionError("columnar_scatter: dropped cells leaked")
+        print(f"  columnar_scatter B={B} R={R} out_size={F_} T={T}: equal to "
+              "the plain version, bit for bit")
+    errs.update(cwt_ifft_bank=0.0, unwrap_diff=0.0, columnar_scatter=0.0)
 
 
 def gate(label, dev_out, plan_cpu, x_cpu):
@@ -528,6 +660,147 @@ def phase3_mir_path(gen, errs):
                 rev=rev, launches=launches)
 
 
+def flips_and_mass(label, got, ref):
+    """The synchrosqueezing gate: the share of cells of |got| that are off
+    |ref| by more than 1e-5 of the peak (bin flips of knife-edge cells)
+    must stay <= 5e-3 and the summed magnitude within 1e-4."""
+    got, ref = got.abs().double(), ref.abs().double()
+    peak = float(ref.max())
+    flips = float(((got - ref).abs() > FLIP_TOL * peak).double().mean())
+    mass = abs(float(got.sum()) / max(float(ref.sum()), 1e-30) - 1)
+    print(f"  {label}: flips {flips:.3e} (<= {FLIP_SHARE:.0e}), mass "
+          f"{mass:.3e} (<= {MASS_TOL:.0e})", flush=True)
+    if not (flips <= FLIP_SHARE and mass <= MASS_TOL):
+        raise AssertionError(f"{label}: flips {flips:.3e}, mass {mass:.3e}")
+
+
+def scatter_inputs(sq, W, fre_t):
+    """The index tensor that ``Synsq.synsq`` hands the scatter kernel
+    (order 1): the bin map, dropped cells sent to bin ``num``."""
+    fi = _synsq_map(W, fre_t, scale_kind="log", num=sq.num,
+                    samplate=float(sq.samplate))
+    power = W.real ** 2 + W.imag ** 2
+    th = torch.tensor(sq.thresh, dtype=torch.float32, device="cuda")
+    ok = (fi >= 0) & (fi < sq.num) & (power > th * th)
+    return torch.where(ok, fi, torch.full_like(fi, sq.num))
+
+
+def phase3_wavelet_path(gen, errs):
+    n = 1 << WAV_R2E
+    phase(f"phase 3c: wavelet path at full width ({WAV_SMALL} and "
+          f"{WAV_CLIPS} clips of {n} samples, {WAV_NUM} bands)")
+    morlet = dict(wavelet_type=WaveletContinueType.MORLET, scale_type=OCTAVE)
+    cwt = CWT(**WAV_KW, **morlet)
+    sq = Synsq(**WAV_KW)
+    ws = WSST(**WAV_KW, **morlet)
+    pw = PWT(**WAV_KW)
+    fre = cwt.get_fre_band_arr()
+    x = randn((WAV_CLIPS, n), gen, 0.2)
+    xs = x[:WAV_SMALL]
+    torch.cuda.synchronize()
+
+    kernels = {"cwt_ifft_bank": cwt_ifft_bank, "unwrap_diff": unwrap_diff,
+               "columnar_scatter": columnar_scatter}
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    Ws = cwt.cwt(xs)
+    Ys = sq.synsq(Ws, OCTAVE, fre)
+    W = cwt.cwt(x)
+    Y = sq.synsq(W, OCTAVE, fre)
+    A, Wc = ws.wsst(xs)
+    P = pw.pwt(xs)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    require_launched("wavelet", launches)
+    print(f"  peak device memory on the wavelet path: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    for name, t, clips in (("cwt", Ws, WAV_SMALL), ("synsq", Ys, WAV_SMALL),
+                           ("cwt", W, WAV_CLIPS), ("synsq", Y, WAV_CLIPS),
+                           ("wsst", A, WAV_SMALL), ("wsst cwt", Wc, WAV_SMALL),
+                           ("pwt", P, WAV_SMALL)):
+        if (tuple(t.shape) != (clips, WAV_NUM, n) or t.dtype != torch.complex64
+                or not bool(torch.isfinite(torch.view_as_real(t)).all())):
+            raise AssertionError(f"{name} x{clips}: shape {tuple(t.shape)}, "
+                                 f"{t.dtype} or non-finite values")
+    if not bool((Y.abs() > 0).any()):
+        raise AssertionError("synsq scattered nothing")
+    # one batch size, one result; across batch sizes the forward FFT (the
+    # library's, which may plan 16 and 128 rows differently) moves last bits
+    if not torch.equal(torch.view_as_real(Wc), torch.view_as_real(Ws)):
+        raise AssertionError("WSST's cwt differs from CWT.cwt")
+    e, pk = complex_err(W[:WAV_SMALL], Ws)
+    check(f"cwt of the first {WAV_SMALL} clips, batch {WAV_CLIPS} vs batch "
+          f"{WAV_SMALL}", e / pk, FP32_TOL)
+
+    # every kernel's whole-batch output against its plain version, at the
+    # inputs the entry points gave it (rebuilt here as they do)
+    p = cwt.pad_length
+    F = torch.fft.fft(_symmetric_pad(x, p), dim=-1)
+    err = peak = 0.0
+    for lo in range(0, WAV_CLIPS, 8):
+        ref = cwt_ifft_bank_ref(F[lo:lo + 8], cwt._bank_t, pad=p, length=n)
+        e, pk = complex_err(W[lo:lo + 8], ref)
+        err, peak = max(err, e), max(peak, pk)
+        del ref
+    check(f"cwt_ifft_bank, all {WAV_CLIPS * WAV_NUM} band-rows of N="
+          f"{n + 2 * p} vs plain", err / peak, FP32_TOL)
+    errs["cwt_ifft_bank"] = err
+    ref = cwt_ifft_bank_ref(F[:4], ws._cwt._det_bank_t, pad=p, length=n,
+                            det=True)
+    e, pk = complex_err(ws._cwt.cwt_det(xs[:4]), ref)
+    check("cwt_ifft_bank det (the derivative bank, 4 clips) vs plain", e / pk,
+          FP32_TOL)
+    ref = cwt_ifft_bank_ref(F[:4], pw._bank_t, pad=p, length=n)
+    e, pk = complex_err(P[:4], ref)
+    check("cwt_ifft_bank PWT bank (4 clips) vs plain", e / pk, FP32_TOL)
+    del F, ref
+
+    ph = torch.atan2(W.real, W.imag).reshape(-1, n)
+    whole_batch(f"unwrap_diff, all {ph.shape[0]} rows of {n}", unwrap_diff,
+                unwrap_diff_ref, (ph,), 8 * WAV_NUM)
+    fre_t = torch.from_numpy(fre).cuda()
+    fi = scatter_inputs(sq, W, fre_t)
+    got = columnar_scatter(W, fi, WAV_NUM)
+    for lo in range(0, WAV_CLIPS, 8):
+        ref = columnar_scatter_ref(W[lo:lo + 8], fi[lo:lo + 8], WAV_NUM)
+        if not torch.equal(torch.view_as_real(got[lo:lo + 8]),
+                           torch.view_as_real(ref)):
+            raise AssertionError("columnar_scatter differs from the plain "
+                                 f"version in clips {lo}..{lo + 8}")
+    print(f"  columnar_scatter, all {WAV_CLIPS} x {WAV_NUM} x {n} cells: "
+          "equal to the plain version, bit for bit "
+          f"({float((fi < WAV_NUM).float().mean()):.1%} of the cells kept)")
+    if not torch.equal(torch.view_as_real(got), torch.view_as_real(Y)):
+        raise AssertionError("Synsq.synsq did not return the scatter "
+                             "kernel's output")
+    del got, ph
+
+    # the kernel path against the pinned prefix-sum unwrap on the card
+    flips_and_mass(f"synsq kernel path vs force_xla_unwrap ({WAV_SMALL} "
+                   "clips)", Ys,
+                   sq.synsq(Ws, OCTAVE, fre, force_xla_unwrap=True))
+
+    # the first and the last clip against the port on the CPU
+    ends = [0, WAV_CLIPS - 1]
+    x_cpu = x[ends].cpu()
+    cpu = {"device": "cpu"}
+    cwt_c = CWT(**WAV_KW, **morlet, **cpu)
+    W_c = cwt_c.cwt(x_cpu)
+    check("gate |cwt| (first and last clip) vs CPU",
+          rel_err(W[ends].abs().cpu(), W_c.abs()), GATE_TOL)
+    Y_c = Synsq(**WAV_KW, **cpu).synsq(W_c[:1], OCTAVE, fre)
+    flips_and_mass("gate |synsq(cwt(x))| (first clip) vs CPU", Y[:1].cpu(),
+                   Y_c)
+    A_c, _ = WSST(**WAV_KW, **morlet, **cpu).wsst(x_cpu[:1])
+    flips_and_mass("gate |wsst| (first clip) vs CPU", A[:1].cpu(), A_c)
+    check("gate |pwt| (first clip) vs CPU",
+          rel_err(P[:1].abs().cpu(), PWT(**WAV_KW, **cpu).pwt(
+              x_cpu[:1]).abs()), GATE_TOL)
+    return dict(cwt=cwt, sq=sq, ws=ws, pw=pw, x=x, W=W, fi=fi, fre=fre,
+                fre_t=fre_t, launches=launches)
+
+
 def phase4_timing(plan, x, xs, launches, errs):
     phase("phase 4a: mel+MFCC timing (CUDA events, median)")
     rows = []
@@ -725,6 +998,127 @@ def phase4_mir_timing(mir, mel_launches, errs):
     return rows
 
 
+def phase4_wavelet_timing(wav, errs):
+    phase("phase 4c: wavelet path timing (CUDA events, median)")
+    rows = []
+    cwt, sq, ws, pw = wav["cwt"], wav["sq"], wav["ws"], wav["pw"]
+    x, W, fi, fre, fre_t = (wav[k] for k in ("x", "W", "fi", "fre", "fre_t"))
+    launches = wav["launches"]
+    n, p = 1 << WAV_R2E, cwt.pad_length
+    N = n + 2 * p
+    bank, row_h = cwt._bank_t, cwt._row_h_t
+    F = torch.fft.fft(_symmetric_pad(x, p), dim=-1)
+    ph = torch.atan2(W.real, W.imag).reshape(-1, n)
+
+    def lib_ifft(Fc, pad=p, length=n):
+        return torch.fft.ifft(bank * Fc[:, None, :], dim=-1)[
+            ..., pad:pad + length]
+
+    def lib_scatter(v, f):
+        B = v.shape[0]
+        buf = torch.zeros((B, WAV_NUM + 1, n, 2), device="cuda")
+        buf.scatter_add_(1, f.long()[..., None].expand(B, WAV_NUM, n, 2),
+                         torch.view_as_real(v))
+
+    for clips in (WAV_CLIPS, WAV_SMALL):
+        Fb, Wb, fib, phb = F[:clips], W[:clips], fi[:clips], ph[:clips * WAV_NUM]
+        band_rows = clips * WAV_NUM
+        cells = band_rows * n
+        # --- cwt_ifft_bank ---------------------------------------------
+        k_ms = cuda_ms(lambda: cwt_ifft_bank(Fb, bank, pad=p, length=n,
+                                             row_h=row_h), reps=10)
+        p_ms = cuda_ms(chunked(lambda t: cwt_ifft_bank_ref(
+            t, bank, pad=p, length=n), (Fb,), 8), reps=3, warmup=1)
+        l_ms = cuda_ms(chunked(lib_ifft, (Fb,), 8), reps=3, warmup=1)
+        row = kernel_row(
+            "cwt_ifft_bank", "cwt_ifft_bank",
+            "audioflux_tpu/ops/pallas_cwt.py:183", launches["cwt_ifft_bank"],
+            errs["cwt_ifft_bank"], k_ms, p_ms, l_ms,
+            8 * clips * N + 4 * WAV_NUM * N + 8 * cells,
+            band_rows * 5.0 * N * math.log2(N),
+            f"{clips}x{WAV_NUM} band-rows, N={N}, {n} kept")
+        if clips == WAV_CLIPS:
+            rows.append(row)
+            full = cuda_ms(lambda: cwt_ifft_bank(Fb, bank, pad=p, length=n),
+                           reps=5)
+            print(f"  cwt_ifft_bank without the support rows (row_h=None): "
+                  f"{full:.3f} ms")
+            for chunk in (48, 192, 1344, band_rows):
+                ms = cuda_ms(lambda: cwt_ifft_bank(
+                    Fb, bank, pad=p, length=n, row_h=row_h, chunk=chunk),
+                    reps=5)
+                print(f"  cwt_ifft_bank with {chunk} band-rows per pair of "
+                      f"launches (scratch {chunk * N * 8 / 1e6:.0f} MB): "
+                      f"{ms:.3f} ms")
+        # --- unwrap_diff -----------------------------------------------
+        k_ms = cuda_ms(lambda: unwrap_diff(phb), reps=10)
+        p_ms = cuda_ms(chunked(unwrap_diff_ref, (phb,), 8 * WAV_NUM), reps=3,
+                       warmup=1)
+        l_ms = cuda_ms(chunked(unwrap_diff_ref, (phb,), 8 * WAV_NUM), reps=3,
+                       warmup=1)
+        row = kernel_row(
+            "unwrap_diff", "unwrap_diff",
+            "audioflux_tpu/ops/pallas_unwrap.py:102", launches["unwrap_diff"],
+            errs["unwrap_diff"], k_ms, p_ms, l_ms, 8 * cells, 14.0 * cells,
+            f"{band_rows}x{n}")
+        if clips == WAV_CLIPS:
+            rows.append(row)
+        # --- columnar_scatter ------------------------------------------
+        k_ms = cuda_ms(lambda: columnar_scatter(Wb, fib, WAV_NUM), reps=10)
+        p_ms = cuda_ms(chunked(lambda v, f: columnar_scatter_ref(
+            v, f, WAV_NUM), (Wb, fib), 8), reps=2, warmup=1)
+        l_ms = cuda_ms(chunked(lib_scatter, (Wb, fib), 8), reps=3, warmup=1)
+        row = kernel_row(
+            "columnar_scatter", "columnar_scatter",
+            "audioflux_tpu/ops/pallas_scatter.py:71",
+            launches["columnar_scatter"], errs["columnar_scatter"], k_ms,
+            p_ms, l_ms, (12 + 8) * cells, 2.0 * cells,
+            f"{clips} x {WAV_NUM} -> {WAV_NUM} x {n}")
+        if clips == WAV_CLIPS:
+            rows.append(row)
+
+    # --- the PyTorch code between the kernels, at 128 clips -------------
+    e = unwrap_diff(ph).reshape(W.shape)
+    two_pi = torch.tensor(2 * math.pi, dtype=torch.float32, device="cuda")
+
+    def rate():
+        return torch.cat([e[..., :-1], e[..., -2:-1]], dim=-1) / two_pi
+    d = rate()
+    th = torch.tensor(sq.thresh, dtype=torch.float32, device="cuda")
+
+    def keep():
+        ok = (fi >= 0) & (fi < WAV_NUM) & (W.real ** 2 + W.imag ** 2 > th * th)
+        return torch.where(ok, fi, torch.full_like(fi, WAV_NUM))
+    for name, fn in (
+            ("cwt: symmetric pad + torch.fft.fft",
+             lambda: torch.fft.fft(_symmetric_pad(x, p), dim=-1)),
+            ("synsq: atan2", lambda: torch.atan2(W.real, W.imag)),
+            ("synsq: last-column copy + / 2 pi", rate),
+            ("synsq: bin map (abs, log2, floor, range, cast)",
+             lambda: _bin_map(d, fre_t, scale_kind="log", num=WAV_NUM,
+                              samplate=float(SR))),
+            ("synsq: power, threshold, drop bin", keep)):
+        print(f"  split at {WAV_CLIPS} clips: {name}: "
+              f"{cuda_ms(fn, reps=5, warmup=1):.3f} ms")
+    del e, d, F, ph
+
+    # --- the users' calls: audio-hours per second ------------------------
+    for clips in (WAV_CLIPS, WAV_SMALL):
+        xb, Wb = x[:clips], W[:clips]
+        hours = clips * n / SR / 3600.0
+        for name, fn in (
+                ("CWT.cwt", lambda: cwt.cwt(xb)),
+                ("Synsq.synsq", lambda: sq.synsq(Wb, OCTAVE, fre)),
+                ("CWT.cwt -> Synsq.synsq",
+                 lambda: sq.synsq(cwt.cwt(xb), OCTAVE, fre)),
+                ("WSST.wsst", lambda: ws.wsst(xb)),
+                ("PWT.pwt", lambda: pw.pwt(xb))):
+            ms = cuda_ms(fn, reps=5, warmup=1)
+            print(f"  {name} {clips}x{n}: {ms:.3f} ms, "
+                  f"{hours / (ms / 1e3):.2f} audio-hours/s")
+    return rows
+
+
 def main():
     upto = int(sys.argv[sys.argv.index("--upto") + 1]) if "--upto" in sys.argv else 4
     smi = phase0_identity()
@@ -734,15 +1128,20 @@ def main():
     if upto < 2:
         return
     errs = phase2_kernels(gen)
+    phase2_wavelet_kernels(gen, errs)
     if upto < 3:
         return
     plan, x, xs, mel_launches = phase3_mel_path(gen)
     mir = phase3_mir_path(gen, errs)
     if upto < 4:
+        phase3_wavelet_path(gen, errs)
         return
     rows = phase4_timing(plan, x, xs, mel_launches, errs)
     del plan, x, xs
     rows += phase4_mir_timing(mir, mel_launches, errs)
+    del mir
+    torch.cuda.empty_cache()
+    rows += phase4_wavelet_timing(phase3_wavelet_path(gen, errs), errs)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
