@@ -24,8 +24,12 @@ from audioflux_torch.ops.frame import frame_signal
 __all__ = ["FusedMelPlan", "fused_mel_mfcc", "fused_mel_mfcc_ref"]
 
 _MAX_LOG2_FFT = 14             # one n_fft-point complex transform in shared memory
-_SMEM_TARGET = 110 * 1024      # two blocks per SM
-_SMEM_MAX = 227 * 1024         # the most a block may have on sm_90
+_SMEM_TARGET = 110 * 1024      # the kernel of the passes: two blocks per SM
+_SMEM_MAX = 232448             # the most a block may have on sm_90
+# n_fft of the register-resident kernel -> (A, B, C1): n_fft = A * B, a group
+# of T = B / C1 threads owns a frame pair (csrc/fused_mel_mfcc.cu)
+_REG_SPLIT = {512: (32, 16, 1), 1024: (32, 32, 2), 2048: (64, 32, 1),
+              4096: (64, 64, 1)}
 
 
 class FusedMelPlan:
@@ -93,18 +97,41 @@ def fused_mel_mfcc_ref(plan: FusedMelPlan, x: torch.Tensor):
 def _lib():
     fn = _build.load("fused_mel_mfcc").af_fused_mel_mfcc
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, ll, ll, i, i, i, p, p, p, p, p, p, p, i, i, p, p,
-                   i, i, i, i, p]
+    fn.argtypes = [p, ll, ll, i, i, i, p, p, p, p, p, p, i, p, i, i, p, p,
+                   i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_shape(n_fft: int, num: int, slide: int):
-    """(frames per block, frame pairs per round, staged) for the kernel:
-    np pairs take np * n_fft / 16 threads (about 512, at most 1024);
-    ``staged`` holds the tile's audio span in shared memory.  The first
-    fit, staged before unstaged, more pairs and then larger tiles first,
-    under the two-blocks-per-SM target, else under the per-block limit."""
+def _launch_shape(n_fft: int, num: int, slide: int) -> dict:
+    """The kernel's launch shape, a pure function of the plan's sizes.
+
+    ``registers=True`` (n_fft 512 to 4096): the register-resident
+    kernel; ``threads`` a block (the most of 256, 128, 64, 32 that fits),
+    ``tile = 2 * threads / T`` >= 4 frames, ``smem`` bytes without the optional
+    constants (band weights and DCT rows, which :func:`_launch` adds when
+    they fit).  Otherwise the kernel of the shared-memory passes: ``tile``
+    frames per block, ``np`` frame pairs per round (np * n_fft / 16
+    threads, about 512, at most 1024), ``staged`` holds the tile's audio
+    span in shared memory; the first fit, staged before unstaged, more
+    pairs and then larger tiles first, under the two-blocks-per-SM target,
+    else under the per-block limit."""
+    if n_fft in _REG_SPLIT:
+        _, b, c1 = _REG_SPLIT[n_fft]
+        group = b // c1
+        a = _REG_SPLIT[n_fft][0]
+        # a pair's transpose buffer (reg_ex_words of the source)
+        ex = max(a * (b + 1), 2 * group * (b // 2 + 1) if group == a else 0)
+        for threads in (256, 128, 64, 32):
+            tile = 2 * threads // group
+            span = (tile * slide + n_fft - slide + 3) // 4 * 4
+            # span, twiddles + window, the powers (bin-major, tile + 4
+            # apart), the pairs' transpose buffers (later mel and log-mel)
+            smem = 4 * (span + 3 * n_fft + (n_fft // 2 + 1) * (tile + 4)
+                        + max(threads // group * ex, num * (2 * tile + 4)))
+            if tile >= 4 and smem <= _SMEM_MAX:
+                return dict(registers=True, threads=threads, tile=tile,
+                            group=group, smem=smem)
     stride = n_fft + n_fft // 16 + 4  # padded transform (fft_smem.cuh)
     for limit in (_SMEM_TARGET, _SMEM_MAX):
         for staged in (1, 0):
@@ -114,7 +141,9 @@ def _launch_shape(n_fft: int, num: int, slide: int):
                     span = (tile * slide + n_fft - slide) if staged else 0
                     smem = 8 * stride * np_ + 4 * (2 * tile * num + span)
                     if tile >= 2 * np_ and smem <= limit:
-                        return tile, np_, staged
+                        return dict(registers=False, tile=tile, np=np_,
+                                    staged=staged, smem=smem,
+                                    threads=max(1, np_ * n_fft // 16))
                 np_ //= 2
     raise ValueError(f"n_fft={n_fft}, num={num} do not fit shared memory")
 
@@ -122,11 +151,16 @@ def _launch_shape(n_fft: int, num: int, slide: int):
 def _launch(plan: FusedMelPlan, x: torch.Tensor, n_frames: int,
             stages: int = 4):
     """Run the kernel on contiguous (batch, n) CUDA audio.  ``stages`` < 4
-    cuts it after a stage (1 framing, 2 transform, 3 filterbank; the
-    outputs are then not mel and cc) to time the stages apart."""
+    cuts the register-resident kernel after a stage (1 load + window +
+    first pass, 2 second pass + power, 3 filterbank + log10; the outputs
+    are then not mel and cc) to time the stages apart."""
     if plan.n_fft & (plan.n_fft - 1) or plan.n_fft.bit_length() - 1 > _MAX_LOG2_FFT:
         raise ValueError(f"the fused kernel needs pow2 n_fft <= "
                          f"{1 << _MAX_LOG2_FFT}, got {plan.n_fft}")
+    shape = _launch_shape(plan.n_fft, plan.num_mel, plan.slide)
+    if stages != 4 and not shape["registers"]:
+        raise ValueError("the timing cuts exist in the register-resident "
+                         "kernel only (n_fft 512 to 4096)")
     require_sm90(x.device)
     batch, n = x.shape
     mel = torch.empty((batch, plan.num_mel, n_frames), dtype=torch.float32,
@@ -135,7 +169,9 @@ def _launch(plan: FusedMelPlan, x: torch.Tensor, n_frames: int,
                      device=x.device)
     if batch == 0:
         return mel, cc
-    tile, np_, staged = _launch_shape(plan.n_fft, plan.num_mel, plan.slide)
+    n_w = plan.band_w.numel()
+    consts = 4 * (n_w + plan.cc_num * plan.num_mel)
+    consts_smem = int(shape["registers"] and shape["smem"] + consts <= _SMEM_MAX)
     tw = twiddle_table(plan.n_fft, x.device)
     fn = _lib()
     with torch.cuda.device(x.device):
@@ -144,9 +180,11 @@ def _launch(plan: FusedMelPlan, x: torch.Tensor, n_frames: int,
                  plan.n_fft.bit_length() - 1, plan.window.data_ptr(),
                  tw.data_ptr(), plan.band_lo.data_ptr(),
                  plan.band_len.data_ptr(), plan.band_off.data_ptr(),
-                 plan.band_w.data_ptr(), plan.dct.data_ptr(), plan.num_mel,
-                 plan.cc_num, mel.data_ptr(), cc.data_ptr(), tile, np_,
-                 staged, stages, stream)
+                 plan.band_w.data_ptr(), n_w, plan.dct.data_ptr(),
+                 plan.num_mel, plan.cc_num, mel.data_ptr(), cc.data_ptr(),
+                 int(shape["registers"]), shape["threads"], consts_smem,
+                 stages, shape["tile"], shape.get("np", 0),
+                 shape.get("staged", 0), stream)
     if err:
         raise RuntimeError(f"fused_mel_mfcc launch failed: CUDA error {err}")
     fused_mel_mfcc.launches += 1

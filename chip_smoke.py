@@ -11,12 +11,16 @@ Phases (any failure exits non-zero; no result line is printed then):
    spill lines;
 2. each kernel against its plain PyTorch version on the card: the forward
    and inverse FFT and the fused autocorrelation at every n in
-   2048..32768, the fused mel+MFCC kernel over eight shape classes, the
-   median kernel (``torch.equal``) over orders, odd shapes and both axes;
+   2048..32768, the fused mel+MFCC kernel over eight shape classes,
+   unaligned views, a batch whose tiles do not divide over the persistent
+   blocks, one-frame clips and a dense filterbank, the median kernel
+   (``torch.equal``) over orders, odd shapes and both axes;
    ``cwt_ifft_bank`` at N = 16384..131072 (``det`` both ways, padded,
    ``pad = 0`` and an odd slice, with and without the support rows, a PWT
-   bank; 1e-5 of the peak); ``unwrap_diff`` and ``columnar_scatter``
-   (``torch.equal``) over phases, index patterns and odd shapes;
+   bank, 1, 7 and resident + 1 band-rows, both block sizes, an output at
+   an 8-byte address; 1e-5 of the peak); ``unwrap_diff`` and
+   ``columnar_scatter`` (``torch.equal``) over phases, index patterns and
+   odd shapes;
 3. the main paths at full size, each with the launch counts set to 0 just
    before it and read just after (3c runs after 4b, when the MIR path's
    tensors are freed):
@@ -38,9 +42,10 @@ Phases (any failure exits non-zero; no result line is printed then):
       the kernel path against ``force_xla_unwrap=True`` (bin flips and
       mass), and the first and last clips against the port on the CPU;
 4. timing with CUDA events: each kernel, its plain version and the
-   library yardstick at the main paths' shapes, the fused kernel cut
-   after each stage (its split), and audio-hours per second of the
-   users' calls.
+   library yardstick at the main paths' shapes, the fused kernel and
+   ``cwt_ifft_bank`` cut after each stage (their splits),
+   ``cwt_ifft_bank`` at both cluster sizes and at half and twice the
+   resident grid, and audio-hours per second of the users' calls.
 
 The second-to-last line is the kernels JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -64,8 +69,11 @@ from audioflux_torch.mir import HPSS, PitchYIN  # noqa: E402
 from audioflux_torch.filterbank.auditory import (  # noqa: E402
     auditory_filter_bank)
 from audioflux_torch.ops import _build  # noqa: E402
+from audioflux_torch.ops import cuda_cwt  # noqa: E402
 from audioflux_torch.ops.cuda_cwt import (band_row_counts,  # noqa: E402
-                                          cwt_ifft_bank, cwt_ifft_bank_ref)
+                                          cluster_plan, cwt_ifft_bank,
+                                          cwt_ifft_bank_ref,
+                                          resident_clusters)
 from audioflux_torch.ops.cuda_fft import (fft_autocorr,  # noqa: E402
                                           fft_autocorr_ref, fft_fwd,
                                           fft_fwd_ref, fft_inv, fft_inv_ref)
@@ -306,6 +314,23 @@ def phase2_kernels(gen):
         mel_r, cc_r = fused_mel_mfcc_ref(plan, x.clone())
         for what, a, b in (("mel", mel, mel_r), ("cc", cc, cc_r)):
             check(f"fused {label} {what}", rel_err(a, b), FP32_TOL)
+    # a batch whose tiles are no multiple of what a persistent block walks
+    # (blocks cross clip boundaries mid-way), clips of one frame, and a
+    # dense (all-nonzero) filterbank, whose weights do not fit shared memory
+    fb = randn((NUM, sp.fft_length // 2 + 1), gen).abs() + 0.01
+    dense = FusedMelPlan(sp.window, fb.cpu().numpy(), sp._dct[:CC], SLIDE,
+                         device="cuda")
+    for label, pl, x in (
+            ("150 clips of T=37", plan, randn((150, 36 * SLIDE + 2048), gen, 0.2)),
+            ("3 clips of one frame", plan, randn((3, 2048), gen, 0.2)),
+            ("one clip of T=3", plan, randn((1, 2 * SLIDE + 2048 + 77), gen, 0.2)),
+            ("dense filterbank, 5 clips of T=41", dense,
+             randn((5, 40 * SLIDE + 2048), gen, 0.2))):
+        mel, cc = fused_mel_mfcc(pl, x)
+        torch.cuda.synchronize()
+        mel_r, cc_r = fused_mel_mfcc_ref(pl, x)
+        for what, a, b in (("mel", mel, mel_r), ("cc", cc, cc_r)):
+            check(f"fused {label} {what}", rel_err(a, b), FP32_TOL)
     return errs
 
 
@@ -361,15 +386,48 @@ def phase2_wavelet_kernels(gen, errs):
                                 f"cwt_ifft_bank n={n} {label} pad={pad} "
                                 f"length={length} det={det} row_h="
                                 f"{row_h is not None}: {e / pk:.3e}")
-            # one band-row per pair of launches, and all in one pair
-            for chunk in (1, 1 << 30):
-                got = cwt_ifft_bank(F, bk, pad=n // 4, length=n // 2,
-                                    row_h=rows, chunk=chunk)
-                e, pk = complex_err(got, cwt_ifft_bank_ref(
-                    F, bk, pad=n // 4, length=n // 2))
-                worst = max(worst, e / pk)
-        check(f"cwt_ifft_bank n={n} (3 banks x 3 slices x det x row_h, "
-              "chunk 1 and whole)", worst, FP32_TOL)
+        # band-row counts that are no multiple of the resident clusters
+        # (1, 7, one more than the grid), the other block size of this N,
+        # and an output view at an address that is 8- but not 16-byte
+        # aligned
+        plan = cluster_plan(n)
+        G = resident_clusters(n, plan["cluster"], 0)
+        other = (plan["cluster"] // 2 if plan["points"] == 8192
+                 else plan["cluster"] * 2)
+        kw = dict(pad=n // 4, length=n // 2)
+        Fg = torch.complex(randn((G + 1, n), gen), randn((G + 1, n), gen))
+        bk = banks["graded"]
+        cases = [("1 band-row", Fg[:1], bk[3:4], None),
+                 ("7 band-rows", Fg[:1], torch.cat([bk, bk[:1]]), None),
+                 (f"{G + 1} band-rows on {G} clusters", Fg, bk[3:4], None)]
+        if 1 <= other <= 8:
+            cases.append((f"clusters of {other}", F, bk, other))
+        for label, Fc, bc, cl in cases:
+            ref = cwt_ifft_bank_ref(Fc, bc, **kw)
+            if cl is None:
+                got = cwt_ifft_bank(Fc, bc, **kw)
+            else:
+                got = cuda_cwt._launch(Fc, bc, None, torch.empty_like(ref),
+                                       n // 4, n // 2, False, cluster=cl)
+            torch.cuda.synchronize()
+            e, pk = complex_err(got, ref)
+            check(f"cwt_ifft_bank n={n} {label}", e / pk, FP32_TOL)
+            worst = max(worst, e / pk)
+        ref = cwt_ifft_bank_ref(F, bk, pad=1000, length=12344, det=True)
+        buf = torch.empty(ref.numel() + 1, dtype=torch.complex64,
+                          device="cuda")
+        view = buf[1:].view(ref.shape)
+        if view.data_ptr() % 16 != 8:
+            raise AssertionError("the output view is not off alignment")
+        cuda_cwt._launch(F, bk, None, view, 1000, 12344, True)
+        torch.cuda.synchronize()
+        e, pk = complex_err(view, ref)
+        check(f"cwt_ifft_bank n={n} output at an 8-byte address", e / pk,
+              FP32_TOL)
+        worst = max(worst, e / pk)
+        check(f"cwt_ifft_bank n={n} (3 banks x 3 slices x det x row_h; "
+              f"clusters of {plan['cluster']}, {G} resident)", worst,
+              FP32_TOL)
 
     # --- unwrap_diff: bit-equal on every kind of phase and odd shapes ----
     for rows, T in ((7, 1000), (1, 1), (3, 513), (1344, 32768)):
@@ -839,8 +897,8 @@ def phase4_timing(plan, x, xs, launches, errs):
     # the kernel cut after each stage: the differences split its time
     cut_ms = [cuda_ms(lambda s=s: _launch(fplan, x, T, stages=s), reps=10)
               for s in (1, 2, 3)] + [k_ms]
-    for s, name in enumerate(("framing (audio load + window)",
-                              "transform", "power + filterbank + log10",
+    for s, name in enumerate(("span load + window + first pass",
+                              "second pass + power", "filterbank + log10",
                               "DCT")):
         prev = cut_ms[s - 1] if s else 0.0
         print(f"  split: {name}: {cut_ms[s] - prev:.3f} ms "
@@ -1043,13 +1101,26 @@ def phase4_wavelet_timing(wav, errs):
                            reps=5)
             print(f"  cwt_ifft_bank without the support rows (row_h=None): "
                   f"{full:.3f} ms")
-            for chunk in (48, 192, 1344, band_rows):
-                ms = cuda_ms(lambda: cwt_ifft_bank(
-                    Fb, bank, pad=p, length=n, row_h=row_h, chunk=chunk),
-                    reps=5)
-                print(f"  cwt_ifft_bank with {chunk} band-rows per pair of "
-                      f"launches (scratch {chunk * N * 8 / 1e6:.0f} MB): "
-                      f"{ms:.3f} ms")
+            G = resident_clusters(N, cluster_plan(N)["cluster"], 0)
+            W_out = torch.empty_like(W)
+            for cl, ncl in ((8, None), (4, None), (8, G // 2), (8, 2 * G)):
+                got = ncl or resident_clusters(N, cl, 0)
+                ms = cuda_ms(lambda: cuda_cwt._launch(
+                    Fb, bank, row_h, W_out, p, n, False, cluster=cl,
+                    n_clusters=ncl), reps=5)
+                print(f"  cwt_ifft_bank with clusters of {cl} "
+                      f"({N // cl // 16} threads a block), a grid of {got} "
+                      f"clusters: {ms:.3f} ms")
+            cut_ms = [cuda_ms(lambda s=s: cuda_cwt._launch(
+                Fb, bank, row_h, W_out, p, n, False, stages=s), reps=5)
+                for s in (1, 2, 3)] + [k_ms]
+            for s, name in enumerate(("load + store", "pass 1",
+                                      "exchange (two cluster syncs)",
+                                      "pass 2")):
+                prev = cut_ms[s - 1] if s else 0.0
+                print(f"  split: {name}: {cut_ms[s] - prev:.3f} ms "
+                      f"(cut after it: {cut_ms[s]:.3f} ms)")
+            del W_out
         # --- unwrap_diff -----------------------------------------------
         k_ms = cuda_ms(lambda: unwrap_diff(phb), reps=10)
         p_ms = cuda_ms(chunked(unwrap_diff_ref, (phb,), 8 * WAV_NUM), reps=3,

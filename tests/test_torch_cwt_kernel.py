@@ -143,3 +143,39 @@ def test_wrapper_refuses(bad):
     else:
         with pytest.raises(ValueError):
             cuda_cwt.cwt_ifft_bank(F, bank, pad=PAD, length=N)
+
+
+def test_wrapper_has_no_chunk_and_no_scratch():
+    """One cluster launch, no device scratch: the ``chunk=`` knob and the
+    scratch buffer are gone, and the public signature is the rest."""
+    import inspect
+    sig = inspect.signature(cuda_cwt.cwt_ifft_bank)
+    assert list(sig.parameters) == ["F", "bank", "pad", "length", "det",
+                                    "row_h"]
+    assert not hasattr(cuda_cwt, "_SCRATCH_BYTES")
+    assert list(inspect.signature(cuda_cwt.cwt_ifft_bank_ref).parameters) == [
+        "F", "bank", "pad", "length", "det"]
+
+
+@pytest.mark.parametrize("n", [1 << 14, 1 << 15, 1 << 16, 1 << 17])
+def test_cluster_plan_matches_band_row_counts_split(n):
+    """The kernel's (n1, n2) view is the one ``band_row_counts`` counts
+    rows of, so a support count is a number of rows t1 of pass 1."""
+    plan = cuda_cwt.cluster_plan(n)
+    bank = np.zeros((2, n), np.float32)
+    bank[0, 1:3 * plan["n2"] + 5] = 1.0      # reaches into row 3
+    bank[1, :] = 1.0
+    rows = cuda_cwt.band_row_counts(bank, n)
+    assert rows == (8, plan["n1"])
+    assert plan["n1"] == np.asarray(jpc.band_row_counts(bank, n)).max()
+
+
+def test_supports_is_the_kernels_domain():
+    for n in (1 << 14, 1 << 15, 1 << 16, 1 << 17):
+        assert cuda_cwt.supports(n, 0, n) and cuda_cwt.supports(n, 5, 7)
+        assert cuda_cwt.cluster_plan(n)["cluster"] <= 8
+    for n in (1 << 13, 1 << 18, 3 << 14):
+        assert not cuda_cwt.supports(n, 0, 16)
+        with pytest.raises(ValueError):
+            cuda_cwt.cluster_plan(n)
+    assert not cuda_cwt.supports(1 << 14, 1, 1 << 14)

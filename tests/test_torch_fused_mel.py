@@ -150,16 +150,45 @@ def test_band_ranges_cover_the_bank():
 
 
 def test_launch_shape_fits_shared_memory():
-    assert _launch_shape(2048, 128, 512) == (8, 4, 1)
+    head = _launch_shape(2048, 128, 512)
+    assert (head["registers"], head["threads"], head["tile"]) == (True, 256, 16)
     for n_fft, num, slide in ((128, 32, 128), (512, 32, 128), (4096, 96, 1024),
                               (16384, 128, 4096), (16384, 128, 16384),
-                              (8192, 4097, 2048)):
-        tile, np_, staged = _launch_shape(n_fft, num, slide)
+                              (8192, 4097, 2048), (2048, 128, 512),
+                              (1024, 64, 256), (2048, 64, 2048)):
+        shape = _launch_shape(n_fft, num, slide)
+        assert shape["smem"] <= 227 * 1024 and shape["threads"] <= 1024
+        tile = shape["tile"]
+        if shape["registers"]:
+            # the register-resident kernel: groups of 16, 32 or 64 threads own
+            # a frame pair, a filterbank thread takes four frames
+            assert n_fft in (512, 1024, 2048, 4096)
+            assert tile == 2 * shape["threads"] // shape["group"] >= 4
+            assert shape["threads"] % 32 == 0 and shape["threads"] <= 256
+            continue
+        np_, staged = shape["np"], shape["staged"]
         assert tile % 2 == 0 and (tile // 2) % np_ == 0
         assert np_ * n_fft // 16 <= 1024
         stride = n_fft + n_fft // 16 + 4
         span = (tile * slide + n_fft - slide) if staged else 0
         assert 8 * stride * np_ + 4 * (2 * tile * num + span) <= 227 * 1024
-    assert _launch_shape(16384, 128, 16384)[2] == 0  # span too large
+    assert _launch_shape(16384, 128, 16384)["staged"] == 0  # span too large
     with pytest.raises(ValueError):
         _launch_shape(16384, 8193, 4096)
+
+
+def test_launch_rejects_timing_cuts_outside_the_register_kernel():
+    """``stages`` < 4 exists in the register-resident kernel only, and the
+    planner and the entry point took no new parameter."""
+    import inspect
+
+    from audioflux_torch.ops import fused_mel
+    jplan = JMel(num=24, samplate=32000, radix2_exp=7, slide_length=128)
+    _, fp = _both(jplan, 5, 128)
+    assert not _launch_shape(128, 24, 128)["registers"]
+    with pytest.raises(ValueError, match="timing cuts"):
+        fused_mel._launch(fp, torch.zeros((1, 256)), 2, stages=2)
+    assert list(inspect.signature(_launch_shape).parameters) == [
+        "n_fft", "num", "slide"]
+    assert list(inspect.signature(fused_mel_mfcc).parameters) == [
+        "plan", "x", "fast"]
