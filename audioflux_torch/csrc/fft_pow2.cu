@@ -13,12 +13,34 @@
 //
 // What bounds it on the card: a row reads 4 or 8 bytes and writes 8 bytes
 // per point, against 5 n log2 n flops (about 4.6 flops per byte at
-// n = 2048), so device memory is the bound; the shared-memory passes of the
-// transform come next.  The design keeps every pass on chip and makes few
-// of them (radix-16 Stockham passes, fft_smem.cuh):
-//   * n <= 16384: one block per row, n/16 threads; the row (at most
-//     139 KB with padding) lives in dynamic shared memory for all passes,
-//     so device memory sees one read and one write per point;
+// n = 2048), so device memory is the bound, and the design keeps every
+// pass on chip:
+//   * n = 2048, 4096 (HPSS, STFT, .spectrogram()): fft_reg_kernel, the
+//     transform in registers.  n = A * B (64 x 32, 64 x 64); a group of
+//     B threads owns one transform: each thread runs an A-point DFT of one
+//     column in registers (fft_reg.cuh), times the twiddle W_n^(n2 k1) from
+//     a table in shared memory laid out for conflict-free reads, the group
+//     transposes through its own buffer (real parts, then imaginary parts;
+//     __syncwarp, or a named barrier for the two warps at 4096), and each
+//     thread runs the B-point DFTs of rows k1 and A - k1 (at 4096 one row).
+//     Real rows (xi null) go in pairs, z = a + i b, one transform for two
+//     rows: a thread holds bins k and n - k (the upper half of the partner
+//     row comes through the buffer at 4096), separates A_k = (Z_k + conj
+//     Z_{n-k}) / 2 and B_k = (Z_k - conj Z_{n-k}) / 2i, and writes bins k
+//     and n - k of both full spectra; an odd batch's last row goes with
+//     b = 0.  The inverse takes a null xi as zeros, one row a transform.
+//     Blocks are persistent; each group fetches its next rows into its
+//     staging buffer with cp.async (16 bytes where the address allows) as
+//     soon as the first pass has read the current ones, so the loads of one
+//     transform overlap the arithmetic and stores of the last.  Each output
+//     row is written into the group's buffer and leaves as 16-byte words
+//     (PERF.md compares this with storing the bins as floats straight from
+//     registers); at 4096 with real input the buffer carries the partners'
+//     halves, and those bins go out as floats.
+//   * n = 8192, 16384: one block per row, n/16 threads; the row (at most
+//     139 KB with padding) lives in dynamic shared memory for the radix-16
+//     Stockham passes of fft_smem.cuh, so device memory sees one read and
+//     one write per point;
 //   * n = 32768 (256 KB, more than a block's 227 KB of shared memory):
 //     four-step split n = n1 * n2 (n1 = 128) through a device scratch
 //     buffer: column FFTs of length n1 with the twiddle W_n^(t2 k1) applied
@@ -31,13 +53,19 @@
 //     per k1 a row FFT, the square and the first inverse row FFT in place
 //     in the scratch buffer, then the inverse column FFTs).
 
+#include <cuda_pipeline.h>
+
 #include <cstdint>
 
+#include "fft_reg.cuh"
 #include "fft_smem.cuh"
 
+using afx::bit_reverse;
 using afx::cmul;
 using afx::fft_smem;
+using afx::ilog2;
 using afx::pad;
+using afx::reg_dft;
 using afx::seq_stride;
 
 namespace {
@@ -54,8 +82,295 @@ struct Dir {
   float sign, scale;
 };
 
-// One row per block; blockDim.x = n / 16.  yi may be null (the imaginary
-// output is then not written).
+constexpr int kRegThreads = 256;  // a block of fft_reg_kernel
+
+// Floats of a group's transpose buffer in fft_reg_kernel: A x (B + 1), and
+// where a thread ends with one row only (A == B), room for the upper
+// halves of all rows as float2, B / 2 + 1 apart.
+__host__ __device__ constexpr int reg_ex_words(int a, int b) {
+  const int transpose = a * (b + 1);
+  const int halves = a == b ? 2 * b * (b / 2 + 1) : 0;
+  return transpose > halves ? transpose : halves;
+}
+
+// Shared-memory bytes of fft_reg_kernel<A, B>: the twiddle table, and per
+// group a staging buffer of two rows and the transpose buffer.
+__host__ __device__ constexpr int reg_smem_bytes(int a, int b) {
+  return 8 * a * b + 4 * (kRegThreads / b) * (2 * a * b + reg_ex_words(a, b));
+}
+
+// Fetch n floats from src into dst (zeros where src is null), asynchronous:
+// thread t of a group of T copies every T-th 16-byte word where the
+// address allows, else every T-th float.
+__device__ __forceinline__ void fetch_row(float* dst, const float* src,
+                                         int n, int t, int T) {
+  if (src == nullptr) {
+    for (int i = 4 * t; i < n; i += 4 * T) {
+      *reinterpret_cast<float4*>(dst + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int i = 4 * t; i < n; i += 4 * T) {
+      __pipeline_memcpy_async(dst + i, src + i, 16);
+    }
+  } else {
+    for (int i = t; i < n; i += T) {
+      __pipeline_memcpy_async(dst + i, src + i, 4);
+    }
+  }
+}
+
+// Store the n floats of a group's buffer to out: 16-byte words where the
+// address allows, else floats; `sync` is the group's barrier, before (the
+// row stands in the buffer) and after (the buffer is free).
+template <typename Sync>
+__device__ __forceinline__ void flush_row(float* out, const float* ex, int n,
+                                          int t, int T, Sync& sync) {
+  sync();
+  if ((reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+    for (int i = 4 * t; i < n; i += 4 * T) {
+      *reinterpret_cast<float4*>(out + i) =
+          *reinterpret_cast<const float4*>(ex + i);
+    }
+  } else {
+    for (int i = t; i < n; i += T) out[i] = ex[i];
+  }
+  sync();
+}
+
+// Whether fft_reg_kernel packs real rows in pairs: a forward with xi null.
+// The inverse of real rows runs them one a transform with a zero imaginary
+// part.
+__host__ __device__ inline bool reg_pairs(const float* xi, Dir d) {
+  return xi == nullptr && d.sign > 0.f;
+}
+
+// The register-resident transform of n = A * B points; groups of B threads,
+// kRegThreads / B groups a block, persistent blocks.  Real pairs
+// (reg_pairs): item q is rows 2q and 2q + 1 as one packed transform; else
+// item q is row q.  `stages` cuts it for timing: 1 stores the first pass's
+// output, 2 the second pass's, 3 is the whole kernel; every cut stores as
+// many values as the whole kernel.
+template <int A, int B>
+__global__ void __launch_bounds__(kRegThreads)
+fft_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+               float* __restrict__ yr, float* __restrict__ yi,
+               const float2* __restrict__ tw, long long batch, Dir d,
+               int stages) {
+  constexpr int T = B;           // a thread a first-pass column
+  constexpr int N = A * B;
+  constexpr int R2 = A / T;      // second-pass rows a thread ends with
+  constexpr int EXS = reg_ex_words(A, B);
+  constexpr int kGroups = kRegThreads / T;
+  constexpr int kLogA = ilog2(A), kLogB = ilog2(B);
+  static_assert(R2 == 1 || R2 == 2, "a group is A or A / 2 threads");
+  extern __shared__ float4 smem4[];
+  float2* tbl = reinterpret_cast<float2*>(smem4);
+  float* stages_all = reinterpret_cast<float*>(tbl + N);
+  const int tid = threadIdx.x;
+  const int grp = tid / T, t = tid % T;
+  float* stage = stages_all + grp * 2 * N;
+  float* ex = stages_all + kGroups * 2 * N + grp * EXS;
+  const bool real = reg_pairs(xi, d);
+  const long long items = real ? (batch + 1) / 2 : batch;
+  const long long stride = static_cast<long long>(gridDim.x) * kGroups;
+  long long item = static_cast<long long>(blockIdx.x) * kGroups + grp;
+
+  // the group's barrier: its lanes of the warp, or (two warps) a named
+  // barrier of its own
+  const unsigned gmask =
+      T >= 32 ? 0xffffffffu
+              : (((1u << (T & 31)) - 1u) << ((tid & 31) / T * T));
+  auto group_sync = [&]() {
+    if constexpr (T <= 32) {
+      __syncwarp(gmask);
+    } else {
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + grp), "r"(T) : "memory");
+    }
+  };
+  auto fetch = [&](long long q) {
+    const float* a = xr + (real ? 2 * q : q) * N;
+    const float* b = real            ? (2 * q + 1 < batch ? a + N : nullptr)
+                     : xi == nullptr ? nullptr
+                                     : xi + q * N;
+    fetch_row(stage, a, N, t, T);
+    fetch_row(stage + N, b, N, t, T);
+    __pipeline_commit();
+  };
+
+  // once a block: the twiddles W_n^(n2 k1) at [k1 * B + n2]
+  for (int i = tid; i < N; i += kRegThreads) {
+    tbl[i] = __ldg(&tw[(i / B) * (i % B)]);
+  }
+  if (item < items) fetch(item);
+  __syncthreads();
+  // the rows k1 this thread ends with: k1 and A - k1 (thread 0: 0 and A / 2)
+  // where a group is A / 2 threads, else k1 alone
+  const int k1r[2] = {t, R2 == 1 ? t : t == 0 ? A / 2 : A - t};
+
+  for (; item < items; item += stride) {
+    const long long ra = real ? 2 * item : item;  // output rows ra (, ra + 1)
+    const bool has_b = real && ra + 1 < batch;
+    __pipeline_wait_prior(0);
+    group_sync();  // the group's rows stand in its staging buffer
+    float2 v[A];
+#pragma unroll
+    for (int j = 0; j < A; ++j) {
+      const int i = t + B * j;
+      v[bit_reverse(j, kLogA)] = make_float2(stage[i], d.sign * stage[N + i]);
+    }
+    group_sync();  // the staging buffer is free: fetch the next rows
+    if (item + stride < items) fetch(item + stride);
+    reg_dft<A>(v);
+#pragma unroll
+    for (int k1 = 1; k1 < A; ++k1) v[k1] = cmul(v[k1], tbl[k1 * B + t]);
+    // output row c of the item: real (a re, a im, b re, b im), complex
+    // (re, im); null where there is none.  A row is written into the
+    // group's buffer first and leaves by flush_row.
+    auto out_row = [&](int c) -> float* {
+      float* base = c & 1 ? yi : yr;
+      if (base == nullptr || (c >= 2 && !has_b)) return nullptr;
+      return base + (static_cast<size_t>(ra) + (c >> 1)) * N;
+    };
+    if (stages == 1) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float* const out = out_row(c);
+        if (out == nullptr) continue;
+#pragma unroll
+        for (int k1 = 0; k1 < A; ++k1) {
+          ex[t + B * k1] = c & 1 ? v[k1].y : v[k1].x;
+        }
+        flush_row(out, ex, N, t, T, group_sync);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int k1 = 0; k1 < A; ++k1) ex[k1 * (B + 1) + t] = v[k1].x;
+    group_sync();
+    float2 u[R2][B];
+#pragma unroll
+    for (int s = 0; s < R2; ++s) {
+#pragma unroll
+      for (int j = 0; j < B; ++j) {
+        u[s][bit_reverse(j, kLogB)].x = ex[k1r[s] * (B + 1) + j];
+      }
+    }
+    group_sync();
+#pragma unroll
+    for (int k1 = 0; k1 < A; ++k1) ex[k1 * (B + 1) + t] = v[k1].y;
+    group_sync();
+#pragma unroll
+    for (int s = 0; s < R2; ++s) {
+#pragma unroll
+      for (int j = 0; j < B; ++j) {
+        u[s][bit_reverse(j, kLogB)].y = ex[k1r[s] * (B + 1) + j];
+      }
+      reg_dft<B>(u[s]);
+    }
+    // u[s][k2] is bin k1r[s] + A k2
+    group_sync();  // every thread has read its rows: the buffer is free
+    if (!real || stages == 2) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float* const out = out_row(c);
+        if (out == nullptr) continue;
+        const float f = stages == 2 ? 1.f
+                        : c & 1     ? d.sign * d.scale
+                                    : d.scale;
+#pragma unroll
+        for (int s = 0; s < R2; ++s) {
+#pragma unroll
+          for (int k2 = 0; k2 < B; ++k2) {
+            ex[k1r[s] + A * k2] = f * (c & 1 ? u[s][k2].y : u[s][k2].x);
+          }
+        }
+        flush_row(out, ex, N, t, T, group_sync);
+      }
+      continue;
+    }
+    // Real pair.  Bin n - k of bin k = k1 + A k2 is row A - k1 at
+    // B - 1 - k2 (row 0: itself at B - k2): the thread's other row, or (one
+    // row a thread) the row of thread A - t, whose upper half comes through
+    // the buffer.  Each (k, n - k) is separated once and both bins of both
+    // spectra are written: A_{n-k} = conj A_k, B_{n-k} = conj B_k.
+    if constexpr (R2 == 2) {
+      // one output row a round through the buffer
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float* const out = out_row(c);
+        if (out == nullptr) continue;
+#pragma unroll
+        for (int k2 = 0; k2 < B / 2; ++k2) {
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+            const float2 zk = u[s][k2];
+            const float2 zn = t == 0
+                ? u[s][s == 0 ? (B - k2) % B : B - 1 - k2]
+                : u[1 - s][B - 1 - k2];
+            const float2 z = c < 2
+                ? make_float2(0.5f * (zk.x + zn.x), 0.5f * (zk.y - zn.y))
+                : make_float2(0.5f * (zk.y + zn.y), 0.5f * (zn.x - zk.x));
+            const float val = c & 1 ? z.y : z.x;
+            const int k = k1r[s] + A * k2;
+            const int km = (N - k) & (N - 1);
+            ex[k] = val;
+            if (km != k) ex[km] = c & 1 ? -val : val;
+          }
+        }
+        if (t == 0) {  // bin n/2 is its own partner
+          const float2 zk = u[0][B / 2];
+          ex[N / 2] = c == 0 ? zk.x : c == 2 ? zk.y : 0.f;
+        }
+        flush_row(out, ex, N, t, T, group_sync);
+      }
+    } else {
+      // one row a thread: the buffer carries the rows' upper halves, so the
+      // bins go out as floats (a warp's stores cover 128 neighbouring bytes)
+      float2* xh = reinterpret_cast<float2*>(ex);
+#pragma unroll
+      for (int k2 = B / 2; k2 < B; ++k2) {
+        xh[t * (B / 2 + 1) + k2 - B / 2] = u[0][k2];
+      }
+      group_sync();
+      float* const ar = out_row(0);
+      float* const ai = out_row(1);
+      auto put = [&](int k, float2 za, float2 zb) {
+        const int km = (N - k) & (N - 1);
+        ar[k] = za.x;
+        ai[k] = za.y;
+        if (km != k) {
+          ar[km] = za.x;
+          ai[km] = -za.y;
+        }
+        if (has_b) {
+          ar[N + k] = zb.x;
+          ai[N + k] = zb.y;
+          if (km != k) {
+            ar[N + km] = zb.x;
+            ai[N + km] = -zb.y;
+          }
+        }
+      };
+#pragma unroll
+      for (int k2 = 0; k2 < B / 2; ++k2) {
+        const float2 zk = u[0][k2];
+        const float2 zn =
+            t == 0 ? u[0][(B - k2) % B]
+                   : xh[((A - t) & (A - 1)) * (B / 2 + 1) + B / 2 - 1 - k2];
+        put(t + A * k2,
+            make_float2(0.5f * (zk.x + zn.x), 0.5f * (zk.y - zn.y)),
+            make_float2(0.5f * (zk.y + zn.y), 0.5f * (zn.x - zk.x)));
+      }
+      if (t == 0) {  // bin n/2 is its own partner
+        const float2 zk = u[0][B / 2];
+        put(N / 2, make_float2(zk.x, 0.f), make_float2(zk.y, 0.f));
+      }
+    }
+  }
+}
+
+// One row per block (n = 8192, 16384); blockDim.x = n / 16.  yi may be null
+// (the imaginary output is then not written).
 __global__ void __launch_bounds__(1024)
 fft_row_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                float* __restrict__ yr, float* __restrict__ yi,
@@ -243,13 +558,49 @@ cudaError_t allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+template <int A, int B>
+int launch_reg(const float* xr, const float* xi, float* yr, float* yi,
+               const float2* tw, long long batch, Dir d, int stages,
+               cudaStream_t st) {
+  constexpr int kSmem = reg_smem_bytes(A, B);
+  static_assert(kSmem <= 232448, "a block's shared memory on sm_90");
+  auto kernel = fft_reg_kernel<A, B>;
+  cudaError_t e = allow_smem(kernel, kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, sms = 0, per_sm = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kRegThreads, kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  constexpr int kGroups = kRegThreads / B;
+  const long long items = reg_pairs(xi, d) ? (batch + 1) / 2 : batch;
+  const long long want = (items + kGroups - 1) / kGroups;
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  kernel<<<static_cast<unsigned>(want < resident ? want : resident),
+           kRegThreads, kSmem, st>>>(xr, xi, yr, yi, tw, batch, d, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int transform(const float* xr, const float* xi, float* yr, float* yi,
               void* scratch, const void* tw, long long batch, int log2n,
-              Dir d, void* stream) {
+              Dir d, int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float2* twf = static_cast<const float2*>(tw);
   if (batch <= 0) return 0;
-  if (bad_args(batch, log2n)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_args(batch, log2n) || stages < 1 || stages > 3 ||
+      (stages != 3 && log2n > 12)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (log2n == 11) {
+    return launch_reg<64, 32>(xr, xi, yr, yi, twf, batch, d, stages, st);
+  }
+  if (log2n == 12) {
+    return launch_reg<64, 64>(xr, xi, yr, yi, twf, batch, d, stages, st);
+  }
   if (log2n <= kMaxSinglePassLog2) {
     const int smem = static_cast<int>(sizeof(float2)) * seq_stride(1 << log2n);
     cudaError_t e = allow_smem(fft_row_kernel, smem);
@@ -277,22 +628,28 @@ int transform(const float* xr, const float* xi, float* yr, float* yi,
 // xr, xi: (batch, n) fp32 rows (xi may be null: real input).
 // yr, yi: (batch, n) fp32 natural-order spectrum.  scratch: batch * n
 // float2, used only when n > 2^14.  tw: n float2, exp(-2 pi i k / n).
-// Returns the CUDA error code of the launches (0 on success).
+// stages: 3 (the whole transform), or at n = 2048 and 4096 1 or 2 to cut
+// the kernel for timing (the output is then not the spectrum).  Returns
+// the CUDA error code of the launches (0 on success).
 extern "C" int af_fft_pow2_fwd(const float* xr, const float* xi, float* yr,
                                float* yi, void* scratch, const void* tw,
-                               long long batch, int log2n, void* stream) {
+                               long long batch, int log2n, int stages,
+                               void* stream) {
   return transform(xr, xi, yr, yi, scratch, tw, batch, log2n, Dir{1.f, 1.f},
-                   stream);
+                   stages, stream);
 }
 
 // The inverse, 1/n included: yr, yi (batch, n) natural-order spectrum ->
-// xr, xi (batch, n) signal.  xi may be null: the imaginary output is then
-// not written.  scratch and tw as above.
+// xr, xi (batch, n) signal.  yi may be null (a spectrum with no imaginary
+// part); xi may be null: the imaginary output is then not written.
+// scratch, tw and stages as above.
 extern "C" int af_fft_pow2_inv(const float* yr, const float* yi, float* xr,
                                float* xi, void* scratch, const void* tw,
-                               long long batch, int log2n, void* stream) {
+                               long long batch, int log2n, int stages,
+                               void* stream) {
   return transform(yr, yi, xr, xi, scratch, tw, batch, log2n,
-                   Dir{-1.f, 1.f / static_cast<float>(1 << log2n)}, stream);
+                   Dir{-1.f, 1.f / static_cast<float>(1 << log2n)}, stages,
+                   stream);
 }
 
 // out = 0.5 * Im(ifft(fft(xr + i xi)^2)), all (batch, n) fp32.  scratch and

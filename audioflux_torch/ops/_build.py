@@ -5,8 +5,11 @@ One shared library per source, with a plain C interface (no PyTorch
 headers, so a build takes seconds, not minutes).  The libraries go to
 ``audioflux_torch/_build/`` under a name that carries a hash of the
 sources and flags, so an edited kernel is rebuilt and a stale one is never
-loaded.  Nothing is built when the package is imported; a missing
-``nvcc`` or a failed compile raises.
+loaded.  A source may include a header that a module of the port
+generates (``median_filter.cu`` includes the networks that
+``ops/median_network.py`` builds): it is written next to the library and
+its text is part of the hash.  Nothing is built when the package is
+imported; a missing ``nvcc`` or a failed compile raises.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from audioflux_torch.ops import median_network
+
 __all__ = ["SOURCES", "build", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -28,6 +33,11 @@ SOURCES = ("fft_pow2", "fused_mel_mfcc", "median_filter", "cwt_ifft_bank",
            "unwrap_diff", "columnar_scatter")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
+
+# the headers generated for a source: {source: {file name: text maker}}
+GENERATED = {
+    "median_filter": {"median_networks.cuh": median_network.header_text},
+}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -40,11 +50,19 @@ def _nvcc() -> str:
     return path
 
 
+def _generated(name: str) -> dict:
+    """{file name: text} of the headers generated for ``csrc/<name>.cu``."""
+    return {file: make() for file, make in GENERATED.get(name, {}).items()}
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
+    for file, text in sorted(_generated(name).items()):
+        h.update(file.encode())
+        h.update(text.encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -60,8 +78,16 @@ def build(names=SOURCES, verbose: bool = False) -> dict:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        include = []
+        generated = _generated(name)
+        if generated:
+            gen = out.with_suffix(".include")
+            gen.mkdir(exist_ok=True)
+            for file, text in generated.items():
+                (gen / file).write_text(text)
+            include = ["-I", str(gen)]
         cmd = [nvcc, *FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+               *include, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -24,6 +24,8 @@ from audioflux_torch.ops.backend import require_sm90
 __all__ = ["supports", "fft_fwd", "fft_fwd_ref", "fft_inv", "fft_inv_ref",
            "fft_autocorr", "fft_autocorr_ref", "twiddle_table"]
 
+REGISTER_N = (2048, 4096)   # the lengths of the register-resident route
+
 
 def supports(n: int) -> bool:
     """The kernel's domain: pow2 n in [2048, 32768]."""
@@ -43,9 +45,11 @@ def twiddle_table(n: int, device: torch.device) -> torch.Tensor:
 def _lib():
     lib = _build.load("fft_pow2")
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for fn, argtypes in ((lib.af_fft_pow2_fwd, [p, p, p, p, p, p, ll, i, p]),
-                         (lib.af_fft_pow2_inv, [p, p, p, p, p, p, ll, i, p]),
-                         (lib.af_fft_pow2_autocorr, [p, p, p, p, p, ll, i, p])):
+    rows = [p, p, p, p, p, p, ll, i, i, p]
+    auto = [p, p, p, p, p, ll, i, p]
+    for fn, argtypes in ((lib.af_fft_pow2_fwd, rows),
+                         (lib.af_fft_pow2_inv, rows),
+                         (lib.af_fft_pow2_autocorr, auto)):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
@@ -73,10 +77,10 @@ def _check_rows(who: str, **tensors) -> int:
     return n
 
 
-def _call(fn, who: str, x: torch.Tensor, n: int, *ptrs):
-    """Launch ``fn(*ptrs, scratch, tw, batch, log2n, stream)`` on ``x``'s
-    device and stream; raise on a CUDA error.  ``scratch`` is the four-step
-    split's device buffer (n > 16384 only)."""
+def _call(fn, who: str, x: torch.Tensor, n: int, *ptrs, stages=None):
+    """Launch ``fn(*ptrs, scratch, tw, batch, log2n[, stages], stream)`` on
+    ``x``'s device and stream; raise on a CUDA error.  ``scratch`` is the
+    four-step split's device buffer (n > 16384 only)."""
     require_sm90(x.device)
     batch, log2n = x.numel() // n, n.bit_length() - 1
     scratch = (torch.empty((batch, n, 2), dtype=torch.float32,
@@ -85,7 +89,8 @@ def _call(fn, who: str, x: torch.Tensor, n: int, *ptrs):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*ptrs, None if scratch is None else scratch.data_ptr(),
-                 tw.data_ptr(), batch, log2n, stream)
+                 tw.data_ptr(), batch, log2n,
+                 *(() if stages is None else (stages,)), stream)
     if err:
         raise RuntimeError(f"{who} launch failed: CUDA error {err}")
 
@@ -103,18 +108,27 @@ def fft_fwd(xr: torch.Tensor, xi: torch.Tensor | None = None):
 
     A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
     takes the plain version.  ~1e-6 of the peak (the TPU kernel's contract
-    is 5e-5)."""
+    is 5e-5).  At n = 2048 and 4096 real rows are transformed two at a time
+    (one packed complex transform, separated in the kernel)."""
     n = _check_rows("fft_fwd", xr=xr, xi=xi)
     if xr.device.type == "cpu":
         return fft_fwd_ref(xr, xi)
+    return _fwd(xr, xi, n)
+
+
+def _fwd(xr, xi, n, stages=3):
+    """Launch the forward kernel; ``stages`` 1 and 2 (n = 2048 and 4096)
+    cut it after its first or second pass, for measurements (the output
+    is then not the spectrum)."""
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xr)
     if xr.numel() == 0:
         return yr, yi
     _call(_lib().af_fft_pow2_fwd, "fft_pow2 forward", xr, n, xr.data_ptr(),
           None if xi is None else xi.data_ptr(), yr.data_ptr(),
-          yi.data_ptr())
+          yi.data_ptr(), stages=stages)
     fft_fwd.launches += 1
+    fft_fwd.register_launches += int(n in REGISTER_N)
     return yr, yi
 
 
@@ -141,8 +155,10 @@ def fft_inv(yr: torch.Tensor, yi: torch.Tensor, out_imag: bool = True):
     if yr.numel() == 0:
         return xr, xi
     _call(_lib().af_fft_pow2_inv, "fft_pow2 inverse", yr, n, yr.data_ptr(),
-          yi.data_ptr(), xr.data_ptr(), None if xi is None else xi.data_ptr())
+          yi.data_ptr(), xr.data_ptr(), None if xi is None else xi.data_ptr(),
+          stages=3)
     fft_inv.launches += 1
+    fft_inv.register_launches += int(n in REGISTER_N)
     return xr, xi
 
 
@@ -174,4 +190,6 @@ def fft_autocorr(xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
 
 fft_fwd.launches = 0
 fft_inv.launches = 0
+fft_fwd.register_launches = 0   # those at n = 2048, 4096 (the register route)
+fft_inv.register_launches = 0
 fft_autocorr.launches = 0

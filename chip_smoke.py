@@ -8,13 +8,18 @@ Phases (any failure exits non-zero; no result line is printed then):
    versions; sm_90 required; fp32 matmuls must not use TF32);
 1. build every kernel from ``audioflux_torch/csrc`` with nvcc (one process
    per source, started together) and print ptxas' register, stack and
-   spill lines;
+   spill lines, and the FMNMX instructions of each median network kernel
+   beside the network's own count;
 2. each kernel against its plain PyTorch version on the card: the forward
    and inverse FFT and the fused autocorrelation at every n in
-   2048..32768, the fused mel+MFCC kernel over eight shape classes,
-   unaligned views, a batch whose tiles do not divide over the persistent
-   blocks, one-frame clips and a dense filterbank, the median kernel
-   (``torch.equal``) over orders, odd shapes and both axes;
+   2048..32768, and the FFT's register route (n = 2048, 4096) on 1, 3 and
+   65 rows, real, complex and inverse, at an offset of one float; the
+   fused mel+MFCC kernel over eight shape classes, unaligned views, a
+   batch whose tiles do not divide over the persistent blocks, one-frame
+   clips and a dense filterbank; the median kernel (``torch.equal``) over
+   orders 3..33, its networks at runs of 4, 8 and 16 outputs a thread,
+   negatives, +-inf, ties, rows shorter than a run and than the order,
+   inner widths that are no multiple of 32 and both axes;
    ``cwt_ifft_bank`` at N = 16384..131072 (``det`` both ways, padded,
    ``pad = 0`` and an odd slice, with and without the support rows, a PWT
    bank, 1, 7 and resident + 1 band-rows, both block sizes, an output at
@@ -22,8 +27,10 @@ Phases (any failure exits non-zero; no result line is printed then):
    ``columnar_scatter`` (``torch.equal``) over phases, index patterns and
    odd shapes;
 3. the main paths at full size, each with the launch counts set to 0 just
-   before it and read just after (3c runs after 4b, when the MIR path's
-   tensors are freed):
+   before it and read just after (on the MIR path, before and after each
+   user's call; the route counts show the FFT's register route and the
+   median networks; 3c runs after 4b, when the MIR path's tensors are
+   freed):
    a. mel+MFCC: ``MelSpectrogram(num=128, samplate=32000, radix2_exp=11,
       slide_length=512).spectrogram_mfcc_fused`` on 1000 clips of T=1000
       frames and on 1000 clips of 4096 samples (T=5), and
@@ -42,8 +49,10 @@ Phases (any failure exits non-zero; no result line is printed then):
       the kernel path against ``force_xla_unwrap=True`` (bin flips and
       mass), and the first and last clips against the port on the CPU;
 4. timing with CUDA events: each kernel, its plain version and the
-   library yardstick at the main paths' shapes, the fused kernel and
-   ``cwt_ifft_bank`` cut after each stage (their splits),
+   library yardstick at the main paths' shapes, the fused kernel,
+   ``cwt_ifft_bank`` and the FFT's register route cut after each stage
+   (their splits), the median at runs of 4, 8 and 16 and cut after its
+   loads and stores, its bound from a probe of the min/max issue rate,
    ``cwt_ifft_bank`` at both cluster sizes and at half and twice the
    resident grid, and audio-hours per second of the users' calls.
 
@@ -57,6 +66,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -69,7 +79,8 @@ from audioflux_torch.mir import HPSS, PitchYIN  # noqa: E402
 from audioflux_torch.filterbank.auditory import (  # noqa: E402
     auditory_filter_bank)
 from audioflux_torch.ops import _build  # noqa: E402
-from audioflux_torch.ops import cuda_cwt  # noqa: E402
+from audioflux_torch.ops import cuda_cwt, cuda_fft, cuda_median  # noqa: E402
+from audioflux_torch.ops import median_network  # noqa: E402
 from audioflux_torch.ops.cuda_cwt import (band_row_counts,  # noqa: E402
                                           cluster_plan, cwt_ifft_bank,
                                           cwt_ifft_bank_ref,
@@ -103,7 +114,6 @@ FFT_TOL, FP32_TOL, FAST_TOL, GATE_TOL = 5e-5, 1e-5, 2e-4, 1e-4
 # the MIR path: 64 clips of 30 s; HPSS 2048/512 orders 21/31, YIN 4096/1024
 MIR_CLIPS, MIR_SECONDS, MIR_SMALL = 64, 30, 8
 H_ORDER, P_ORDER, YIN_R2E, YIN_SLIDE = 21, 31, 12, 1024
-CE_COUNT = {21: 149, 31: 157}   # compare-exchanges of the pruned networks
 YIN_TOL, FRE_TOL_HZ, FRE_SHARE = 2e-4, 1e-2, 0.99
 FORK_SHORT_CLIP_MS = 0.3646     # the T<8 fork's call, NVIDIA H100 80GB HBM3, 700 W
 # the wavelet path: CWT morlet, 84 octave bands, 2^15 samples (padded
@@ -200,6 +210,36 @@ def phase1_build():
             elif "registers" in line or "spill" in line:
                 print(f"  {name}:   {line.strip()}")
     print(f"  build seconds: {seconds:.2f}")
+    network_sass_counts()
+
+
+def network_sass_counts():
+    """The min/max instructions (FMNMX) of each median network kernel in
+    the built library, read with cuobjdump, beside the generated network's
+    count: the bound's operations are the ones the card runs."""
+    cuobjdump = (shutil.which("cuobjdump")
+                 or "/usr/local/cuda/bin/cuobjdump")
+    if not os.path.exists(cuobjdump):
+        print("  cuobjdump not found: FMNMX counts not read")
+        return
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(_build._lib_path("median_filter"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "FMNMX" in line:
+            counts[fn] += 1
+    for order, m in median_network.INSTANCES:
+        want = median_network.build(order, m).minmax
+        for kind in ("strided", "rows"):
+            got = [c for f, c in counts.items()
+                   if f"median_run_{kind}ILi{order}ELi{m}E" in f]
+            print(f"  median_filter: median_run_{kind}<{order}, {m}> FMNMX "
+                  f"{got[0] if got else 'not found'} (network: {want}; "
+                  f"{'equal' if got == [want] else 'differs'})")
 
 
 def phase2_kernels(gen):
@@ -234,15 +274,51 @@ def phase2_kernels(gen):
         if n == 1 << YIN_R2E:
             errs["fft_autocorr"] = abs_err
     torch.cuda.synchronize()
+    # the register route: real rows in pairs (an odd batch's last row
+    # alone), complex rows and the inverse, on rows at an address 16-byte
+    # aligned and at an offset of one float
+    for n in cuda_fft.REGISTER_N:
+        for batch in (1, 3, 65):
+            buf = randn(2 * batch * n + 1, gen)
+            worst = 0.0
+            for off in (0, 1):
+                xr = buf[off:off + batch * n].view(batch, n)
+                xi = buf[off + batch * n:off + 2 * batch * n].view(batch, n)
+                for args in ((xr,), (xr, xi)):
+                    abs_err, peak = pair_err(fft_fwd(*args),
+                                             fft_fwd_ref(*args))
+                    worst = max(worst, abs_err / peak)
+                for out_imag in (True, False):
+                    abs_err, peak = pair_err(fft_inv(xr, xi, out_imag),
+                                             fft_inv_ref(xr, xi, out_imag))
+                    worst = max(worst, abs_err / peak)
+                # the C entry's inverse of a real spectrum (a null
+                # imaginary input), which no wrapper passes
+                got = (torch.empty_like(xr), torch.empty_like(xr))
+                cuda_fft._call(cuda_fft._lib().af_fft_pow2_inv,
+                               "fft_pow2 inverse", xr, n, xr.data_ptr(), None,
+                               got[0].data_ptr(), got[1].data_ptr(), stages=3)
+                abs_err, peak = pair_err(
+                    got, fft_inv_ref(xr, torch.zeros_like(xr)))
+                worst = max(worst, abs_err / peak)
+            check(f"fft_pow2 register route n={n}, {batch} rows (real, "
+                  "complex, inverse of complex and of real spectra; offsets "
+                  "0 and 1 float)", worst, FFT_TOL)
 
-    # the median kernel, value for value: network orders (21, 31), rank
-    # counting (the rest), odd row counts, rows shorter than the order,
-    # one column, 1-D, and the strided axis (dim=-2)
+    # the median kernel, value for value: network orders (21, 31) at
+    # cuda_median.RUN outputs a thread, rank counting (the rest); negatives,
+    # +-inf, ties and zeros; rows shorter than a run and than the order,
+    # one column, 1-D, inner widths that are no multiple of 32, and the
+    # strided axis (dim=-2)
     for shape, dim in (((37, 1025), -1), ((5, 7), -1), ((9, 1), -1),
-                       ((1000,), -1), ((3, 50, 70), -2), ((2, 129, 1025), -2),
-                       ((3, 5, 4, 3), 1)):
-        x = randn(shape, gen).abs()
-        x = torch.where(x < 0.3, torch.zeros_like(x), x)  # ties and zeros
+                       ((1000,), -1), ((7, 3), -1), ((2, 2, 17), -1),
+                       ((3, 50, 70), -2), ((2, 129, 1025), -2),
+                       ((4, 300, 33), -2), ((3, 5, 4, 3), 1)):
+        x = randn(shape, gen)
+        x = torch.where(x.abs() < 0.3, torch.zeros_like(x), x)  # ties, zeros
+        flat = x.view(-1)
+        flat[::17] = math.inf
+        flat[5::19] = -math.inf
         for order in (3, 9, 21, 31, 33):
             ref = median_filter_last_axis_ref(x, order, dim)
             got = median_filter_last_axis(x, order, dim)
@@ -251,8 +327,9 @@ def phase2_kernels(gen):
                 raise AssertionError(
                     f"median {shape} dim={dim} order={order}: "
                     f"{int((got != ref).sum())} cells differ")
-        print(f"  median {shape} dim={dim}: orders 3, 9, 21, 31, 33 equal "
-              "to the full sort")
+        print(f"  median {shape} dim={dim}: orders 3, 9, 33 (rank counting), "
+              f"21 and 31 (networks, runs of {cuda_median.RUN}) equal to the "
+              "full sort")
     for order in (1, 4):
         if median_filter_last_axis(x, order) is not x:
             raise AssertionError(f"median order {order} must return its input")
@@ -474,6 +551,25 @@ def gate(label, dev_out, plan_cpu, x_cpu):
     return ref
 
 
+COUNTERS = {"fft_pow2": (fft_fwd, "launches"),
+            "fft_pow2 register route": (fft_fwd, "register_launches"),
+            "fft_inv": (fft_inv, "launches"),
+            "fft_inv register route": (fft_inv, "register_launches"),
+            "fft_autocorr": (fft_autocorr, "launches"),
+            "median_filter": (median_filter_last_axis, "launches"),
+            "median_filter network": (median_filter_last_axis,
+                                      "network_launches")}
+
+
+def zero_counts():
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
+
+
+def read_counts():
+    return {k: getattr(fn, attr) for k, (fn, attr) in COUNTERS.items()}
+
+
 def require_launched(path, launches):
     print(f"  launches on the {path} path: {launches}")
     for k, v in launches.items():
@@ -492,14 +588,16 @@ def phase3_mel_path(gen):
     xs = randn((N_CLIPS, 4096), gen, 0.2)
     torch.cuda.synchronize()
 
-    fft_fwd.launches = 0
+    zero_counts()
     fused_mel_mfcc.launches = 0
     mel, cc = plan.spectrogram_mfcc_fused(x, cc_num=CC)
     mel_s, cc_s = plan.spectrogram_mfcc_fused(xs, cc_num=CC)
     spec = plan.spectrogram(x[:8])
     torch.cuda.synchronize()
     launches = {"fused_mel_mfcc": fused_mel_mfcc.launches,
-                "fft_pow2": fft_fwd.launches}
+                "fft_pow2": fft_fwd.launches,
+                "fft_pow2 register route (.spectrogram())":
+                    fft_fwd.register_launches}
     require_launched("mel+MFCC", launches)
 
     for name, t, shape in (("mel", mel, (N_CLIPS, NUM, T_HEAD)),
@@ -602,19 +700,34 @@ def phase3_mir_path(gen, errs):
     x = mir_signal(MIR_CLIPS, n, gen)
     torch.cuda.synchronize()
 
-    kernels = {"fft_pow2": fft_fwd, "fft_inv": fft_inv,
-               "fft_autocorr": fft_autocorr,
-               "median_filter": median_filter_last_axis}
-    for fn in kernels.values():
-        fn.launches = 0
+    # each user's call with the counts set to 0 just before it and read
+    # just after; the route counts show that the register FFT (n = 2048)
+    # and the median networks (orders 21, 31) ran
     torch.cuda.reset_peak_memory_stats()
+    zero_counts()
     h, p = hp.hpss(x)
+    torch.cuda.synchronize()
+    hpss_counts = read_counts()
+    require_launched("HPSS.hpss", {k: hpss_counts[k] for k in (
+        "fft_pow2", "fft_pow2 register route", "fft_inv",
+        "fft_inv register route", "median_filter", "median_filter network")})
+    zero_counts()
     fre, val = yin.pitch(x)
+    torch.cuda.synchronize()
+    yin_counts = read_counts()
+    require_launched("PitchYIN.pitch", {"fft_autocorr":
+                                        yin_counts["fft_autocorr"]})
+    zero_counts()
     D = st.stft(x)
     xrt = st.istft(D)
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in kernels.items()}
-    require_launched("MIR", launches)
+    stft_counts = read_counts()
+    require_launched("STFT.stft -> .istft", {k: stft_counts[k] for k in (
+        "fft_pow2", "fft_pow2 register route", "fft_inv",
+        "fft_inv register route")})
+    launches = {k: hpss_counts[k] + yin_counts[k] + stft_counts[k]
+                for k in ("fft_pow2", "fft_inv", "fft_autocorr",
+                          "median_filter")}
     print(f"  peak device memory on the MIR path: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
@@ -928,8 +1041,10 @@ def phase4_timing(plan, x, xs, launches, errs):
 
 
 def kernel_row(name, source, replaces, launches, err, k_ms, p_ms, l_ms,
-               n_bytes, n_ops, what):
-    b_ms, b_by = bound_ms(n_bytes, n_ops)
+               n_bytes, n_ops, what, bound=None):
+    """The kernels line's entry; ``bound`` (ms, "bytes" or "operations")
+    replaces the fp32 reckoning where the operations are not flops."""
+    b_ms, b_by = bound or bound_ms(n_bytes, n_ops)
     print(f"  {name} {what}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
           f"library {l_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}: "
           f"{n_bytes / 1e9:.3f} GB, {n_ops / 1e9:.2f} G operations)")
@@ -967,6 +1082,15 @@ def phase4_mir_timing(mir, mel_launches, errs):
         launches["fft_pow2"] + mel_launches["fft_pow2"], errs["fft_pow2"],
         k_ms, p_ms, l_ms, 12 * frames.numel(),
         nrows * 5.0 * nfft * math.log2(nfft), f"forward {nrows}x{nfft} real"))
+    # the register route cut after each stage (every cut stores as many
+    # values as the whole kernel): the differences split its time
+    cut_ms = [cuda_ms(lambda s=s: cuda_fft._fwd(frames, None, nfft, stages=s),
+                      reps=10) for s in (1, 2)] + [k_ms]
+    for s, name in enumerate(("load + first pass + store",
+                              "second pass", "separation of the pairs")):
+        prev = cut_ms[s - 1] if s else 0.0
+        print(f"  split (fft_pow2 forward): {name}: {cut_ms[s] - prev:.3f} ms "
+              f"(cut after it: {cut_ms[s]:.3f} ms)")
     del frames
 
     # --- fft_inv at the HPSS shape (complex in, complex out) ------------
@@ -1004,26 +1128,64 @@ def phase4_mir_timing(mir, mel_launches, errs):
     del z
 
     # --- the median kernel: HPSS's two calls, timed apart and together --
+    # The bound counts min/max instructions, not flops: the min/max issue
+    # rate is measured here by a probe kernel (a sorting network over 8
+    # registers, 38 min/max a round, no memory traffic in its loop).
     mag = mir["mag"]
     cells = mag.numel()
-    h_ms = cuda_ms(lambda: median_filter_last_axis(mag, H_ORDER, dim=-2),
-                   reps=10)
-    f_ms = cuda_ms(lambda: median_filter_last_axis(mag, P_ORDER), reps=10)
-    for what, ms, order in (("time axis, strided", h_ms, H_ORDER),
-                            ("frequency axis, last", f_ms, P_ORDER)):
-        b_ms, b_by = bound_ms(8 * cells, 2 * CE_COUNT[order] * cells)
-        print(f"  median order {order} ({what}) over {cells} cells: "
-              f"{ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    probe_threads, probe_iters = 132 * 2048 * 4, 256
+    probe_ms = cuda_ms(lambda: cuda_median.minmax_probe(
+        probe_threads, probe_iters, "cuda"), reps=5)
+    rand_ms = cuda_ms(lambda: torch.rand((probe_threads, 8), device="cuda"),
+                      reps=5)
+    rate = probe_threads * probe_iters * 38 / ((probe_ms - rand_ms) * 1e-3)
+    print(f"  min/max issue rate (probe, {probe_threads} threads x "
+          f"{probe_iters} rounds x 38): {rate / 1e12:.2f} T/s")
+    run = cuda_median.RUN
+    minmax = {o: median_network.build(o, run).minmax_per_output
+              for o in (H_ORDER, P_ORDER)}
+    for o in (H_ORDER, P_ORDER):
+        net = median_network.build(o, run)
+        old_ce = median_network.batcher_single_count(o)
+        print(f"  median network order {o}, runs of {run}: "
+              f"{net.ce_per_output:.2f} compare-exchanges and "
+              f"{net.minmax_per_output:.2f} min/max an output (one window "
+              f"a thread: {old_ce} and {2 * old_ce})")
+
+    def median_bound(cells_moved, ops):
+        t_bytes = 8 * cells_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / rate * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+    timed = {}
+    for what, order, dim in (("time axis, strided", H_ORDER, 1),
+                             ("frequency axis, last", P_ORDER, 2)):
+        k = cuda_ms(lambda: cuda_median._launch(mag, order, dim), reps=10)
+        c = cuda_ms(lambda: cuda_median._launch(mag, order, dim, stages=1),
+                    reps=10)
+        ops = minmax[order] * cells
+        b, by = median_bound(cells, ops)
+        timed[order] = k
+        print(f"  median order {order} ({what}), runs of {run}: {k:.3f} ms "
+              f"(loads and stores alone {c:.3f} ms); bound {b:.3f} ms "
+              f"({by}: {ops / 1e9:.2f} G min/max)")
+    h_ms, f_ms = timed[H_ORDER], timed[P_ORDER]
+    old_b, old_by = bound_ms(
+        2 * 8 * cells, 2 * sum(median_network.batcher_single_count(o)
+                               for o in (H_ORDER, P_ORDER)) * cells)
+    print(f"  the bound as reckoned for one window a thread (its two min/max "
+          f"a compare-exchange as two fp32 flops at 67 TFLOP/s): "
+          f"{old_b:.3f} ms ({old_by})")
     g_ms = cuda_ms(lambda: median_filter_last_axis(mag, P_ORDER + 2),
                    reps=3, warmup=1)
     print(f"  median order {P_ORDER + 2} by rank counting (the path of the "
           f"orders without a network): {g_ms:.3f} ms")
 
     def both(fn):
-        def run(t):
+        def run_both(t):
             fn(t, H_ORDER, -2)
             fn(t, P_ORDER, -1)
-        return run
+        return run_both
 
     def library_median(t, order, dim):
         t = t.movedim(dim, -1)
@@ -1034,13 +1196,15 @@ def phase4_mir_timing(mir, mel_launches, errs):
                    reps=2, warmup=1)
     l_ms = cuda_ms(chunked(both(library_median), (mag,), 4), reps=2,
                    warmup=1)
+    ops = (minmax[H_ORDER] + minmax[P_ORDER]) * cells
     rows.append(kernel_row(
         "median_filter", "median_filter",
         "audioflux_tpu/ops/pallas_median.py:108",
         launches["median_filter"], errs["median_filter"], h_ms + f_ms, p_ms,
-        l_ms, 2 * 8 * cells,
-        2 * (CE_COUNT[H_ORDER] + CE_COUNT[P_ORDER]) * cells,
-        f"orders {H_ORDER} + {P_ORDER} over {cells} cells (both HPSS calls)"))
+        l_ms, 2 * 8 * cells, ops,
+        f"orders {H_ORDER} + {P_ORDER} over {cells} cells (both HPSS calls; "
+        f"operations are min/max at the probe's {rate / 1e12:.2f} T/s)",
+        bound=median_bound(2 * cells, ops)))
 
     # --- the users' calls: audio-hours per second ------------------------
     for clips in (MIR_CLIPS, MIR_SMALL):

@@ -13,7 +13,11 @@ held against the plain versions:
   transpose buffer, the rows k1 and A - k1 a thread ends with, the
   separation of the two frames from bins k and n - k, the bin-major
   powers and the filterbank over (band, four frames) items in the order
-  of its rounds.
+  of its rounds;
+* ``fft_pow2``'s register route (n = 2048, 4096): the pairing of real
+  rows (an odd batch's last row alone), the A x B split, the rows a thread
+  ends with, the separation of a pair and the mirror half of each
+  spectrum, the complex and inverse forms.
 
 The CPU has no tolerance of its own here: the models use the same fp32
 sub-transforms (``torch.fft``) as the plain versions, and 1e-5 of the peak
@@ -26,7 +30,8 @@ import torch
 
 from audioflux_tpu.transforms.spectrogram import MelSpectrogram as JMel
 from audioflux_torch.ops import cuda_cwt, fused_mel
-from audioflux_torch.ops.cuda_fft import twiddle_table
+from audioflux_torch.ops.cuda_fft import (fft_fwd_ref, fft_inv_ref,
+                                          twiddle_table)
 from audioflux_torch.ops.fused_mel import (FusedMelPlan, _launch_shape,
                                            _REG_SPLIT, fused_mel_mfcc_ref)
 from audioflux_torch.transforms.spectrogram import MelSpectrogram
@@ -383,3 +388,111 @@ def test_register_dft_bit_reversal_is_a_permutation():
         assert got == [_bit_reverse(j, bits) for j in range(1 << bits)]
         assert sorted(got) == list(range(1 << bits))
     assert fused_mel._REG_SPLIT[2048] == (64, 32, 1)
+
+
+# ------------------------------------------- fft_pow2 register-route model
+
+_FFT_SPLIT = {2048: (64, 32), 4096: (64, 64)}   # csrc/fft_pow2.cu launch_reg
+
+
+def _fft_reg_model(xr, xi=None, inverse=False):
+    """``fft_reg_kernel`` as it decomposes the rows: (batch, n) -> (re,
+    im), each bin written exactly once."""
+    batch, n = xr.shape
+    A, B = _FFT_SPLIT[n]
+    T = B                                   # a thread a first-pass column
+    R2 = A // T
+    sign, scale = (-1.0, 1.0 / n) if inverse else (1.0, 1.0)
+    real = xi is None and not inverse       # real rows in pairs (reg_pairs)
+    tw = torch.view_as_complex(twiddle_table(n, torch.device("cpu")))
+    tbl = tw[torch.arange(A)[:, None] * torch.arange(B)[None, :]].numpy()
+    x = xr.numpy().astype(np.float64)
+    yr = np.full((batch, n), np.nan)
+    yi = np.full((batch, n), np.nan)
+    items = (batch + 1) // 2 if real else batch
+    for q in range(items):
+        ra = 2 * q if real else q
+        has_b = real and ra + 1 < batch
+        a = x[ra]
+        if real:
+            b = x[ra + 1] if has_b else np.zeros(n)
+        else:
+            b = np.zeros(n) if xi is None else xi.numpy()[q].astype(np.float64)
+        # first pass: thread t, column n2 = t, points t + B j
+        ex = np.zeros((A, B), dtype=complex)
+        for t in range(T):
+            i = t + B * np.arange(A)
+            ex[:, t] = np.fft.fft(a[i] + 1j * sign * b[i]) * tbl[:, t]
+        rows_of = {t: (t,) if R2 == 1 else (t, A // 2 if t == 0 else A - t)
+                   for t in range(T)}
+        assert sorted(k for r in rows_of.values() for k in r) == list(
+            range(A))
+        u = {t: [np.fft.fft(ex[k1]) for k1 in rows_of[t]] for t in range(T)}
+
+        def put(row, k, z):
+            assert np.isnan(yr[row, k]), "bin written twice"
+            yr[row, k], yi[row, k] = z.real, z.imag
+        if not real:
+            for t in range(T):
+                for s, k1 in enumerate(rows_of[t]):
+                    for k2 in range(B):
+                        z = u[t][s][k2]
+                        put(ra, k1 + A * k2,
+                            complex(scale * z.real, sign * scale * z.imag))
+            continue
+        for t in range(T):
+            for k2 in range(B // 2):
+                for s in range(R2):
+                    zk = u[t][s][k2]
+                    if t == 0:
+                        zn = u[0][s][(B - k2) % B if s == 0 else B - 1 - k2]
+                    elif R2 == 1:
+                        # the upper half of thread A - t's row, which
+                        # comes through the buffer
+                        assert B - 1 - k2 >= B // 2
+                        zn = u[(A - t) % A][0][B - 1 - k2]
+                    else:
+                        zn = u[t][1 - s][B - 1 - k2]
+                    za = (zk + np.conj(zn)) / 2
+                    zb = (zk - np.conj(zn)) / 2j
+                    k = rows_of[t][s] + A * k2
+                    km = (n - k) % n
+                    for row, z in ((ra, za), (ra + 1, zb)):
+                        if row == ra or has_b:
+                            put(row, k, z)
+                            if km != k:
+                                put(row, km, np.conj(z))
+            if t == 0:
+                zk = u[0][0][B // 2]
+                put(ra, n // 2, complex(zk.real, 0.0))
+                if has_b:
+                    put(ra + 1, n // 2, complex(zk.imag, 0.0))
+    assert not np.isnan(yr).any() and not np.isnan(yi).any()
+    return torch.from_numpy(yr), torch.from_numpy(yi)
+
+
+@pytest.mark.parametrize("n", [2048, 4096])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("form", ["real", "complex", "inverse",
+                                  "real inverse"])
+def test_fft_register_index_model(n, batch, form):
+    """Real rows in pairs (batch 3: the last row alone, b = 0; batch 1:
+    one row), complex rows, and the inverse with its conjugations and 1/n,
+    of a complex spectrum and of a real one (a null imaginary input: one
+    row a transform, never paired), against the plain versions on the
+    CPU."""
+    rng = np.random.default_rng(n + batch)
+    xr = torch.from_numpy(rng.standard_normal((batch, n)).astype(np.float32))
+    xi = torch.from_numpy(rng.standard_normal((batch, n)).astype(np.float32))
+    if form == "real":
+        got, ref = _fft_reg_model(xr), fft_fwd_ref(xr)
+    elif form == "complex":
+        got, ref = _fft_reg_model(xr, xi), fft_fwd_ref(xr, xi)
+    elif form == "inverse":
+        got, ref = _fft_reg_model(xr, xi, inverse=True), fft_inv_ref(xr, xi)
+    else:
+        got = _fft_reg_model(xr, inverse=True)
+        ref = fft_inv_ref(xr, torch.zeros_like(xr))
+    peak = float(torch.sqrt(ref[0].double() ** 2 + ref[1].double() ** 2).max())
+    for g, r in zip(got, ref):
+        assert float((g - r.double()).abs().max()) <= 1e-6 * peak
