@@ -45,13 +45,37 @@
 //     four-step split n = n1 * n2 (n1 = 128) through a device scratch
 //     buffer: column FFTs of length n1 with the twiddle W_n^(t2 k1) applied
 //     on the way out, then row FFTs of length n2 that write bin
-//     k1 + n1 k2 in natural order;
-//   * the autocorrelation reads its two operands once and writes one real
-//     row: at n <= 16384 the forward passes, the square and the inverse
-//     passes run on the row in shared memory in one launch; at n = 32768
-//     the square is fused into the middle of the split (column FFTs, then
-//     per k1 a row FFT, the square and the first inverse row FFT in place
-//     in the scratch buffer, then the inverse column FFTs).
+//     k1 + n1 k2 in natural order.
+//
+// The autocorrelation (YIN's, 59,776 rows of 4096 a call) reads its two
+// operands once and writes one real row: 12 bytes a point against two
+// transforms, 10 n log2 n flops, so at n = 4096 bytes and operations bound
+// it about alike (0.88 and 0.44 ms at YIN's size).  The square never
+// leaves the chip:
+//   * n = 2048, 4096: autocorr_reg_kernel, fft_reg_kernel's pieces (the
+//     A x B split, the group's transpose buffer, persistent groups that
+//     prefetch with cp.async, twiddles in shared memory).  The forward's
+//     second pass leaves bin k = k1 + A k2 with the thread of row k1; the
+//     square is taken there, and the inverse runs its passes in the
+//     opposite order: the B-point DFT over k2 of the thread's own rows, the
+//     twiddle W_n^(k1 j2), the transpose back, then the A-point DFT over k1
+//     of column j2, which gives output j2 + B j1 in the thread that loaded
+//     point j2 + B j1.  So a row crosses the buffer twice each way and
+//     needs no bit-reversal pass.  The twiddle table has rows of B + 1, so
+//     that the forward (a thread a column) and the inverse (a thread a row)
+//     both read it free of bank conflicts.  With S = fft(z)^2 and F =
+//     fft(conj(S)), ifft(S) = conj(F) / n, so out = -0.5 / n * Im(F): the
+//     factor goes into the store of the imaginary part alone.  YIN's entry
+//     (af_fft_pow2_autocorr_yin) stages each frame straight from its clip
+//     (4-byte copies where the frame's address is not 16-byte aligned),
+//     forms z[j] = frame[j] + i frame[lag - j] (j <= lag, else 0) from the
+//     staged frame, and writes only lags >= auto_length, the part YIN
+//     keeps: 4 bytes a point in, 2 out, so its operations bound it;
+//   * n = 8192, 16384: the forward passes, the square and the inverse
+//     passes on the row in shared memory (fft_smem.cuh) in one launch; at
+//     n = 32768 the square is fused into the middle of the split (column
+//     FFTs, then per k1 a row FFT, the square and the first inverse row FFT
+//     in place in the scratch buffer, then the inverse column FFTs).
 
 #include <cuda_pipeline.h>
 
@@ -119,18 +143,21 @@ __device__ __forceinline__ void fetch_row(float* dst, const float* src,
   }
 }
 
-// Store the n floats of a group's buffer to out: 16-byte words where the
-// address allows, else floats; `sync` is the group's barrier, before (the
+// Store the n floats of a group's buffer to out: 16-byte words where both
+// addresses allow, else floats; `sync` is the group's barrier, before (the
 // row stands in the buffer) and after (the buffer is free).
 template <typename Sync>
 __device__ __forceinline__ void flush_row(float* out, const float* ex, int n,
                                           int t, int T, Sync& sync) {
   sync();
-  if ((reinterpret_cast<uintptr_t>(out) & 15) == 0) {
-    for (int i = 4 * t; i < n; i += 4 * T) {
+  if (((reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(ex)) &
+       15) == 0) {
+    const int words = n & ~3;
+    for (int i = 4 * t; i < words; i += 4 * T) {
       *reinterpret_cast<float4*>(out + i) =
           *reinterpret_cast<const float4*>(ex + i);
     }
+    for (int i = words + t; i < n; i += T) out[i] = ex[i];
   } else {
     for (int i = t; i < n; i += T) out[i] = ex[i];
   }
@@ -369,6 +396,184 @@ fft_reg_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
+// Shared-memory bytes of autocorr_reg_kernel<A, B>: the twiddle table in
+// rows of B + 1, and per group a staging buffer of `rows` rows and the
+// transpose buffer (A rows of B + 1).
+__host__ __device__ constexpr int acf_smem_bytes(int a, int b, int rows) {
+  return 8 * a * (b + 1) + 4 * (kRegThreads / b) * (rows * a * b + a * (b + 1));
+}
+
+// What autocorr_reg_kernel reads and writes.  The general entry: item q is
+// rows q of xr and xi, written whole.  YIN (x set): item q is frame
+// q % frames of clip q / frames, samples [f * slide, f * slide + n) of a
+// clip of `samples`, and only lags [lag, n) are written.
+struct AcfArgs {
+  const float* xr;
+  const float* xi;
+  const float* x;
+  long long samples;
+  int frames, slide, lag;
+  float* out;
+  long long items;
+};
+
+// The autocorrelation 0.5 * Im(ifft(fft(z)^2)) of n = A * B points in
+// registers (see the note at the top): groups of B threads, kRegThreads / B
+// groups a block, persistent blocks.
+template <int A, int B, bool kYin>
+__global__ void __launch_bounds__(kRegThreads)
+autocorr_reg_kernel(AcfArgs g, const float2* __restrict__ tw) {
+  constexpr int T = B;           // a thread a first-pass column
+  constexpr int N = A * B;
+  constexpr int P = B + 1;       // a padded row of the table and the buffer
+  constexpr int R2 = A / T;      // second-pass rows a thread holds
+  constexpr int kStaged = kYin ? 1 : 2;
+  constexpr int kGroups = kRegThreads / T;
+  constexpr int kLogA = ilog2(A), kLogB = ilog2(B);
+  static_assert(R2 == 1 || R2 == 2, "a group is A or A / 2 threads");
+  extern __shared__ float4 smem4[];
+  float2* tbl = reinterpret_cast<float2*>(smem4);
+  float* stages_all = reinterpret_cast<float*>(tbl + A * P);
+  const int tid = threadIdx.x;
+  const int grp = tid / T, t = tid % T;
+  float* stage = stages_all + grp * kStaged * N;
+  float* ex = stages_all + kGroups * kStaged * N + grp * A * P;
+  const long long stride = static_cast<long long>(gridDim.x) * kGroups;
+  long long item = static_cast<long long>(blockIdx.x) * kGroups + grp;
+
+  const unsigned gmask =
+      T >= 32 ? 0xffffffffu
+              : (((1u << (T & 31)) - 1u) << ((tid & 31) / T * T));
+  auto group_sync = [&]() {
+    if constexpr (T <= 32) {
+      __syncwarp(gmask);
+    } else {
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + grp), "r"(T) : "memory");
+    }
+  };
+  auto fetch = [&](long long q) {
+    if constexpr (kYin) {
+      fetch_row(stage,
+                g.x + (q / g.frames) * g.samples +
+                    (q % g.frames) * static_cast<long long>(g.slide),
+                N, t, T);
+    } else {
+      fetch_row(stage, g.xr + q * N, N, t, T);
+      fetch_row(stage + N, g.xi + q * N, N, t, T);
+    }
+    __pipeline_commit();
+  };
+
+  // once a block: W_n^(c k1) at [k1 * P + c]
+  for (int i = tid; i < A * P; i += kRegThreads) {
+    const int k1 = i / P, c = i % P;
+    tbl[i] = c < B ? __ldg(&tw[k1 * c]) : make_float2(0.f, 0.f);
+  }
+  if (item < g.items) fetch(item);
+  __syncthreads();
+  // the rows k1 this thread holds: k1 and A - k1 (thread 0: 0 and A / 2)
+  // where a group is A / 2 threads, else k1 alone
+  const int k1r[2] = {t, R2 == 1 ? t : t == 0 ? A / 2 : A - t};
+  const int lo = kYin ? g.lag : 0;     // the first lag written
+  const long long out_len = N - lo;
+  const float scale = -0.5f / static_cast<float>(N);
+
+  for (; item < g.items; item += stride) {
+    __pipeline_wait_prior(0);
+    group_sync();  // the group's rows stand in its staging buffer
+    float2 v[A];
+#pragma unroll
+    for (int j = 0; j < A; ++j) {
+      const int i = t + B * j;
+      float im;
+      if constexpr (kYin) {
+        im = i <= g.lag ? stage[g.lag - i] : 0.f;
+      } else {
+        im = stage[N + i];
+      }
+      v[bit_reverse(j, kLogA)] = make_float2(stage[i], im);
+    }
+    group_sync();  // the staging buffer is free: fetch the next rows
+    if (item + stride < g.items) fetch(item + stride);
+
+    // forward: the A-point DFT of column t, times W_n^(t k1); the transpose
+    // gives each thread its rows; the B-point DFT over n2 leaves bin
+    // k1r[s] + A k2 at u[s][k2]
+    reg_dft<A>(v);
+#pragma unroll
+    for (int k1 = 1; k1 < A; ++k1) v[k1] = cmul(v[k1], tbl[k1 * P + t]);
+    float2 u[R2][B];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int k1 = 0; k1 < A; ++k1) ex[k1 * P + t] = c ? v[k1].y : v[k1].x;
+      group_sync();
+#pragma unroll
+      for (int s = 0; s < R2; ++s) {
+#pragma unroll
+        for (int j = 0; j < B; ++j) {
+          const float w = ex[k1r[s] * P + j];
+          if (c) {
+            u[s][bit_reverse(j, kLogB)].y = w;
+          } else {
+            u[s][bit_reverse(j, kLogB)].x = w;
+          }
+        }
+      }
+      group_sync();
+    }
+    // the square, conjugated, then the inverse in the opposite order: the
+    // B-point DFT over k2 of each row, times W_n^(k1 j2)
+#pragma unroll
+    for (int s = 0; s < R2; ++s) {
+      reg_dft<B>(u[s]);
+      float2 w[B];
+#pragma unroll
+      for (int k2 = 0; k2 < B; ++k2) {
+        const float2 z = u[s][k2];
+        w[bit_reverse(k2, kLogB)] =
+            make_float2(z.x * z.x - z.y * z.y, -2.f * z.x * z.y);
+      }
+      reg_dft<B>(w);
+      const float2* row = tbl + k1r[s] * P;
+      u[s][0] = w[0];
+#pragma unroll
+      for (int j2 = 1; j2 < B; ++j2) u[s][j2] = cmul(w[j2], row[j2]);
+    }
+    // the transpose back: column t of every row, then the A-point DFT over
+    // k1 gives F[t + B j1] at v[j1]
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int s = 0; s < R2; ++s) {
+#pragma unroll
+        for (int j2 = 0; j2 < B; ++j2) {
+          ex[k1r[s] * P + j2] = c ? u[s][j2].y : u[s][j2].x;
+        }
+      }
+      group_sync();
+#pragma unroll
+      for (int k1 = 0; k1 < A; ++k1) {
+        const float w = ex[k1 * P + t];
+        if (c) {
+          v[bit_reverse(k1, kLogA)].y = w;
+        } else {
+          v[bit_reverse(k1, kLogA)].x = w;
+        }
+      }
+      group_sync();
+    }
+    reg_dft<A>(v);
+#pragma unroll
+    for (int j1 = 0; j1 < A; ++j1) {
+      const int i = t + B * j1;
+      if (i >= lo) ex[i] = scale * v[j1].y;
+    }
+    flush_row(g.out + item * out_len, ex + lo, static_cast<int>(out_len), t,
+              T, group_sync);
+  }
+}
+
 // One row per block (n = 8192, 16384); blockDim.x = n / 16.  yi may be null
 // (the imaginary output is then not written).
 __global__ void __launch_bounds__(1024)
@@ -390,7 +595,7 @@ fft_row_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
-// The fused autocorrelation of one row per block (n <= 16384):
+// The fused autocorrelation of one row per block (n = 8192, 16384):
 // out = 0.5 * Im(ifft(fft(xr + i xi)^2)).  With S = fft(z)^2 and
 // F = fft(conj(S)), ifft(S) = conj(F) / n, so out = -0.5 / n * Im(F).
 __global__ void __launch_bounds__(1024)
@@ -558,6 +763,29 @@ cudaError_t allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// The grid of a persistent kernel of kRegThreads threads and `smem` bytes
+// of shared memory: enough blocks for `items` at `groups` items a block,
+// at most what the card holds at once.
+template <typename K>
+cudaError_t persistent_grid(K kernel, int smem, long long items, int groups,
+                            unsigned* grid) {
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kRegThreads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  const long long want = (items + groups - 1) / groups;
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  *grid = static_cast<unsigned>(want < resident ? want : resident);
+  return cudaSuccess;
+}
+
 template <int A, int B>
 int launch_reg(const float* xr, const float* xi, float* yr, float* yi,
                const float2* tw, long long batch, Dir d, int stages,
@@ -565,23 +793,25 @@ int launch_reg(const float* xr, const float* xi, float* yr, float* yi,
   constexpr int kSmem = reg_smem_bytes(A, B);
   static_assert(kSmem <= 232448, "a block's shared memory on sm_90");
   auto kernel = fft_reg_kernel<A, B>;
-  cudaError_t e = allow_smem(kernel, kSmem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int dev = 0, sms = 0, per_sm = 0;
-  e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                    kRegThreads, kSmem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  constexpr int kGroups = kRegThreads / B;
   const long long items = reg_pairs(xi, d) ? (batch + 1) / 2 : batch;
-  const long long want = (items + kGroups - 1) / kGroups;
-  const long long resident = static_cast<long long>(sms) * per_sm;
-  kernel<<<static_cast<unsigned>(want < resident ? want : resident),
-           kRegThreads, kSmem, st>>>(xr, xi, yr, yi, tw, batch, d, stages);
+  unsigned grid = 0;
+  cudaError_t e = persistent_grid(kernel, kSmem, items, kRegThreads / B, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, kRegThreads, kSmem, st>>>(xr, xi, yr, yi, tw, batch, d,
+                                           stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int A, int B, bool kYin>
+int launch_acf(const AcfArgs& a, const float2* tw, cudaStream_t st) {
+  constexpr int kSmem = acf_smem_bytes(A, B, kYin ? 1 : 2);
+  static_assert(kSmem <= 232448, "a block's shared memory on sm_90");
+  auto kernel = autocorr_reg_kernel<A, B, kYin>;
+  unsigned grid = 0;
+  cudaError_t e =
+      persistent_grid(kernel, kSmem, a.items, kRegThreads / B, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, kRegThreads, kSmem, st>>>(a, tw);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -661,6 +891,9 @@ extern "C" int af_fft_pow2_autocorr(const float* xr, const float* xi,
   const float2* twf = static_cast<const float2*>(tw);
   if (batch <= 0) return 0;
   if (bad_args(batch, log2n)) return static_cast<int>(cudaErrorInvalidValue);
+  const AcfArgs a{xr, xi, nullptr, 0, 0, 0, 0, out, batch};
+  if (log2n == 11) return launch_acf<64, 32, false>(a, twf, st);
+  if (log2n == 12) return launch_acf<64, 64, false>(a, twf, st);
   if (log2n <= kMaxSinglePassLog2) {
     const int smem = static_cast<int>(sizeof(float2)) * seq_stride(1 << log2n);
     cudaError_t e = allow_smem(autocorr_row_kernel, smem);
@@ -687,4 +920,28 @@ extern "C" int af_fft_pow2_autocorr(const float* xr, const float* xi,
                            sizeof(float2) * seq_stride(n1) * kCols, st>>>(
       y, out, twf, log2n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// YIN's autocorrelation, n = 2048 or 4096: x (clips, samples) fp32, frame
+// f of a clip at samples [f * slide, f * slide + n), f < frames;
+// out (clips * frames, n - lag) = lags [lag, n) of 0.5 * Im(ifft(fft(z)^2)),
+// z[j] = frame[j] + i (frame[lag - j] if j <= lag else 0).  tw as above.
+extern "C" int af_fft_pow2_autocorr_yin(const float* x, float* out,
+                                        const void* tw, long long clips,
+                                        long long samples, int frames,
+                                        int slide, int lag, int log2n,
+                                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float2* twf = static_cast<const float2*>(tw);
+  if (clips <= 0 || frames <= 0) return 0;
+  const int n = 1 << log2n;
+  if ((log2n != 11 && log2n != 12) || slide < 1 || lag < 0 || lag >= n ||
+      static_cast<long long>(frames - 1) * slide + n > samples ||
+      clips > INT32_MAX / frames) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const AcfArgs a{nullptr, nullptr, x, samples, frames, slide, lag, out,
+                  clips * frames};
+  return log2n == 11 ? launch_acf<64, 32, true>(a, twf, st)
+                     : launch_acf<64, 64, true>(a, twf, st);
 }

@@ -30,7 +30,6 @@ def _yin_impl(x, *, fft_length, slide_length, auto_length, min_index,
 
     # autocorrelation via circular convolution with the reversed prefix
     # (_pitch_yin.c:351-369); no aliasing in the taken range.
-    rev = frames[..., :auto_length + 1].flip(-1)
     if packed_fft is None:
         packed_fft = x.device.type == "cuda"
     if packed_fft:
@@ -41,19 +40,26 @@ def _yin_impl(x, *, fft_length, slide_length, auto_length, min_index,
         # to float rounding (~1e-6 rel); the trough threshold sits at 0.1,
         # so knife-edge flips are the documented cross-libm class.  The
         # CPU keeps the rfft form so the golden fixtures stay exact.
-        rev = F.pad(rev, (0, fft_length - rev.shape[-1]))
-        if cuda_fft.supports(fft_length):
-            # one fused kernel for the whole round trip: fft -> ^2 -> ifft
-            # never leaves the card's on-chip memory
-            acf_full = cuda_fft.fft_autocorr(frames.contiguous(), rev)
+        if fft_length in cuda_fft.REGISTER_N:
+            # one kernel from the clips: framing, the reversed prefix,
+            # fft -> ^2 -> ifft, and only the lags kept
+            acf = cuda_fft.fft_autocorr_yin(x, fft_length, slide_length,
+                                            auto_length)
         else:
-            Z = afft.fft(torch.complex(frames, rev), dim=-1)
-            acf_full = 0.5 * afft.ifft(Z * Z, dim=-1).imag
+            rev = F.pad(frames[..., :auto_length + 1].flip(-1),
+                        (0, fft_length - auto_length - 1))
+            if cuda_fft.supports(fft_length):
+                # one fused kernel for the whole round trip
+                acf_full = cuda_fft.fft_autocorr(frames.contiguous(), rev)
+            else:
+                Z = afft.fft(torch.complex(frames, rev), dim=-1)
+                acf_full = 0.5 * afft.ifft(Z * Z, dim=-1).imag
+            acf = acf_full[..., auto_length:]
     else:
+        rev = frames[..., :auto_length + 1].flip(-1)
         A = afft.rfft(frames, dim=-1)
         B = afft.rfft(rev, n=fft_length, dim=-1)
-        acf_full = afft.irfft(A * B, n=fft_length, dim=-1)
-    acf = acf_full[..., auto_length:]
+        acf = afft.irfft(A * B, n=fft_length, dim=-1)[..., auto_length:]
     acf = torch.where(acf.abs() >= 1e-6, acf, torch.zeros_like(acf))
 
     # frame energies over sliding auto_length windows (:372-390)

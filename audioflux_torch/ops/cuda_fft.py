@@ -1,6 +1,6 @@
 """Batched FFTs for power-of-two n in [2048, 32768]: the CUDA kernels of
-``csrc/fft_pow2.cu`` (forward, inverse, fused autocorrelation) and their
-plain PyTorch versions.
+``csrc/fft_pow2.cu`` (forward, inverse, fused autocorrelation, and YIN's
+autocorrelation straight from the clips) and their plain PyTorch versions.
 
 Counterpart of ``audioflux_tpu/ops/pallas_fft.py`` (``fft4_fwd``,
 ``fft4_inv``, ``fft4_autocorr``, ``supports``).  The kernels read and
@@ -17,12 +17,15 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from audioflux_torch.ops import _build
 from audioflux_torch.ops.backend import require_sm90
+from audioflux_torch.ops.frame import cal_time_length, frame_signal
 
 __all__ = ["supports", "fft_fwd", "fft_fwd_ref", "fft_inv", "fft_inv_ref",
-           "fft_autocorr", "fft_autocorr_ref", "twiddle_table"]
+           "fft_autocorr", "fft_autocorr_ref", "fft_autocorr_yin",
+           "fft_autocorr_yin_ref", "twiddle_table"]
 
 REGISTER_N = (2048, 4096)   # the lengths of the register-resident route
 
@@ -47,9 +50,11 @@ def _lib():
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     rows = [p, p, p, p, p, p, ll, i, i, p]
     auto = [p, p, p, p, p, ll, i, p]
+    yin = [p, p, p, ll, ll, i, i, i, i, p]
     for fn, argtypes in ((lib.af_fft_pow2_fwd, rows),
                          (lib.af_fft_pow2_inv, rows),
-                         (lib.af_fft_pow2_autocorr, auto)):
+                         (lib.af_fft_pow2_autocorr, auto),
+                         (lib.af_fft_pow2_autocorr_yin, yin)):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
@@ -172,7 +177,8 @@ def fft_autocorr(xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """``0.5 * Im(ifft(fft(xr + i xi)^2))`` of two (..., n) fp32 rows: the
     circular convolution of ``xr`` with ``xi``, in one pass over the two
     operands (the square never leaves the card's on-chip memory at
-    n <= 16384).
+    n <= 16384; at n = 2048 and 4096 the whole round trip runs in
+    registers).
 
     A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
     takes the plain version."""
@@ -188,8 +194,73 @@ def fft_autocorr(xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def fft_autocorr_yin_ref(x: torch.Tensor, fft_length: int,
+                         slide_length: int, auto_length: int) -> torch.Tensor:
+    """Plain version of :func:`fft_autocorr_yin`: the frames, their
+    reversed prefix padded to ``fft_length``, :func:`fft_autocorr_ref`, and
+    the lags from ``auto_length`` on."""
+    frames = frame_signal(x, fft_length, slide_length)
+    rev = F.pad(frames[..., :auto_length + 1].flip(-1),
+                (0, fft_length - auto_length - 1))
+    acf = fft_autocorr_ref(frames.contiguous(), rev.contiguous())
+    return acf[..., auto_length:].contiguous()
+
+
+def fft_autocorr_yin(x: torch.Tensor, fft_length: int, slide_length: int,
+                     auto_length: int) -> torch.Tensor:
+    """YIN's autocorrelation of every frame of fp32 clips ``x`` (...,
+    samples): frame t is ``x[..., t * slide_length:][:fft_length]`` (the
+    frames that fit, no padding), ``z = frame + i rev`` with ``rev[j] =
+    frame[auto_length - j]`` for ``j <= auto_length`` (else 0), and the
+    result ``0.5 * Im(ifft(fft(z)^2))`` at lags ``auto_length ..
+    fft_length - 1``: (..., T, fft_length - auto_length).  The kernel
+    reads each frame straight from the clip and writes only the lags kept;
+    ``fft_length`` is 2048 or 4096 (:data:`REGISTER_N`).
+
+    A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
+    takes the plain version."""
+    if fft_length not in REGISTER_N:
+        raise ValueError(f"fft_autocorr_yin needs fft_length in "
+                         f"{REGISTER_N}, got {fft_length}")
+    if not 0 <= auto_length < fft_length or slide_length < 1:
+        raise ValueError(f"need 0 <= auto_length < fft_length and "
+                         f"slide_length >= 1, got {auto_length}, "
+                         f"{slide_length}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    samples = x.shape[-1]
+    frames = cal_time_length(samples, fft_length, slide_length)
+    if frames <= 0:
+        raise ValueError(f"signal too short to frame: n={samples} "
+                         f"fft_length={fft_length}")
+    if x.device.type == "cpu":
+        return fft_autocorr_yin_ref(x, fft_length, slide_length, auto_length)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    require_sm90(x.device)
+    lead = x.shape[:-1]
+    out = torch.empty(lead + (frames, fft_length - auto_length),
+                      dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    x2 = x.reshape(-1, samples).contiguous()
+    tw = twiddle_table(fft_length, x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().af_fft_pow2_autocorr_yin(
+            x2.data_ptr(), out.data_ptr(), tw.data_ptr(), x2.shape[0],
+            samples, frames, slide_length, auto_length,
+            fft_length.bit_length() - 1, stream)
+    if err:
+        raise RuntimeError(f"fft_pow2 YIN autocorrelation launch failed: "
+                           f"CUDA error {err}")
+    fft_autocorr_yin.launches += 1
+    return out
+
+
 fft_fwd.launches = 0
 fft_inv.launches = 0
 fft_fwd.register_launches = 0   # those at n = 2048, 4096 (the register route)
 fft_inv.register_launches = 0
 fft_autocorr.launches = 0
+fft_autocorr_yin.launches = 0

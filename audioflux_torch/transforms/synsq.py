@@ -4,9 +4,11 @@ Counterpart of ``audioflux_tpu/transforms/synsq.py`` (reference
 ``src/synsq_algorithm.c``): per-cell instantaneous frequency from the
 unwrapped phase derivative, mapped to an output bin by the band layout
 (log / linear / nearest neighbour), then a scatter-add of the complex
-values above threshold.  For a CUDA tensor the unwrap and the difference
-are one kernel (``ops.cuda_unwrap.unwrap_diff``) and the scatter another
-(``ops.cuda_scatter.columnar_scatter``, up to 512 bins).
+values above threshold.  The map from the cells to the bins, threshold
+included, is one kernel (``ops.cuda_unwrap.synsq_bins``; on the CPU its
+plain version) and the scatter another (``ops.cuda_scatter.
+columnar_scatter``, up to 512 bins); ``force_xla_unwrap`` keeps the
+PyTorch chain of :func:`_synsq_map` instead.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 from audioflux_torch.ops.backend import (as_tensor, f32_scalar,
                                          resolve_device)
 from audioflux_torch.ops.cuda_scatter import MAX_OUT_SIZE
-from audioflux_torch.ops.cuda_unwrap import c_unwrap, unwrap_diff
+from audioflux_torch.ops.cuda_unwrap import bin_map, c_unwrap, synsq_bins
 from audioflux_torch.ops.scatter import (batched_scatter_add,
                                          columnar_scatter_add)
 from audioflux_torch.types import SpectralFilterBankScaleType
@@ -40,62 +42,24 @@ def scale_kind(scale_type) -> str:
     return "nearest"
 
 
-def _bin_map(v_signed: torch.Tensor, fre_arr: torch.Tensor, *, scale_kind,
-             num, samplate) -> torch.Tensor:
-    """Per-cell target bin (int32) of a signed normalised frequency; cells
-    outside ``[0, num)`` get -1.
-
-    The range is decided on the float and the value clamped before the
-    cast: a float -> int cast of -inf (``log2(0)``), NaN or a value past
-    int32 is undefined in PyTorch and differs between the CPU and the card
-    (the TPU package's cast saturates, which keeps such cells out of
-    range as well)."""
-    v = v_signed.abs()
-    f = (fre_arr / f32_scalar(samplate, fre_arr.device)).contiguous()
-    if scale_kind == "log":
-        fmin, fmax = f[0], f[num - 1]
-        fi = torch.floor((torch.log2(v) - torch.log2(fmin)) * num
-                         / (torch.log2(fmax) - torch.log2(fmin)) + 0.5)
-    elif scale_kind == "linear":
-        fmin, fmax = f[0], f[num - 1]
-        fi = torch.floor((v_signed - fmin).abs() * num / (fmax - fmin) + 0.5)
-    else:  # nearest band (mel/bark/erb, __arr_roundIndex)
-        idx = torch.clamp(
-            torch.searchsorted(f, v.contiguous(), right=True) - 1, 0, num - 2)
-        in_range = (v >= f[0]) & (v < f[num - 1])
-        left = v - f[idx]
-        right = f[idx + 1] - v
-        fi = torch.where(left < right, idx, idx + 1)
-        return torch.where(in_range, fi, torch.full_like(fi, -1)).to(
-            torch.int32)
-    valid = (fi >= 0) & (fi < num)
-    return torch.where(valid, fi, torch.full_like(fi, -1.0)).to(torch.int32)
-
-
 def _synsq_map(D: torch.Tensor, fre_arr: torch.Tensor, *, scale_kind, num,
-               samplate, force_xla_unwrap: bool = False) -> torch.Tensor:
-    """Per-cell target-bin map (int32, same shape as D): phase, unwrap
-    along time within each band row, phase rate, bin."""
+               samplate) -> torch.Tensor:
+    """Per-cell target-bin map (int32, same shape as D) as a chain of
+    PyTorch operations: phase, the prefix-sum form of the unwrap along
+    time within each band row, phase rate, bin."""
     # phase = atan2(REAL, IMAG): the reference's argument order
     # (synsq_algorithm.c:155), then the C unwrap and the diff over 2 pi
-    T = D.shape[-1]
     phase = torch.atan2(D.real, D.imag)
-    two_pi = f32_scalar(2 * np.pi, D.device)
-    if D.device.type == "cuda" and not force_xla_unwrap:
-        # the fused unwrap + diff kernel: one pass over device memory
-        e = unwrap_diff(phase.reshape(-1, T).contiguous()).reshape(phase.shape)
-        d = torch.cat([e[..., :-1], e[..., -2:-1]], dim=-1) / two_pi
-    else:
-        ph = c_unwrap(phase)
-        # backward diff stored at j, first column 0 (__mdiff2 axis=1); the
-        # C then overwrites the LAST column with the second-to-last
-        # (synsq_algorithm.c:191-193), so the final two phase-rate columns
-        # are identical
-        d = ph[..., 1:] - ph[..., :-1]
-        d = torch.cat([torch.zeros_like(d[..., :1]), d[..., :-1],
-                       d[..., -2:-1]], dim=-1) / two_pi
-    return _bin_map(d, fre_arr, scale_kind=scale_kind, num=num,
-                    samplate=samplate)
+    ph = c_unwrap(phase)
+    # backward diff stored at j, first column 0 (__mdiff2 axis=1); the C
+    # then overwrites the LAST column with the second-to-last
+    # (synsq_algorithm.c:191-193), so the final two phase-rate columns are
+    # identical
+    d = ph[..., 1:] - ph[..., :-1]
+    d = torch.cat([torch.zeros_like(d[..., :1]), d[..., :-1], d[..., -2:-1]],
+                  dim=-1) / f32_scalar(2 * np.pi, D.device)
+    return bin_map(d, fre_arr, scale_kind=scale_kind, num=num,
+                   samplate=samplate)
 
 
 def _compose_order(fi: torch.Tensor, num: int, order: int) -> torch.Tensor:
@@ -137,8 +101,16 @@ def _reassign_scatter(D: torch.Tensor, fi: torch.Tensor, *, num: int,
 
 def _synsq_impl(D, fre_arr, *, scale_kind, num, samplate, thresh, order,
                 force_xla_unwrap: bool = False):
-    fi = _synsq_map(D, fre_arr, scale_kind=scale_kind, num=num,
-                    samplate=samplate, force_xla_unwrap=force_xla_unwrap)
+    if force_xla_unwrap:
+        fi = _synsq_map(D, fre_arr, scale_kind=scale_kind, num=num,
+                        samplate=samplate)
+    elif order == 1 and num <= MAX_OUT_SIZE:
+        # one pass from the cells to the drop-coded bin (dropped: num)
+        fi = synsq_bins(D.contiguous(), fre_arr, scale_kind, num, samplate,
+                        thresh)
+        return columnar_scatter_add(D, fi, num)
+    else:
+        fi = synsq_bins(D.contiguous(), fre_arr, scale_kind, num, samplate)
     fi = _compose_order(fi, num, order)
     return _reassign_scatter(D, fi, num=num, thresh=thresh)
 
@@ -161,9 +133,9 @@ class Synsq:
               force_xla_unwrap: bool = False):
         """m_data_arr: complex (..., num, time) CWT-family output (a
         tensor on the plan's device, or host data); fre_arr: (num,)
-        ascending band frequencies.  ``force_xla_unwrap`` pins the prefix-
-        sum form of the unwrap also on the card (accuracy gates compare
-        the kernel path with it)."""
+        ascending band frequencies.  ``force_xla_unwrap`` pins the PyTorch
+        chain with the prefix-sum form of the unwrap also on the card (the
+        accuracy gates compare the kernel path with it)."""
         kind = scale_kind(filter_bank_type)
         if isinstance(m_data_arr, torch.Tensor):
             if m_data_arr.device.type != self.device.type:

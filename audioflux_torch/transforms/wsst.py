@@ -14,7 +14,8 @@ import torch
 
 from audioflux_torch.ops.backend import as_tensor, f32_scalar
 from audioflux_torch.transforms.cwt import CWT
-from audioflux_torch.transforms.synsq import (_bin_map, _compose_order,
+from audioflux_torch.ops.cuda_unwrap import bin_map
+from audioflux_torch.transforms.synsq import (_compose_order,
                                               _reassign_scatter, scale_kind)
 from audioflux_torch.types import (SpectralFilterBankScaleType,
                                    WaveletContinueType)
@@ -27,8 +28,8 @@ def _wsst_map(D, dD, fre_arr, *, scale_kind, num, samplate):
     Im(dCWT/CWT)/2pi."""
     denom = torch.where(D == 0, torch.ones_like(D), D)
     v_signed = (dD / denom).imag / f32_scalar(2 * np.pi, D.device)
-    return _bin_map(v_signed, fre_arr, scale_kind=scale_kind, num=num,
-                    samplate=samplate)
+    return bin_map(v_signed, fre_arr, scale_kind=scale_kind, num=num,
+                   samplate=samplate)
 
 
 def _squeeze(D, dD, fre_arr, *, scale_kind, num, samplate, thresh, order):

@@ -8,12 +8,17 @@ Phases (any failure exits non-zero; no result line is printed then):
    versions; sm_90 required; fp32 matmuls must not use TF32);
 1. build every kernel from ``audioflux_torch/csrc`` with nvcc (one process
    per source, started together) and print ptxas' register, stack and
-   spill lines, and the FMNMX instructions of each median network kernel
-   beside the network's own count;
+   spill lines (the register-resident autocorrelation and the unwrap's
+   run-per-thread kernels must have neither stack nor spill), and the
+   FMNMX instructions of each median network kernel beside the network's
+   own count;
 2. each kernel against its plain PyTorch version on the card: the forward
    and inverse FFT and the fused autocorrelation at every n in
-   2048..32768, and the FFT's register route (n = 2048, 4096) on 1, 3 and
-   65 rows, real, complex and inverse, at an offset of one float; the
+   2048..32768, and the FFT's and the autocorrelation's register routes
+   (n = 2048, 4096) on 1, 3 and 65 rows, real, complex and inverse, at an
+   offset of one float; YIN's autocorrelation entry on clips of odd
+   length, a view at an offset of one float, slides that put frames off
+   16-byte alignment, one-frame clips and several lags; the
    fused mel+MFCC kernel over eight shape classes, unaligned views, a
    batch whose tiles do not divide over the persistent blocks, one-frame
    clips and a dense filterbank; the median kernel (``torch.equal``) over
@@ -25,7 +30,9 @@ Phases (any failure exits non-zero; no result line is printed then):
    bank, 1, 7 and resident + 1 band-rows, both block sizes, an output at
    an 8-byte address; 1e-5 of the peak); ``unwrap_diff`` and
    ``columnar_scatter`` (``torch.equal``) over phases, index patterns and
-   odd shapes;
+   odd shapes, rows no multiple of 4 long among them; ``synsq_bins``
+   (``torch.equal``, its count of differing cells printed) over the three
+   scale kinds, with and without a threshold;
 3. the main paths at full size, each with the launch counts set to 0 just
    before it and read just after (on the MIR path, before and after each
    user's call; the route counts show the FFT's register route and the
@@ -44,12 +51,15 @@ Phases (any failure exits non-zero; no result line is printed then):
       and the first and last clips against the port on the CPU;
    c. wavelet: ``CWT(num=84, radix2_exp=15, MORLET, OCTAVE).cwt`` ->
       ``Synsq(num=84, radix2_exp=15).synsq`` on 16 and on 128 noise clips
-      of 32768 samples, ``WSST.wsst`` and ``PWT.pwt`` on 16; the three
-      wavelet kernels' whole-batch outputs against their plain versions,
-      the kernel path against ``force_xla_unwrap=True`` (bin flips and
-      mass), and the first and last clips against the port on the CPU;
-4. timing with CUDA events: each kernel, its plain version and the
-   library yardstick at the main paths' shapes, the fused kernel,
+      of 32768 samples, ``WSST.wsst`` and ``PWT.pwt`` on 16; the wavelet
+      kernels' whole-batch outputs against their plain versions (the bare
+      unwrap over all 10,752 rows and ``synsq_bins`` over every cell, bit
+      for bit, its count of differing cells printed), the kernel path against
+      ``force_xla_unwrap=True`` (bin flips and mass), and the first and
+      last clips against the port on the CPU;
+4. timing with CUDA events: each kernel's entries, their plain versions
+   and the library yardsticks at the main paths' shapes, the splits of
+   ``PitchYIN.pitch`` and ``Synsq.synsq``, the fused kernel,
    ``cwt_ifft_bank`` and the FFT's register route cut after each stage
    (their splits), the median at runs of 4, 8 and 16 and cut after its
    loads and stores, its bound from a probe of the min/max issue rate,
@@ -85,15 +95,15 @@ from audioflux_torch.ops.cuda_cwt import (band_row_counts,  # noqa: E402
                                           cluster_plan, cwt_ifft_bank,
                                           cwt_ifft_bank_ref,
                                           resident_clusters)
-from audioflux_torch.ops.cuda_fft import (fft_autocorr,  # noqa: E402
-                                          fft_autocorr_ref, fft_fwd,
-                                          fft_fwd_ref, fft_inv, fft_inv_ref)
+from audioflux_torch.ops.cuda_fft import (  # noqa: E402
+    fft_autocorr, fft_autocorr_ref, fft_autocorr_yin, fft_autocorr_yin_ref,
+    fft_fwd, fft_fwd_ref, fft_inv, fft_inv_ref)
 from audioflux_torch.ops.cuda_median import (  # noqa: E402
     median_filter_last_axis, median_filter_last_axis_ref)
 from audioflux_torch.ops.cuda_scatter import (  # noqa: E402
     columnar_scatter, columnar_scatter_ref)
-from audioflux_torch.ops.cuda_unwrap import (unwrap_diff,  # noqa: E402
-                                             unwrap_diff_ref)
+from audioflux_torch.ops.cuda_unwrap import (  # noqa: E402
+    bin_map, synsq_bins, synsq_bins_ref, unwrap_diff, unwrap_diff_ref)
 from audioflux_torch.ops.fused_mel import (FusedMelPlan,  # noqa: E402
                                            _launch, fused_mel_mfcc,
                                            fused_mel_mfcc_ref)
@@ -103,8 +113,7 @@ from audioflux_torch.transforms.cwt import (CWT,  # noqa: E402
                                             _symmetric_pad)
 from audioflux_torch.transforms.pwt import PWT  # noqa: E402
 from audioflux_torch.transforms.stft import STFT  # noqa: E402
-from audioflux_torch.transforms.synsq import (Synsq, _bin_map,  # noqa: E402
-                                              _synsq_map)
+from audioflux_torch.transforms.synsq import Synsq  # noqa: E402
 from audioflux_torch.transforms.wsst import WSST  # noqa: E402
 from audioflux_torch.types import (  # noqa: E402
     SpectralFilterBankScaleType, WaveletContinueType, WindowType)
@@ -197,19 +206,35 @@ def phase0_identity():
     return smi.splitlines()[0]
 
 
+# kernels that must compile with no stack frame and no spill (their
+# register arrays must stay in registers)
+NO_SPILL = ("autocorr_reg_kernel", "unwrap_rows_kernel")
+
+
 def phase1_build():
     phase("phase 1: build kernels (nvcc, sm_90a)")
     t0 = time.perf_counter()
     reports = _build.build(verbose=True)
     seconds = time.perf_counter() - t0
+    spilled = []
     for name, log in reports.items():
+        fn = ""
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 # the mangled name holds the kernel's own name
                 print(f"  {name}: {line.split("'")[1]}")
+            elif "Function properties for" in line:
+                fn = line.split("Function properties for")[1].strip()
             elif "registers" in line or "spill" in line:
                 print(f"  {name}:   {line.strip()}")
+                if ("stack frame" in line and any(k in fn for k in NO_SPILL)
+                        and any(int(w) for w in line.split()
+                                if w.isdigit())):
+                    spilled.append(f"{fn}: {line.strip()}")
     print(f"  build seconds: {seconds:.2f}")
+    if spilled:
+        raise AssertionError("stack or spill in " + "; ".join(spilled))
+    print(f"  {', '.join(NO_SPILL)}: no stack, no spill")
     network_sass_counts()
 
 
@@ -246,7 +271,8 @@ def phase2_kernels(gen):
     phase("phase 2: kernels against their plain versions")
     # max |kernel - plain| at the main paths' n, for the kernels line
     errs = {"fft_pow2": 0.0, "fused_mel_mfcc": 0.0, "fft_inv": 0.0,
-            "fft_autocorr": 0.0, "median_filter": 0.0}
+            "fft_autocorr": 0.0, "fft_autocorr_yin": 0.0,
+            "median_filter": 0.0}
     for n in (2048, 4096, 8192, 16384, 32768):
         xr = randn((64, n), gen)
         xi = randn((64, n), gen)
@@ -304,6 +330,44 @@ def phase2_kernels(gen):
             check(f"fft_pow2 register route n={n}, {batch} rows (real, "
                   "complex, inverse of complex and of real spectra; offsets "
                   "0 and 1 float)", worst, FFT_TOL)
+            worst = 0.0
+            for off in (0, 1):
+                xr = buf[off:off + batch * n].view(batch, n)
+                xi = buf[off + batch * n:off + 2 * batch * n].view(batch, n)
+                abs_err, peak = pair_err((fft_autocorr(xr, xi),),
+                                         (fft_autocorr_ref(xr, xi),))
+                worst = max(worst, abs_err / peak)
+            check(f"fft_autocorr register route n={n}, {batch} rows "
+                  "(offsets 0 and 1 float)", worst, FFT_TOL)
+    # YIN's entry, framing from the clips: clips whose length is no
+    # multiple of the slide (every other clip off 16-byte alignment), a
+    # 1-D view at an offset of one float, slides that put frames off
+    # alignment, one-frame clips, and lags 0, odd, n/2 and n - 1
+    for n in cuda_fft.REGISTER_N:
+        h = n // 2
+        cases = [("3 clips of odd length", randn((3, 7 * h + 1001), gen),
+                  n // 4, h),
+                 ("1-D view at offset 1", randn(5 * n + 1, gen)[1:], 1000,
+                  1001),
+                 ("2 clips, slide 1001", randn((2, 6 * n + 3), gen), 1001,
+                  h),
+                 ("4 clips of one frame", randn((4, n + 5), gen), n // 4,
+                  h),
+                 ("65 clips, lags from 0", randn((65, 2 * n), gen), h, 0),
+                 ("2 clips, lag n - 1", randn((2, 3 * n), gen), 777, n - 1)]
+        for label, x, slide, lag in cases:
+            got = fft_autocorr_yin(x, n, slide, lag)
+            torch.cuda.synchronize()
+            ref = fft_autocorr_yin_ref(x, n, slide, lag)
+            if got.shape != ref.shape:
+                raise AssertionError(f"fft_autocorr_yin {label}: shape "
+                                     f"{tuple(got.shape)}")
+            abs_err, peak = pair_err((got,), (ref,))
+            check(f"fft_autocorr_yin n={n} {label} (slide {slide}, lag "
+                  f"{lag})", abs_err / peak, FFT_TOL)
+            if n == 1 << YIN_R2E:
+                errs["fft_autocorr_yin"] = max(errs["fft_autocorr_yin"],
+                                               abs_err)
 
     # the median kernel, value for value: network orders (21, 31) at
     # cuda_median.RUN outputs a thread, rank counting (the rest); negatives,
@@ -430,6 +494,23 @@ def wrapped_phases(rows, T, gen):
             "noise": (u * 2 - 1) * math.pi}
 
 
+def synsq_cells(B, T, gen):
+    """(B, WAV_NUM, T) complex64 cells for ``synsq_bins``: the band rows
+    take the four kinds of wrapped phase in turn (atan2(re, im) gives the
+    phase back), magnitudes spread over 1e-4.5 .. 1 around the threshold,
+    and every 37th cell exactly 0."""
+    rows = B * WAV_NUM
+    kinds = wrapped_phases(rows, T, gen)
+    ph = torch.stack(list(kinds.values()))[
+        torch.arange(rows, device="cuda") % 4, torch.arange(rows,
+                                                            device="cuda")]
+    mag = 10 ** (torch.rand((rows, T), generator=gen, device="cuda") * 4.5
+                 - 4.5)
+    mag.view(-1)[::37] = 0
+    return torch.complex(mag * torch.sin(ph),
+                         mag * torch.cos(ph)).reshape(B, WAV_NUM, T)
+
+
 def phase2_wavelet_kernels(gen, errs):
     phase("phase 2 (wavelet): kernels against their plain versions")
     # --- cwt_ifft_bank: every N, det both ways, padded / pad = 0 / odd
@@ -506,8 +587,10 @@ def phase2_wavelet_kernels(gen, errs):
               f"clusters of {plan['cluster']}, {G} resident)", worst,
               FP32_TOL)
 
-    # --- unwrap_diff: bit-equal on every kind of phase and odd shapes ----
-    for rows, T in ((7, 1000), (1, 1), (3, 513), (1344, 32768)):
+    # --- unwrap_diff: bit-equal on every kind of phase and odd shapes
+    # (rows no multiple of 4 long take the scalar loads and stores) -------
+    for rows, T in ((7, 1000), (1, 1), (3, 513), (1344, 32768), (2, 3),
+                    (5, 17), (3, 8191), (4, 8193), (2, 16385)):
         for label, ph in wrapped_phases(rows, T, gen).items():
             got = unwrap_diff(ph)
             torch.cuda.synchronize()
@@ -518,6 +601,41 @@ def phase2_wavelet_kernels(gen, errs):
                     f"{int((got != ref).sum())} cells differ")
         print(f"  unwrap_diff {rows}x{T}: wrapping, drifting, steady and "
               "noise phases equal to the plain version, bit for bit")
+
+    # --- synsq_bins: the three scale kinds, with and without a threshold,
+    # on cells whose phases wrap, drift, sit at the knife edge or are noise
+    # and whose powers straddle the threshold ------------------------------
+    layouts = {
+        # the wavelet path's octave bands from C1, 12 a octave
+        "log": 32.703 * 2 ** (torch.arange(WAV_NUM, device="cuda") / 12),
+        "linear": torch.linspace(100.0, 8000.0, WAV_NUM, device="cuda"),
+        "nearest": torch.sort(torch.rand(WAV_NUM, generator=gen,
+                                         device="cuda") * 15000 + 20)[0]}
+    worst = worst_bin = 0
+    for B, T in ((2, 1), (2, 2), (1, 3), (3, 17), (2, 1000), (1, 8193),
+                 (2, 32768)):
+        cells = synsq_cells(B, T, gen)
+        for kind, fre_k in layouts.items():
+            for thresh in (None, 0.001):
+                got = synsq_bins(cells, fre_k, kind, WAV_NUM, SR, thresh)
+                torch.cuda.synchronize()
+                ref = synsq_bins_ref(cells, fre_k, kind, WAV_NUM, SR, thresh)
+                bad = got != ref
+                worst = max(worst, int(bad.sum()))
+                if bool(bad.any()):
+                    worst_bin = max(worst_bin,
+                                    int((got - ref)[bad].abs().max()))
+                # the kernel is built to match its plain version bit for
+                # bit, so one differing cell fails (a boundary fault moves
+                # a few cells and keeps the scattered mass)
+                if not torch.equal(got, ref):
+                    raise AssertionError(
+                        f"synsq_bins {B}x{WAV_NUM}x{T} {kind} thresh="
+                        f"{thresh}: {int(bad.sum())} cells differ")
+        print(f"  synsq_bins {B}x{WAV_NUM}x{T}: log, linear and nearest, "
+              "with and without a threshold, equal to the plain version")
+    print(f"  synsq_bins: at most {worst} cells differ from the plain version "
+          "in any case above")
 
     # --- columnar_scatter: bit-equal; R = F, R != F, out_size 512, all
     # dropped, T = 1 and T = 32768 -----------------------------------------
@@ -541,7 +659,8 @@ def phase2_wavelet_kernels(gen, errs):
             raise AssertionError("columnar_scatter: dropped cells leaked")
         print(f"  columnar_scatter B={B} R={R} out_size={F_} T={T}: equal to "
               "the plain version, bit for bit")
-    errs.update(cwt_ifft_bank=0.0, unwrap_diff=0.0, columnar_scatter=0.0)
+    errs.update(cwt_ifft_bank=0.0, unwrap_diff=0.0, columnar_scatter=0.0,
+                synsq_bins=worst_bin)
 
 
 def gate(label, dev_out, plan_cpu, x_cpu):
@@ -556,6 +675,7 @@ COUNTERS = {"fft_pow2": (fft_fwd, "launches"),
             "fft_inv": (fft_inv, "launches"),
             "fft_inv register route": (fft_inv, "register_launches"),
             "fft_autocorr": (fft_autocorr, "launches"),
+            "fft_autocorr_yin": (fft_autocorr_yin, "launches"),
             "median_filter": (median_filter_last_axis, "launches"),
             "median_filter network": (median_filter_last_axis,
                                       "network_launches")}
@@ -712,11 +832,16 @@ def phase3_mir_path(gen, errs):
         "fft_pow2", "fft_pow2 register route", "fft_inv",
         "fft_inv register route", "median_filter", "median_filter network")})
     zero_counts()
+    held, mir_peak = (torch.cuda.memory_allocated(),
+                      torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
     fre, val = yin.pitch(x)
     torch.cuda.synchronize()
     yin_counts = read_counts()
-    require_launched("PitchYIN.pitch", {"fft_autocorr":
-                                        yin_counts["fft_autocorr"]})
+    print(f"  PitchYIN.pitch: peak device memory above its input "
+          f"{(torch.cuda.max_memory_allocated() - held) / 1e9:.2f} GB")
+    require_launched("PitchYIN.pitch", {"fft_autocorr_yin":
+                                        yin_counts["fft_autocorr_yin"]})
     zero_counts()
     D = st.stft(x)
     xrt = st.istft(D)
@@ -727,9 +852,9 @@ def phase3_mir_path(gen, errs):
         "fft_inv register route")})
     launches = {k: hpss_counts[k] + yin_counts[k] + stft_counts[k]
                 for k in ("fft_pow2", "fft_inv", "fft_autocorr",
-                          "median_filter")}
-    print(f"  peak device memory on the MIR path: "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+                          "fft_autocorr_yin", "median_filter")}
+    mir_peak = max(mir_peak, torch.cuda.max_memory_allocated())
+    print(f"  peak device memory on the MIR path: {mir_peak / 1e9:.2f} GB")
 
     T = hp.cal_time_length(n)
     Ty = yin.cal_time_length(n)
@@ -793,6 +918,12 @@ def phase3_mir_path(gen, errs):
     errs["fft_autocorr"] = max(errs["fft_autocorr"], whole_batch(
         f"fft_autocorr, all {fr.numel() >> YIN_R2E} YIN rows vs plain",
         fft_autocorr, fft_autocorr_ref, (fr, rev), 8, FFT_TOL))
+    errs["fft_autocorr_yin"] = max(errs["fft_autocorr_yin"], whole_batch(
+        f"fft_autocorr_yin, all {fr.numel() >> YIN_R2E} frames of the "
+        f"{MIR_CLIPS} clips vs plain",
+        lambda t: fft_autocorr_yin(t, 1 << YIN_R2E, YIN_SLIDE, auto),
+        lambda t: fft_autocorr_yin_ref(t, 1 << YIN_R2E, YIN_SLIDE, auto),
+        (x,), 8, FFT_TOL))
 
     # the first and the last clip against the port on the CPU
     ends = [0, MIR_CLIPS - 1]
@@ -845,15 +976,10 @@ def flips_and_mass(label, got, ref):
         raise AssertionError(f"{label}: flips {flips:.3e}, mass {mass:.3e}")
 
 
-def scatter_inputs(sq, W, fre_t):
+def scatter_inputs(sq, W, fre_t, fn=synsq_bins):
     """The index tensor that ``Synsq.synsq`` hands the scatter kernel
     (order 1): the bin map, dropped cells sent to bin ``num``."""
-    fi = _synsq_map(W, fre_t, scale_kind="log", num=sq.num,
-                    samplate=float(sq.samplate))
-    power = W.real ** 2 + W.imag ** 2
-    th = torch.tensor(sq.thresh, dtype=torch.float32, device="cuda")
-    ok = (fi >= 0) & (fi < sq.num) & (power > th * th)
-    return torch.where(ok, fi, torch.full_like(fi, sq.num))
+    return fn(W, fre_t, "log", sq.num, float(sq.samplate), sq.thresh)
 
 
 def phase3_wavelet_path(gen, errs):
@@ -870,22 +996,33 @@ def phase3_wavelet_path(gen, errs):
     xs = x[:WAV_SMALL]
     torch.cuda.synchronize()
 
-    kernels = {"cwt_ifft_bank": cwt_ifft_bank, "unwrap_diff": unwrap_diff,
+    kernels = {"cwt_ifft_bank": cwt_ifft_bank, "synsq_bins": synsq_bins,
                "columnar_scatter": columnar_scatter}
-    for fn in kernels.values():
+    for fn in (*kernels.values(), unwrap_diff):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     Ws = cwt.cwt(xs)
     Ys = sq.synsq(Ws, OCTAVE, fre)
     W = cwt.cwt(x)
+    torch.cuda.synchronize()
+    held, wav_peak = (torch.cuda.memory_allocated(),
+                      torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
     Y = sq.synsq(W, OCTAVE, fre)
+    torch.cuda.synchronize()
+    print(f"  Synsq.synsq ({WAV_CLIPS} clips): peak device memory above its "
+          f"input {(torch.cuda.max_memory_allocated() - held) / 1e9:.2f} GB "
+          f"(the output alone {Y.numel() * 8 / 1e9:.2f} GB)")
     A, Wc = ws.wsst(xs)
     P = pw.pwt(xs)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in kernels.items()}
     require_launched("wavelet", launches)
-    print(f"  peak device memory on the wavelet path: "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    launches["unwrap_diff"] = unwrap_diff.launches
+    print(f"  the bare unwrap_diff entry on the wavelet path: "
+          f"{unwrap_diff.launches} launches (Synsq takes synsq_bins)")
+    wav_peak = max(wav_peak, torch.cuda.max_memory_allocated())
+    print(f"  peak device memory on the wavelet path: {wav_peak / 1e9:.2f} GB")
     for name, t, clips in (("cwt", Ws, WAV_SMALL), ("synsq", Ys, WAV_SMALL),
                            ("cwt", W, WAV_CLIPS), ("synsq", Y, WAV_CLIPS),
                            ("wsst", A, WAV_SMALL), ("wsst cwt", Wc, WAV_SMALL),
@@ -930,8 +1067,25 @@ def phase3_wavelet_path(gen, errs):
     ph = torch.atan2(W.real, W.imag).reshape(-1, n)
     whole_batch(f"unwrap_diff, all {ph.shape[0]} rows of {n}", unwrap_diff,
                 unwrap_diff_ref, (ph,), 8 * WAV_NUM)
+    del ph
     fre_t = torch.from_numpy(fre).cuda()
     fi = scatter_inputs(sq, W, fre_t)
+    # synsq_bins against its plain version over every cell: the count of
+    # cells that differ (atan2f and log2f are the card's own in both)
+    differ = worst_bin = 0
+    for lo in range(0, WAV_CLIPS, 8):
+        ref = scatter_inputs(sq, W[lo:lo + 8], fre_t, synsq_bins_ref)
+        bad = fi[lo:lo + 8] != ref
+        differ += int(bad.sum())
+        if bool(bad.any()):
+            worst_bin = max(worst_bin, int((fi[lo:lo + 8] - ref)[bad].abs()
+                                           .max()))
+        del ref, bad
+    print(f"  synsq_bins, all {WAV_CLIPS} x {WAV_NUM} x {n} cells vs plain: "
+          f"{differ} cells differ (largest bin difference {worst_bin})")
+    if differ:
+        raise AssertionError(f"synsq_bins: {differ} cells differ")
+    errs["synsq_bins"] = max(errs["synsq_bins"], worst_bin)
     got = columnar_scatter(W, fi, WAV_NUM)
     for lo in range(0, WAV_CLIPS, 8):
         ref = columnar_scatter_ref(W[lo:lo + 8], fi[lo:lo + 8], WAV_NUM)
@@ -945,7 +1099,7 @@ def phase3_wavelet_path(gen, errs):
     if not torch.equal(torch.view_as_real(got), torch.view_as_real(Y)):
         raise AssertionError("Synsq.synsq did not return the scatter "
                              "kernel's output")
-    del got, ph
+    del got
 
     # the kernel path against the pinned prefix-sum unwrap on the card
     flips_and_mass(f"synsq kernel path vs force_xla_unwrap ({WAV_SMALL} "
@@ -1041,18 +1195,39 @@ def phase4_timing(plan, x, xs, launches, errs):
 
 
 def kernel_row(name, source, replaces, launches, err, k_ms, p_ms, l_ms,
-               n_bytes, n_ops, what, bound=None):
+               n_bytes, n_ops, what, bound=None, entry=None):
     """The kernels line's entry; ``bound`` (ms, "bytes" or "operations")
-    replaces the fp32 reckoning where the operations are not flops."""
+    replaces the fp32 reckoning where the operations are not flops;
+    ``entry`` names the wrapper where a kernel has more than one;
+    ``l_ms`` is None where no one PyTorch call computes the function."""
     b_ms, b_by = bound or bound_ms(n_bytes, n_ops)
-    print(f"  {name} {what}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-          f"library {l_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}: "
+    lib = "none" if l_ms is None else f"{l_ms:.3f} ms"
+    print(f"  {entry or name} {what}: kernel {k_ms:.3f} ms, plain "
+          f"{p_ms:.3f} ms, library {lib}, bound {b_ms:.3f} ms ({b_by}: "
           f"{n_bytes / 1e9:.3f} GB, {n_ops / 1e9:.2f} G operations)")
-    return {"name": name, "route": "cuda",
-            "source": f"audioflux_torch/csrc/{source}.cu",
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": l_ms}
+    row = {"name": name, "route": "cuda",
+           "source": f"audioflux_torch/csrc/{source}.cu",
+           "replaces": replaces, "launches": launches, "max_abs_err": err,
+           "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": l_ms}
+    if entry is not None:
+        row["entry"] = entry
+    return row
+
+
+def with_entries(main, *others):
+    """A kernel of several entries: the kernels line's entry is the one
+    the main paths launch, and ``entries`` lists every entry's numbers.
+    ``measures`` says so in the row: the top-level keys of these kernels
+    timed the first entry (``others[0]``, the kernel's own contract)
+    before the main paths took the fused one, so readings from before
+    that are compared with the first entry under ``entries``."""
+    first = others[0]["entry"]
+    return dict(main, measures=(
+        f"top-level keys: the {main['entry']} entry, which the main paths "
+        f"launch; they timed the {first} entry before {main['entry']} "
+        f"existed: compare older readings with {first} under entries"),
+        entries=[dict(r) for r in (*others, main)])
 
 
 def chunked(fn, tensors, chunk):
@@ -1116,15 +1291,32 @@ def phase4_mir_timing(mir, mel_launches, errs):
     def library(t):
         s = torch.fft.fft(t, dim=-1)
         return torch.fft.ifft(s * s, dim=-1)
+    acf_ops = yrows * (10.0 * ny * math.log2(ny) + 6.0 * ny)
     k_ms = cuda_ms(lambda: fft_autocorr(fr, rev), reps=10)
     p_ms = cuda_ms(chunked(fft_autocorr_ref, (fr, rev), 16), reps=3,
                    warmup=1)
     l_ms = cuda_ms(chunked(library, (z,), 16), reps=3, warmup=1)
-    rows.append(kernel_row(
+    general = kernel_row(
         "fft_autocorr", "fft_pow2", "audioflux_tpu/ops/pallas_fft.py:267",
         launches["fft_autocorr"], errs["fft_autocorr"], k_ms, p_ms, l_ms,
-        12 * fr.numel(), yrows * (10.0 * ny * math.log2(ny) + 6.0 * ny),
-        f"{yrows}x{ny}"))
+        12 * fr.numel(), acf_ops, f"{yrows}x{ny} rows (xr, xi)",
+        entry="fft_autocorr")
+    # YIN's entry: the clips in, the lags YIN keeps out; the library call
+    # is fft -> square -> ifft on the frames packed beforehand, sliced
+    auto = yin.auto_length
+    kept = ny - auto
+    yin_ms = cuda_ms(lambda: fft_autocorr_yin(x, ny, YIN_SLIDE, auto),
+                     reps=10)
+    p_ms = cuda_ms(chunked(lambda t: fft_autocorr_yin_ref(
+        t, ny, YIN_SLIDE, auto), (x,), 8), reps=3, warmup=1)
+    l_ms = cuda_ms(chunked(lambda t: library(t)[..., auto:].contiguous(),
+                           (z,), 16), reps=3, warmup=1)
+    rows.append(with_entries(kernel_row(
+        "fft_autocorr", "fft_pow2", "audioflux_tpu/ops/pallas_fft.py:267",
+        launches["fft_autocorr_yin"], errs["fft_autocorr_yin"], yin_ms,
+        p_ms, l_ms, 4 * x.numel() + 4 * yrows * kept, acf_ops,
+        f"{x.shape[0]} clips of {x.shape[1]} -> {yrows}x{kept} lags",
+        entry="fft_autocorr_yin"), general))
     del z
 
     # --- the median kernel: HPSS's two calls, timed apart and together --
@@ -1207,6 +1399,7 @@ def phase4_mir_timing(mir, mel_launches, errs):
         bound=median_bound(2 * cells, ops)))
 
     # --- the users' calls: audio-hours per second ------------------------
+    call_ms = {}
     for clips in (MIR_CLIPS, MIR_SMALL):
         xb = x[:clips]
         hours = clips * x.shape[1] / SR / 3600.0
@@ -1215,8 +1408,23 @@ def phase4_mir_timing(mir, mel_launches, errs):
                          ("STFT.stft -> .istft",
                           lambda: st.istft(st.stft(xb)))):
             ms = cuda_ms(fn, reps=5, warmup=1)
+            call_ms[name, clips] = ms
             print(f"  {name} {clips}x{MIR_SECONDS} s: {ms:.3f} ms, "
                   f"{hours / (ms / 1e3):.1f} audio-hours/s")
+
+    # --- PitchYIN.pitch's split at 64 clips ------------------------------
+    frames = x.unfold(-1, ny, YIN_SLIDE)
+    energy_ms = cuda_ms(lambda: torch.cumsum(frames * frames, dim=-1),
+                        reps=5, warmup=1)
+    whole = call_ms["PitchYIN.pitch", MIR_CLIPS]
+    for name, ms in (("fft_autocorr_yin (framing, reversed prefix, "
+                      "autocorrelation, the lags kept)", yin_ms),
+                     ("energy: frames * frames, cumsum", energy_ms),
+                     ("the rest: thresholds, the difference function, CMND, "
+                      "trough search (the call less the two above)",
+                      whole - yin_ms - energy_ms)):
+        print(f"  split of PitchYIN.pitch at {MIR_CLIPS} clips: {name}: "
+              f"{ms:.3f} ms")
     return rows
 
 
@@ -1285,21 +1493,38 @@ def phase4_wavelet_timing(wav, errs):
                 print(f"  split: {name}: {cut_ms[s] - prev:.3f} ms "
                       f"(cut after it: {cut_ms[s]:.3f} ms)")
             del W_out
-        # --- unwrap_diff -----------------------------------------------
+        # --- unwrap_diff: the bare entry, and synsq_bins ---------------
         k_ms = cuda_ms(lambda: unwrap_diff(phb), reps=10)
         p_ms = cuda_ms(chunked(unwrap_diff_ref, (phb,), 8 * WAV_NUM), reps=3,
                        warmup=1)
         l_ms = cuda_ms(chunked(unwrap_diff_ref, (phb,), 8 * WAV_NUM), reps=3,
                        warmup=1)
-        row = kernel_row(
+        bare = kernel_row(
             "unwrap_diff", "unwrap_diff",
             "audioflux_tpu/ops/pallas_unwrap.py:102", launches["unwrap_diff"],
             errs["unwrap_diff"], k_ms, p_ms, l_ms, 8 * cells, 14.0 * cells,
-            f"{band_rows}x{n}")
+            f"{band_rows}x{n}", entry="unwrap_diff")
+        # the bins: about 60 fp32 operations a cell (atan2f and log2f
+        # counted as their instructions), a reckoning; no one PyTorch call
+        # computes them
+        bins_ms = cuda_ms(lambda: synsq_bins(Wb, fre_t, "log", WAV_NUM,
+                                             float(SR), sq.thresh), reps=10)
+        p_ms = cuda_ms(chunked(lambda v: synsq_bins_ref(
+            v, fre_t, "log", WAV_NUM, float(SR), sq.thresh), (Wb,), 8),
+            reps=3, warmup=1)
+        row = with_entries(kernel_row(
+            "unwrap_diff", "unwrap_diff",
+            "audioflux_tpu/ops/pallas_unwrap.py:102", launches["synsq_bins"],
+            errs["synsq_bins"], bins_ms, p_ms, None, 12 * cells, 60.0 * cells,
+            f"{clips}x{WAV_NUM}x{n} cells -> bins", entry="synsq_bins"),
+            bare)
         if clips == WAV_CLIPS:
             rows.append(row)
+            bins_128 = bins_ms
         # --- columnar_scatter ------------------------------------------
         k_ms = cuda_ms(lambda: columnar_scatter(Wb, fib, WAV_NUM), reps=10)
+        if clips == WAV_CLIPS:
+            scatter_128 = k_ms
         p_ms = cuda_ms(chunked(lambda v, f: columnar_scatter_ref(
             v, f, WAV_NUM), (Wb, fib), 8), reps=2, warmup=1)
         l_ms = cuda_ms(chunked(lib_scatter, (Wb, fib), 8), reps=3, warmup=1)
@@ -1312,7 +1537,8 @@ def phase4_wavelet_timing(wav, errs):
         if clips == WAV_CLIPS:
             rows.append(row)
 
-    # --- the PyTorch code between the kernels, at 128 clips -------------
+    # --- the steps synsq_bins replaces (the force_xla_unwrap chain, with
+    # the bare unwrap kernel in it), at 128 clips -------------------------
     e = unwrap_diff(ph).reshape(W.shape)
     two_pi = torch.tensor(2 * math.pi, dtype=torch.float32, device="cuda")
 
@@ -1330,11 +1556,11 @@ def phase4_wavelet_timing(wav, errs):
             ("synsq: atan2", lambda: torch.atan2(W.real, W.imag)),
             ("synsq: last-column copy + / 2 pi", rate),
             ("synsq: bin map (abs, log2, floor, range, cast)",
-             lambda: _bin_map(d, fre_t, scale_kind="log", num=WAV_NUM,
-                              samplate=float(SR))),
+             lambda: bin_map(d, fre_t, scale_kind="log", num=WAV_NUM,
+                             samplate=float(SR))),
             ("synsq: power, threshold, drop bin", keep)):
-        print(f"  split at {WAV_CLIPS} clips: {name}: "
-              f"{cuda_ms(fn, reps=5, warmup=1):.3f} ms")
+        print(f"  the steps synsq_bins replaces, at {WAV_CLIPS} clips: "
+              f"{name}: {cuda_ms(fn, reps=5, warmup=1):.3f} ms")
     del e, d, F, ph
 
     # --- the users' calls: audio-hours per second ------------------------
@@ -1349,8 +1575,16 @@ def phase4_wavelet_timing(wav, errs):
                 ("WSST.wsst", lambda: ws.wsst(xb)),
                 ("PWT.pwt", lambda: pw.pwt(xb))):
             ms = cuda_ms(fn, reps=5, warmup=1)
+            if (name, clips) == ("Synsq.synsq", WAV_CLIPS):
+                synsq_ms = ms
             print(f"  {name} {clips}x{n}: {ms:.3f} ms, "
                   f"{hours / (ms / 1e3):.2f} audio-hours/s")
+    for name, ms in (("synsq_bins", bins_128),
+                     ("columnar_scatter", scatter_128),
+                     ("the rest (the call less the two kernels)",
+                      synsq_ms - bins_128 - scatter_128)):
+        print(f"  split of Synsq.synsq at {WAV_CLIPS} clips: {name}: "
+              f"{ms:.3f} ms")
     return rows
 
 

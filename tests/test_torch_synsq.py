@@ -22,7 +22,7 @@ from audioflux_tpu.transforms import wsst as jw
 from audioflux_tpu.types import (SpectralFilterBankScaleType as S,
                                  WaveletContinueType as W)
 from audioflux_torch.ops.cuda_scatter import columnar_scatter
-from audioflux_torch.ops.cuda_unwrap import unwrap_diff
+from audioflux_torch.ops.cuda_unwrap import bin_map, unwrap_diff
 from audioflux_torch.transforms import synsq as ts
 from audioflux_torch.transforms import wsst as tw
 
@@ -164,8 +164,8 @@ def test_bin_map_int_cast_edges(kind):
         fre[-1] = np.nextafter(np.float32(100.0), np.float32(200.0))
     v = torch.tensor([0.0, 1e-45, 0.01, 0.2, 3e38, float("inf"),
                       float("nan"), -0.05])
-    fi = ts._bin_map(v, torch.from_numpy(fre), scale_kind=kind, num=num,
-                     samplate=32000.0)
+    fi = bin_map(v, torch.from_numpy(fre), scale_kind=kind, num=num,
+                 samplate=32000.0)
     assert fi.dtype == torch.int32
     fi = fi.numpy()
     assert ((fi >= -1) & (fi < num)).all()
