@@ -1,9 +1,12 @@
 """audioflux_torch — the PyTorch/CUDA port of audioflux_tpu.
 
 It carries the filterbank spectrograms (mel/bark/erb/linear/octave/
-chroma), the cepstral family, the fused mel+MFCC throughput path,
-STFT/ISTFT (also streaming), HPSS, YIN pitch and the wavelet family (CWT,
-PWT, synchrosqueezing, WSST), with hand-written Hopper (sm_90a) kernels
+chroma) with their spectral-feature surface, the cepstral family, the
+fused mel+MFCC throughput path, BFT (with reassignment and the fused
+path), temporal features, STFT/ISTFT (also streaming), CQT/VQT with the
+polyphase resampler, the spectral features, deconvolution, onset
+detection, HPSS, YIN pitch and the wavelet family (CWT, PWT,
+synchrosqueezing, WSST), with hand-written Hopper (sm_90a) kernels
 for the fused pipeline (``ops.fused_mel``), the pow2 FFT forward, inverse
 and fused autocorrelation (``ops.cuda_fft``), the sliding median
 (``ops.cuda_median``), the wavelet filterbank convolution
@@ -28,6 +31,11 @@ from audioflux_torch.types import (
     PaddingPositionType,
     PaddingModeType,
     WaveletContinueType,
+    ReassignType,
+    NoveltyType,
+    ResampleQualityType,
+    SpectralNoveltyMethodType,
+    SpectralNoveltyDataType,
 )
 from audioflux_torch.transforms.spectrogram import (
     Spectrogram, MelSpectrogram, BarkSpectrogram, ErbSpectrogram,
@@ -39,10 +47,21 @@ from audioflux_torch.transforms.cwt import CWT, cwt_filter_bank
 from audioflux_torch.transforms.pwt import PWT
 from audioflux_torch.transforms.synsq import Synsq
 from audioflux_torch.transforms.wsst import WSST
+from audioflux_torch.transforms.temporal import Temporal
+from audioflux_torch.transforms.reassign import Reassign, reassign_windows
+from audioflux_torch.transforms.bft import BFT
+from audioflux_torch.transforms.cqt import (
+    CQT, VQT, SimpleCQT, cqt_filter_bank, chroma_cqt_filter_bank,
+)
+from audioflux_torch.dsp.resample import Resample, WindowResample, resample
 from audioflux_torch.features.xxcc import XXCC
-from audioflux_torch.mir import HPSS, PitchYIN
+from audioflux_torch.features.spectral import Spectral
+from audioflux_torch.features.deconv import Deconv
+from audioflux_torch.mir import HPSS, PitchYIN, Onset, NoveltyParam, peak_pick
 from audioflux_torch.core import (
-    mel_spectrogram, bark_spectrogram, erb_spectrogram,
+    linear_spectrogram, mel_spectrogram, bark_spectrogram, erb_spectrogram,
+    mfcc, bfcc, gtcc, cqt, vqt, cqcc, chroma_linear, chroma_octave,
+    chroma_cqt,
 )
 from audioflux_torch.convert import load_reference_constants
 

@@ -3,8 +3,11 @@
 ``load_reference_constants`` takes the numpy arrays of a JAX plan
 (``.window``, ``.filter_bank``, ``._dct``, ``.chroma_filter_bank``; for a
 streaming plan the carried ``tail`` and ``tail_len``; for a ``CWT``,
-``PWT`` or ``WSST`` plan the wavelet banks, band arrays and support rows)
-and installs them as the port plan's constants and state, so that both
+``PWT`` or ``WSST`` plan the wavelet banks, band arrays and support rows;
+for a ``Reassign`` plan its three windows; for a ``CQT`` plan its kernels,
+its resampler's tap table, DCT and scale vector; for a ``Spectral`` plan
+its band frequencies) and installs them as the port plan's constants and
+state, so that both
 packages can be shown to compute the same thing from identical constants,
 also mid-stream.  It takes arrays, not the JAX plan, so this package never
 imports the other.
@@ -14,7 +17,11 @@ from __future__ import annotations
 
 import numpy as np
 
+from audioflux_torch.features.spectral import Spectral
 from audioflux_torch.ops.backend import as_tensor
+from audioflux_torch.transforms.bft import BFT
+from audioflux_torch.transforms.cqt import CQTBase
+from audioflux_torch.transforms.reassign import Reassign, reassign_windows
 
 __all__ = ["load_reference_constants"]
 
@@ -52,11 +59,41 @@ def _load_wavelet(plan, bank, det_bank, fre_band_arr, bin_band_arr, row_h,
     return plan
 
 
+def _load_cqt(plan, kernels, resample_filts, dct, scale_vec):
+    """Install a JAX ``CQT``/``VQT`` plan's per-octave kernels (complex),
+    the tap table of its 2:1 resampler (``_resampler._plan().filts``), its
+    DCT and its scale vector (``_scale_vec()``)."""
+    if kernels is not None:
+        if len(kernels) != len(plan._kernels):
+            raise ValueError(f"kernels: {len(kernels)} octaves, the plan "
+                             f"has {len(plan._kernels)}")
+        new = []
+        for k, own in zip(kernels, plan._kernels):
+            k = np.asarray(k, np.complex64)
+            if k.shape != own.shape:
+                raise ValueError(f"kernels: shape {k.shape} does not match "
+                                 f"the plan's {own.shape}")
+            new.append(k)
+        plan._kernels = new
+    if resample_filts is not None:
+        rs = plan._resampler._plan()
+        rs.filts = _same_shape("resample_filts", resample_filts, rs.filts)
+        rs.mat = as_tensor(rs.window_matrix(), plan.device)
+    if dct is not None:
+        plan._dct = _same_shape("dct", dct, plan._dct)
+    if scale_vec is not None:
+        plan._scale = _same_shape("scale_vec", scale_vec, plan._scale)
+    plan._build_exec()
+    return plan
+
+
 def load_reference_constants(plan, *, window=None, filter_bank=None, dct=None,
                              chroma_filter_bank=None, tail=None,
                              tail_len=None, bank=None, det_bank=None,
                              fre_band_arr=None, bin_band_arr=None,
-                             row_h=None, det_row_h=None):
+                             row_h=None, det_row_h=None, wins=None,
+                             kernels=None, resample_filts=None,
+                             scale_vec=None):
     """Install a JAX plan's constants on the port plan and re-upload them
     to its device.  Shapes must match the plan's own constants.
 
@@ -69,7 +106,31 @@ def load_reference_constants(plan, *, window=None, filter_bank=None, dct=None,
     inner CWT) takes ``bank`` (rows ascending in frequency, the JAX plan's
     ``_bank``), ``det_bank``, ``fre_band_arr``, ``bin_band_arr`` and the
     JAX plan's ``_row_h``/``_det_row_h``, which must equal the port's own
-    count."""
+    count.  A ``BFT`` plan takes ``window`` (its reassignment windows are
+    derived from it) and ``filter_bank`` (``None`` for LINEAR); a
+    ``Reassign`` plan ``wins``, the stacked (h, dh, th) of the JAX plan's
+    ``_wins``; a ``CQT``/``VQT`` plan ``kernels``, ``resample_filts``,
+    ``dct`` and ``scale_vec``; a ``Spectral`` plan ``fre_band_arr``."""
+    if isinstance(plan, Spectral):
+        plan.fre_band_arr = _same_shape("fre_band_arr", fre_band_arr,
+                                        plan.fre_band_arr)
+        plan._build_exec()
+        return plan
+    if isinstance(plan, CQTBase):
+        return _load_cqt(plan, kernels, resample_filts, dct, scale_vec)
+    if isinstance(plan, BFT):
+        if filter_bank is not None or plan.filter_bank is not None:
+            plan.filter_bank = _same_shape("filter_bank", filter_bank,
+                                           plan.filter_bank)
+        plan._re._wins = np.stack(reassign_windows(_same_shape(
+            "window", window, plan._re._wins[0])))
+        plan._re._build_exec()
+        plan._build_exec()
+        return plan
+    if isinstance(plan, Reassign):
+        plan._wins = _same_shape("wins", wins, plan._wins)
+        plan._build_exec()
+        return plan
     wavelet = getattr(plan, "_cwt", plan)               # WSST -> its CWT
     if hasattr(wavelet, "_bank"):
         _load_wavelet(wavelet, bank, det_bank, fre_band_arr, bin_band_arr,

@@ -5,3 +5,7 @@ from audioflux_torch.transforms.cwt import CWT, cwt_filter_bank
 from audioflux_torch.transforms.pwt import PWT
 from audioflux_torch.transforms.synsq import Synsq
 from audioflux_torch.transforms.wsst import WSST
+from audioflux_torch.transforms.temporal import Temporal
+from audioflux_torch.transforms.reassign import Reassign
+from audioflux_torch.transforms.bft import BFT
+from audioflux_torch.transforms.cqt import CQT, VQT, SimpleCQT

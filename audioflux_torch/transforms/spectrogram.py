@@ -105,11 +105,26 @@ def xxcc_from_spec(m_data, dct_m: torch.Tensor, cc_num: int,
     return cc.transpose(-1, -2).contiguous()
 
 
+def _forward(name):
+    """A ``Spectral`` feature of this plan's bands (the edge subset of
+    :meth:`Spectrogram.set_edge` applies)."""
+    def fwd(self, m_data_arr, *args, **kwargs):
+        return getattr(self._spectral_obj(), name)(m_data_arr, *args,
+                                                   **kwargs)
+    fwd.__name__ = name
+    fwd.__doc__ = (f"``Spectral.{name}`` over this plan's bands (the edge "
+                   "subset applies); see ``features.spectral``.")
+    return fwd
+
+
 class Spectrogram:
     """Spectrogram plan: window + filterbank constants on one device.
 
     Parameter surface mirrors the reference Python class
-    (``python/audioflux/spectrogram.py:31-140``), plus ``device``.
+    (``python/audioflux/spectrogram.py:31-140``), plus ``device``; the
+    feature surface of the reference's ``SpectrogramBase``
+    (``spectrogram.py:328-1770``: the ``Spectral`` features, ``set_edge``,
+    ``preprocess``, ``deconv``) is forwarded over the plan's bands.
     """
 
     def __init__(self, num=0, samplate=32000, low_fre=None, high_fre=None,
@@ -426,6 +441,85 @@ class Spectrogram:
         if self.filter_bank_type != SpectralFilterBankScaleType.LINEAR:
             raise ValueError("lfcc requires LINEAR scale")
         return self.xxcc(m_data_arr, cc_num)
+
+    # -- the SpectrogramBase feature surface ------------------------------
+    flatness = _forward("flatness")
+    flux = _forward("flux")
+    rolloff = _forward("rolloff")
+    centroid = _forward("centroid")
+    spread = _forward("spread")
+    skewness = _forward("skewness")
+    kurtosis = _forward("kurtosis")
+    entropy = _forward("entropy")
+    crest = _forward("crest")
+    slope = _forward("slope")
+    decrease = _forward("decrease")
+    band_width = _forward("band_width")
+    rms = _forward("rms")
+    energy = _forward("energy")
+    hfc = _forward("hfc")
+    sd = _forward("sd")
+    sf = _forward("sf")
+    mkl = _forward("mkl")
+    pd = _forward("pd")
+    wpd = _forward("wpd")
+    nwpd = _forward("nwpd")
+    cd = _forward("cd")
+    rcd = _forward("rcd")
+    broadband = _forward("broadband")
+    novelty = _forward("novelty")
+    eef = _forward("eef")
+    eer = _forward("eer")
+    max = _forward("max")
+    mean = _forward("mean")
+    var = _forward("var")
+
+    def _spectral_obj(self):
+        """The plan's ``Spectral`` feature object, made on first use and
+        after each change of the edge subset."""
+        from audioflux_torch.features.spectral import Spectral
+        if getattr(self, "_spectral_cache", None) is None:
+            sp = Spectral(self.num, self.fre_band_arr, device=self.device)
+            edge = getattr(self, "_edge", None)
+            if edge is not None:
+                kind, val = edge
+                if kind == "range":
+                    sp.set_edge(*val)
+                else:
+                    sp.set_edge_arr(val)
+            self._spectral_cache = sp
+        return self._spectral_cache
+
+    def set_edge(self, start: int, end: int):
+        """Restrict the forwarded spectral features to bands [start, end]."""
+        self._edge = ("range", (start, end))
+        self._spectral_cache = None
+
+    def set_edge_arr(self, index_arr):
+        """Restrict the forwarded spectral features to the given bands."""
+        self._edge = ("arr", np.asarray(index_arr, np.int64))
+        self._spectral_cache = None
+
+    def preprocess(self, m_data_arr):
+        """COA normalization of a band spectrogram
+        (spectrogramObj_preprocess, spectrogram_algorithm.c:2080-2118)."""
+        w_sum = float(np.sum(self.window, dtype=np.float64))
+        value = 0.5 * w_sum if self.data_type == SpectralDataType.MAG \
+            else 0.5 * w_sum * w_sum
+        scale = np.ones(self.num, np.float32)
+        if self.bin_band_arr is not None:
+            bins = np.asarray(self.bin_band_arr)
+            edge = (bins == 0) | (bins == self.fft_length // 2)
+            scale[edge[:self.num]] = 0.5
+        else:
+            scale[0] = 0.5
+        x = as_tensor(m_data_arr, self.device) / np.float32(value)
+        return x * as_tensor(scale, self.device)[:, None]
+
+    def deconv(self, m_data_arr):
+        """Timbre/pitch deconvolution of this plan's spectrogram."""
+        from audioflux_torch.features.deconv import Deconv
+        return Deconv(self.num, device=self.device).deconv(m_data_arr)
 
     # ------------------------------------------------------------------
     def y_coords(self):

@@ -32,7 +32,11 @@ Phases (any failure exits non-zero; no result line is printed then):
    ``columnar_scatter`` (``torch.equal``) over phases, index patterns and
    odd shapes, rows no multiple of 4 long among them; ``synsq_bins``
    (``torch.equal``, its count of differing cells printed) over the three
-   scale kinds, with and without a threshold;
+   scale kinds, with and without a threshold; the fused kernel at config
+   1's shape (n_fft 1024, 513 bands, slide 256, cc 1) at 1e-5,
+   ``fft_pow2`` at n 4096 on the reassignment rows' shape at 5e-5, and
+   the resampler on the card against the CPU at 1e-5 of the peak (which a
+   TF32 product fails);
 3. the main paths at full size, each with the launch counts set to 0 just
    before it and read just after (on the MIR path, before and after each
    user's call; the route counts show the FFT's register route and the
@@ -57,6 +61,24 @@ Phases (any failure exits non-zero; no result line is printed then):
       for bit, its count of differing cells printed), the kernel path against
       ``force_xla_unwrap=True`` (bin flips and mass), and the first and
       last clips against the port on the CPU;
+   d. the reference benchmark's configurations 1, 3 and 5
+      (``bench.py:264-334, 356-377, 440-499``): ``BFT(num=513,
+      radix2_exp=10, slide_length=256, LINEAR, POWER).bft_fused(x,
+      cc_num=1)`` on 128 and 1024 clips of 10 s (against the exact
+      ``.bft()`` on the card and the CPU at 1e-4 of the peak, the fused
+      kernel against its plain version over both batches at 1e-5); on
+      1000 clips of 4096 samples ``abs(CQT(num=84, slide_length=1024).cqt)``
+      and ``chroma_linear`` (against the CPU at 1e-4) and the reassigned
+      ``BFT(num=128, radix2_exp=12, slide_length=1024)`` (the benchmark's
+      gate against the CPU: cells off by 1e-3 of the peak <= 5e-3 of all,
+      mass within 1e-4); ``Reassign(radix2_exp=12, slide_length=1024)
+      .reassign`` then ``abs`` on 8 clips of 30 s (the same gate); the
+      whole config 5 pipeline on 8 clips of 30 s (YIN, the mel
+      ``.spectrogram()`` -> ``Spectral.flux`` envelope against the CPU at
+      1e-4, the host peak-pick's onset frames against the CPU's, HPSS and
+      YIN by 3b's gates); ``CQT(num=24)``, whose top-octave FFT of 16384
+      runs the FFT kernel (against the CPU at 1e-4); ``fft_pow2`` over the
+      whole server and long reassignment rows against its plain version;
 4. timing with CUDA events: each kernel's entries, their plain versions
    and the library yardsticks at the main paths' shapes, the splits of
    ``PitchYIN.pitch`` and ``Synsq.synsq``, the fused kernel,
@@ -64,7 +86,11 @@ Phases (any failure exits non-zero; no result line is printed then):
    (their splits), the median at runs of 4, 8 and 16 and cut after its
    loads and stores, its bound from a probe of the min/max issue rate,
    ``cwt_ifft_bank`` at both cluster sizes and at half and twice the
-   resident grid, and audio-hours per second of the users' calls.
+   resident grid, the fused kernel at config 1's shape and ``fft_pow2``
+   at n 4096 on the reassignment rows (their rows in the kernels line
+   list these under ``shapes``), config 5's device part and its host
+   stage (host clock) apart, and audio-hours per second of the users'
+   calls.
 
 The second-to-last line is the kernels JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -85,7 +111,14 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import numpy as np  # noqa: E402
+
+from audioflux_torch.core import chroma_linear  # noqa: E402
+from audioflux_torch.dsp.resample import Resample  # noqa: E402
+from audioflux_torch.features.spectral import Spectral  # noqa: E402
 from audioflux_torch.mir import HPSS, PitchYIN  # noqa: E402
+from audioflux_torch.mir.onset import (NoveltyParam, Onset,  # noqa: E402
+                                       peak_pick)
 from audioflux_torch.filterbank.auditory import (  # noqa: E402
     auditory_filter_bank)
 from audioflux_torch.ops import _build  # noqa: E402
@@ -111,12 +144,16 @@ from audioflux_torch.transforms.spectrogram import (  # noqa: E402
     ErbSpectrogram, MelSpectrogram)
 from audioflux_torch.transforms.cwt import (CWT,  # noqa: E402
                                             _symmetric_pad)
+from audioflux_torch.transforms.bft import BFT  # noqa: E402
+from audioflux_torch.transforms.cqt import CQT  # noqa: E402
 from audioflux_torch.transforms.pwt import PWT  # noqa: E402
+from audioflux_torch.transforms.reassign import Reassign  # noqa: E402
 from audioflux_torch.transforms.stft import STFT  # noqa: E402
 from audioflux_torch.transforms.synsq import Synsq  # noqa: E402
 from audioflux_torch.transforms.wsst import WSST  # noqa: E402
 from audioflux_torch.types import (  # noqa: E402
-    SpectralFilterBankScaleType, WaveletContinueType, WindowType)
+    ResampleQualityType, SpectralDataType, SpectralFilterBankScaleType,
+    WaveletContinueType, WindowType)
 
 SR, NUM, R2E, SLIDE, T_HEAD, N_CLIPS, CC = 32000, 128, 11, 512, 1000, 1000, 13
 FFT_TOL, FP32_TOL, FAST_TOL, GATE_TOL = 5e-5, 1e-5, 2e-4, 1e-4
@@ -131,6 +168,22 @@ WAV_NUM, WAV_R2E, WAV_CLIPS, WAV_SMALL = 84, 15, 128, 16
 WAV_KW = dict(num=WAV_NUM, radix2_exp=WAV_R2E, samplate=SR)
 OCTAVE = SpectralFilterBankScaleType.OCTAVE
 FLIP_TOL, FLIP_SHARE, MASS_TOL = 1e-5, 5e-3, 1e-4
+# config 1 (bench.py:356-377): linear power spectrogram through
+# BFT.bft_fused, n_fft 1024, slide 256, 513 bands; the benchmark's 128
+# clips of 10 s, and 1024 (1.3 GB in, 2.6 GB out) to fill the card
+C1_CLIPS, C1_FULL, C1_SECONDS = 128, 1024, 10
+C1_KW = dict(num=513, radix2_exp=10, samplate=SR, slide_length=256,
+             window_type=WindowType.HANN,
+             scale_type=SpectralFilterBankScaleType.LINEAR,
+             data_type=SpectralDataType.POWER)
+# config 3 (bench.py:264-334): 1000 server clips of 4096 samples (CQT,
+# chroma, reassigned BFT) and 8 recordings of 30 s (reassignment); the
+# benchmark's reassignment gate: cells off by 1e-3 of the peak
+C3_CLIPS, C3_N, C3_LONG, C3_SECONDS, C3_R2E, C3_SLIDE = 1000, 4096, 8, 30, 12, 1024
+RE_FLIP_TOL = 1e-3
+# config 5 (bench.py:440-499): YIN + mel flux onsets + HPSS on 8 x 30 s;
+# the share of onset frames that may differ from the CPU's
+ONSET_SHARE = 0.02
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, fp32 outside tensor cores
 
@@ -809,6 +862,39 @@ def whole_batch(label, fn, ref_fn, tensors, chunk, tol=None):
     return err
 
 
+def hpss_yin_gates(label, x, h, p, yin):
+    """HPSS's and YIN's gates against the port on the CPU, on the clips
+    ``x`` (on the card) whose HPSS outputs on the card are ``h``, ``p``:
+    h and p at 1e-4 of the input's peak, YIN's CMND matrix at atol = rtol
+    = 2e-4 and its frequencies within 1e-2 Hz on >= 99% of the frames."""
+    x_cpu = x.cpu()
+    cpu = {"device": "cpu"}
+    h_c, p_c = HPSS(radix2_exp=R2E, window_type=WindowType.HAMM,
+                    slide_length=SLIDE, h_order=H_ORDER, p_order=P_ORDER,
+                    **cpu).hpss(x_cpu)
+    peak = float(x_cpu.abs().max())
+    check(f"gate HPSS h ({label}) vs CPU",
+          float((h.cpu() - h_c).abs().max()) / peak, GATE_TOL)
+    check(f"gate HPSS p ({label}) vs CPU",
+          float((p.cpu() - p_c).abs().max()) / peak, GATE_TOL)
+    yin_c = PitchYIN(samplate=SR, radix2_exp=YIN_R2E, slide_length=YIN_SLIDE,
+                     **cpu)
+    fre_c, _ = yin_c.pitch(x_cpu)
+    fre_e, _ = yin.pitch(x)
+    got, ref = yin._yin_mat.cpu(), yin_c._yin_mat
+    excess = float(((got - ref).abs() - YIN_TOL * ref.abs()).max())
+    print(f"  gate YIN CMND matrix ({label}) vs CPU: max "
+          f"|diff| - rtol*|ref| = {excess:.3e} (atol {YIN_TOL:.0e})")
+    if not excess <= YIN_TOL:
+        raise AssertionError("YIN CMND matrix outside atol = rtol = 2e-4")
+    near = (fre_e.cpu() - fre_c).abs() <= FRE_TOL_HZ
+    print(f"  gate YIN fre within {FRE_TOL_HZ} Hz of the CPU on "
+          f"{int(near.sum())} of {near.numel()} frames "
+          f"({near.numel() - int(near.sum())} knife-edge frames)")
+    if float(near.float().mean()) < FRE_SHARE:
+        raise AssertionError("YIN fre agrees on fewer than 99% of the frames")
+
+
 def phase3_mir_path(gen, errs):
     phase(f"phase 3b: MIR path at full size ({MIR_CLIPS} clips of "
           f"{MIR_SECONDS} s)")
@@ -927,48 +1013,25 @@ def phase3_mir_path(gen, errs):
 
     # the first and the last clip against the port on the CPU
     ends = [0, MIR_CLIPS - 1]
-    x_cpu = x[ends].cpu()
-    cpu = {"device": "cpu"}
-    h_c, p_c = HPSS(radix2_exp=R2E, window_type=WindowType.HAMM,
-                    slide_length=SLIDE, h_order=H_ORDER, p_order=P_ORDER,
-                    **cpu).hpss(x_cpu)
-    peak = float(x_cpu.abs().max())
-    check("gate HPSS h (first and last clip) vs CPU",
-          float((h[ends].cpu() - h_c).abs().max()) / peak, GATE_TOL)
-    check("gate HPSS p (first and last clip) vs CPU",
-          float((p[ends].cpu() - p_c).abs().max()) / peak, GATE_TOL)
+    hpss_yin_gates("first and last clip", x[ends], h[ends], p[ends], yin)
     st_c = STFT(radix2_exp=R2E, window_type=WindowType.HANN,
-                slide_length=SLIDE, **cpu)
+                slide_length=SLIDE, device="cpu")
     check("gate STFT -> ISTFT (first and last clip) vs CPU",
           rel_err(st.istft(st.stft(x[ends])).cpu(),
-                  st_c.istft(st_c.stft(x_cpu))), GATE_TOL)
-    yin_c = PitchYIN(samplate=SR, radix2_exp=YIN_R2E, slide_length=YIN_SLIDE,
-                     **cpu)
-    fre_c, val_c = yin_c.pitch(x_cpu)
-    fre_e, _ = yin.pitch(x[ends])
-    got, ref = yin._yin_mat.cpu(), yin_c._yin_mat
-    excess = float(((got - ref).abs() - YIN_TOL * ref.abs()).max())
-    print(f"  gate YIN CMND matrix (first and last clip) vs CPU: max "
-          f"|diff| - rtol*|ref| = {excess:.3e} (atol {YIN_TOL:.0e})")
-    if not excess <= YIN_TOL:
-        raise AssertionError("YIN CMND matrix outside atol = rtol = 2e-4")
-    near = (fre_e.cpu() - fre_c).abs() <= FRE_TOL_HZ
-    print(f"  gate YIN fre within {FRE_TOL_HZ} Hz of the CPU on "
-          f"{int(near.sum())} of {near.numel()} frames "
-          f"({near.numel() - int(near.sum())} knife-edge frames)")
-    if float(near.float().mean()) < FRE_SHARE:
-        raise AssertionError("YIN fre agrees on fewer than 99% of the frames")
+                  st_c.istft(st_c.stft(x[ends].cpu()))), GATE_TOL)
     return dict(hp=hp, yin=yin, st=st, x=x, mag=mag, pr=pr, pi=pi, fr=fr,
                 rev=rev, launches=launches)
 
 
-def flips_and_mass(label, got, ref):
-    """The synchrosqueezing gate: the share of cells of |got| that are off
-    |ref| by more than 1e-5 of the peak (bin flips of knife-edge cells)
-    must stay <= 5e-3 and the summed magnitude within 1e-4."""
+def flips_and_mass(label, got, ref, flip_tol=FLIP_TOL):
+    """The scatter transforms' gate: the share of cells of |got| that are
+    off |ref| by more than ``flip_tol`` of the peak (bin flips of
+    knife-edge cells; 1e-5 for synchrosqueezing, the benchmark's 1e-3 for
+    reassignment) must stay <= 5e-3 and the summed magnitude within
+    1e-4."""
     got, ref = got.abs().double(), ref.abs().double()
     peak = float(ref.max())
-    flips = float(((got - ref).abs() > FLIP_TOL * peak).double().mean())
+    flips = float(((got - ref).abs() > flip_tol * peak).double().mean())
     mass = abs(float(got.sum()) / max(float(ref.sum()), 1e-30) - 1)
     print(f"  {label}: flips {flips:.3e} (<= {FLIP_SHARE:.0e}), mass "
           f"{mass:.3e} (<= {MASS_TOL:.0e})", flush=True)
@@ -1588,6 +1651,500 @@ def phase4_wavelet_timing(wav, errs):
     return rows
 
 
+def fused_plan(bft, cc_num):
+    """The fused kernel's plan that ``bft.bft_fused`` runs (built on the
+    first call)."""
+    return bft._fused_cache[max(cc_num, 1)]
+
+
+def phase2_slice7_kernels(gen, errs):
+    phase("phase 2 (slice 7): the new paths' kernel shapes and the "
+          "resampler")
+    # the fused kernel at config 1's shape (n_fft 1024, 513 LINEAR bands
+    # as a 0/1 bank, slide 256, cc 1): clips of odd length, a 1-D view at
+    # an offset of one float, one-frame clips
+    bft = BFT(**C1_KW)
+    n = 40 * 256 + 1024
+    for label, x in (("3 clips of odd length", randn((3, n + 77), gen, 0.2)),
+                     ("1-D view at offset 1", randn(n + 1, gen, 0.2)[1:]),
+                     ("4 clips of one frame", randn((4, 1024), gen, 0.2))):
+        bft.bft_fused(x, cc_num=1)
+        torch.cuda.synchronize()
+        mel, cc = fused_mel_mfcc(fused_plan(bft, 1), x)
+        mel_r, cc_r = fused_mel_mfcc_ref(fused_plan(bft, 1), x.clone())
+        for what, a, b in (("spec", mel, mel_r), ("cc", cc, cc_r)):
+            check(f"fused 1024/256, 513 LINEAR bands, cc 1: {label} {what}",
+                  rel_err(a, b), FP32_TOL)
+    # fft_pow2 at n 4096 on the server reassignment rows (1000 clips x the
+    # windows h and dh x one frame, real)
+    rb = BFT(num=128, radix2_exp=C3_R2E, samplate=SR, slide_length=C3_SLIDE,
+             scale_type=SpectralFilterBankScaleType.LINEAR,
+             data_type=SpectralDataType.POWER, is_reassign=True)
+    xs = randn((C3_CLIPS, C3_N), gen, 0.2)
+    rows = reassign_rows(rb._re, xs, 2)
+    abs_err, peak = pair_err(fft_fwd(rows), fft_fwd_ref(rows))
+    check(f"fft_pow2 n=4096 on the reassignment rows {tuple(rows.shape)}",
+          abs_err / peak, FFT_TOL)
+    errs["fft_pow2 4096"] = abs_err
+    # the resampler on the card against the port on the CPU: a TF32
+    # product (about 1e-3 relative) fails this tolerance
+    for (src, dst), qual, shape in (((2, 1), ResampleQualityType.FAST,
+                                     (64, 4096)),
+                                    ((32000, 22050), ResampleQualityType.BEST,
+                                     (4, 9000)),
+                                    ((999, 890), ResampleQualityType.MID,
+                                     (4, 9000))):
+        x = randn(shape, gen, 0.2)
+        got = []
+        for dev in ("cuda", "cpu"):
+            rs = Resample(qual, is_scale=True, device=dev)
+            rs.set_samplate(src, dst)
+            got.append(rs.resample(x.to(dev)).cpu())
+        check(f"resampler {src}:{dst} {qual.name} on the card vs the CPU",
+              rel_err(*got), FP32_TOL)
+
+
+def reassign_rows(re_plan, x, k):
+    """The rows the reassignment transforms: frames times its first ``k``
+    windows, (..., k, T, n) contiguous."""
+    n = re_plan.fft_length
+    frames = x.unfold(-1, n, re_plan.slide_length)
+    return (frames[..., None, :, :]
+            * re_plan._wins_t[:k, None, :]).contiguous()
+
+
+def read_slice7_counts():
+    counts = read_counts()
+    counts["fused_mel_mfcc"] = fused_mel_mfcc.launches
+    return counts
+
+
+def zero_slice7_counts():
+    zero_counts()
+    fused_mel_mfcc.launches = 0
+
+
+def run_counted(path, fn, required):
+    """``fn()`` with the launch counts set to 0 just before it and read
+    just after; each kernel in ``required`` must have launched."""
+    zero_slice7_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = read_slice7_counts()
+    require_launched(path, {k: counts[k] for k in required})
+    return out, counts
+
+
+def config5_stages(x, yin, mel, sp, hp, param):
+    """Config 5's device part (bench.py:467-474): YIN, the mel flux
+    envelope, HPSS."""
+    fre, _ = yin.pitch(x)
+    env = sp.flux(mel.spectrogram(x), step=param.step, p=param.p,
+                  is_positive=bool(param.is_positive),
+                  is_exp=bool(param.is_exp), tp=param.tp)
+    h, p = hp.hpss(x)
+    return fre, env, h, p
+
+
+def onset_points(env, on):
+    """Config 5's host stage (bench.py:476-483): each clip's envelope
+    fetched, normalized and peak-picked."""
+    points = []
+    for row in env.cpu().numpy().astype(np.float32):
+        row = row - row.min()
+        mx = row.max()
+        if mx > 0:
+            row = row / mx
+        points.append(peak_pick(row, on.pre_max, on.post_max, on.pre_avg,
+                                on.post_avg, on.wait, on.delta))
+    return points
+
+
+def phase3_slice7_paths(gen, errs):
+    phase("phase 3d: benchmark configurations 1, 3 and 5 at full size")
+    cpu = {"device": "cpu"}
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # --- config 1: BFT.bft_fused, 128 clips and 1024 --------------------
+    n1 = C1_SECONDS * SR
+    c1 = BFT(**C1_KW)
+    c1.set_result_type(1)
+    x1 = randn((C1_FULL, n1), gen, 0.2)
+    xb = x1[:C1_CLIPS]
+    torch.cuda.synchronize()
+    spec, c = run_counted(f"config 1 (BFT.bft_fused, {C1_CLIPS} clips)",
+                          lambda: c1.bft_fused(xb, cc_num=1)[0],
+                          ("fused_mel_mfcc",))
+    add(c)
+    (spec_f, cc_f), c = run_counted(
+        f"config 1 (BFT.bft_fused, {C1_FULL} clips)",
+        lambda: c1.bft_fused(x1, cc_num=1), ("fused_mel_mfcc",))
+    add(c)
+    T1 = c1.cal_time_length(n1)
+    for name, t, shape in (("spec", spec, (C1_CLIPS, 513, T1)),
+                           ("spec x1024", spec_f, (C1_FULL, 513, T1)),
+                           ("cc x1024", cc_f, (C1_FULL, 1, T1))):
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"config 1 {name}: shape {tuple(t.shape)} "
+                                 "or non-finite values")
+    check(f"gate config 1: bft_fused vs the exact .bft() on the card (all "
+          f"{C1_CLIPS} clips)", rel_err(spec, c1.bft(xb)), GATE_TOL)
+    c1_cpu = BFT(**C1_KW, **cpu)
+    c1_cpu.set_result_type(1)
+    ends = [0, C1_CLIPS - 1]
+    check("gate config 1: bft_fused vs .bft() on the CPU (first and last "
+          "clip)", rel_err(spec[ends].cpu(), c1_cpu.bft(xb[ends].cpu())),
+          GATE_TOL)
+    # the spectrum against the plain version over both batches; the
+    # cepstrum of single-bin (LINEAR) powers takes log10 of bins as small
+    # as 1e-9 of the mean, where a rounding of the power is a large share
+    # of the bin: it is held against the log-DCT of the kernel's own
+    # spectrum (the stages after the power), its distance from the plain
+    # version printed
+    plan = fused_plan(c1, 1)
+    for label, got, xx in ((f"{C1_CLIPS}", spec, xb),
+                           (f"{C1_FULL}", spec_f, x1)):
+        err = 0.0
+        for lo in range(0, xx.shape[0], C1_CLIPS):
+            ref = fused_mel_mfcc_ref(plan, xx[lo:lo + C1_CLIPS])[0]
+            err = max(err, rel_err(got[lo:lo + C1_CLIPS], ref))
+            del ref
+        check(f"fused 1024/256, 513 bands: spectrum vs plain (all {label} "
+              "clips)", err, FP32_TOL)
+    err = plain = 0.0
+    for lo in range(0, C1_FULL, C1_CLIPS):
+        sl = slice(lo, lo + C1_CLIPS)
+        own = torch.matmul(plan.dct, torch.log10(torch.clamp(spec_f[sl],
+                                                             min=1e-8)))
+        err = max(err, rel_err(cc_f[sl], own))
+        plain = max(plain, rel_err(cc_f[sl], fused_mel_mfcc_ref(
+            plan, x1[sl])[1]))
+    print(f"  fused 1024/256, 513 bands: cc vs the plain version (all "
+          f"{C1_FULL} clips): max err / peak = {plain:.3e}")
+    check(f"fused 1024/256, 513 bands: cc vs the log-DCT of its own "
+          f"spectrum (all {C1_FULL} clips)", err, FP32_TOL)
+    del spec_f, cc_f
+
+    # --- config 3, server rows: CQT, chroma, reassigned BFT --------------
+    xs = randn((C3_CLIPS, C3_N), gen, 0.2)
+    cq = CQT(num=84, samplate=SR, slide_length=C3_SLIDE)
+    rb = BFT(num=128, radix2_exp=C3_R2E, samplate=SR, slide_length=C3_SLIDE,
+             scale_type=SpectralFilterBankScaleType.LINEAR,
+             data_type=SpectralDataType.POWER, is_reassign=True)
+    torch.cuda.synchronize()
+    C, c = run_counted("config 3 server CQT (top-octave FFT 512: no kernel)",
+                       lambda: cq.cqt(xs).abs(), ())
+    add(c)
+    ch, c = run_counted("config 3 server chroma_linear",
+                        lambda: chroma_linear(xs, chroma_num=12,
+                                              radix2_exp=C3_R2E, samplate=SR,
+                                              slide_length=C3_SLIDE),
+                        ("fft_pow2", "fft_pow2 register route"))
+    add(c)
+    R, c = run_counted("config 3 server reassigned BFT",
+                       lambda: rb.bft(xs, result_type=1),
+                       ("fft_pow2", "fft_pow2 register route"))
+    add(c)
+    for name, t, shape in (("cqt", C, (C3_CLIPS, 84, 5)),
+                           ("chroma", ch, (C3_CLIPS, 12, 1)),
+                           ("reassign", R, (C3_CLIPS, 128, 1))):
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"config 3 {name}: shape {tuple(t.shape)} "
+                                 "or non-finite values")
+    ends = list(range(8)) + list(range(C3_CLIPS - 8, C3_CLIPS))
+    x_cpu = xs[ends].cpu()
+    check("gate config 3 |cqt| (first and last 8 clips) vs CPU",
+          rel_err(C[ends].cpu(), CQT(num=84, samplate=SR,
+                                     slide_length=C3_SLIDE, **cpu)
+                  .cqt(x_cpu).abs()), GATE_TOL)
+    check("gate config 3 chroma_linear (first and last 8 clips) vs CPU",
+          rel_err(ch[ends].cpu(), chroma_linear(
+              x_cpu, chroma_num=12, radix2_exp=C3_R2E, samplate=SR,
+              slide_length=C3_SLIDE, **cpu)), GATE_TOL)
+    flips_and_mass("gate config 3 reassigned BFT (first and last 8 clips) "
+                   "vs CPU", R[ends].cpu(),
+                   BFT(num=128, radix2_exp=C3_R2E, samplate=SR,
+                       slide_length=C3_SLIDE,
+                       scale_type=SpectralFilterBankScaleType.LINEAR,
+                       data_type=SpectralDataType.POWER, is_reassign=True,
+                       **cpu).bft(x_cpu, result_type=1), RE_FLIP_TOL)
+    rows_s = reassign_rows(rb._re, xs, 2)
+    errs["fft_pow2 4096"] = max(errs["fft_pow2 4096"], whole_batch(
+        f"fft_pow2 n=4096, all {rows_s.numel() >> C3_R2E} server "
+        "reassignment rows vs plain", fft_fwd, fft_fwd_ref, (rows_s,), 250,
+        FFT_TOL))
+
+    # --- config 3, long: Reassign.reassign -> abs on 8 x 30 s ------------
+    xl = randn((C3_LONG, C3_SECONDS * SR), gen, 0.2)
+    rl = Reassign(radix2_exp=C3_R2E, samplate=SR, slide_length=C3_SLIDE)
+    torch.cuda.synchronize()
+    L, c = run_counted(f"config 3 long Reassign ({C3_LONG} x {C3_SECONDS} s)",
+                       lambda: rl.reassign(xl).abs(),
+                       ("fft_pow2", "fft_pow2 register route"))
+    add(c)
+    TL = rl.cal_time_length(xl.shape[-1])
+    if tuple(L.shape) != (C3_LONG, 2049, TL) or not bool(
+            torch.isfinite(L).all()):
+        raise AssertionError(f"config 3 long: shape {tuple(L.shape)} or "
+                             "non-finite values")
+    ends = [0, C3_LONG - 1]
+    flips_and_mass("gate config 3 long |reassign| (first and last clip) vs "
+                   "CPU", L[ends].cpu(),
+                   Reassign(radix2_exp=C3_R2E, samplate=SR,
+                            slide_length=C3_SLIDE, **cpu)
+                   .reassign(xl[ends].cpu()).abs(), RE_FLIP_TOL)
+    rows_l = reassign_rows(rl, xl, 3)
+    errs["fft_pow2 4096"] = max(errs["fft_pow2 4096"], whole_batch(
+        f"fft_pow2 n=4096, all {rows_l.numel() >> C3_R2E} long reassignment "
+        "rows vs plain", fft_fwd, fft_fwd_ref, (rows_l,), 1, FFT_TOL))
+    del rows_l
+
+    # --- config 5: YIN + mel flux onsets + HPSS on 8 x 30 s ---------------
+    n5 = MIR_SECONDS * SR
+    x5 = mir_signal(MIR_SMALL, n5, gen)
+    yin = PitchYIN(samplate=SR, radix2_exp=YIN_R2E, slide_length=YIN_SLIDE)
+    hp = HPSS(radix2_exp=R2E, window_type=WindowType.HAMM, slide_length=SLIDE,
+              h_order=H_ORDER, p_order=P_ORDER)
+    mel = MelSpectrogram(num=NUM, samplate=SR, radix2_exp=R2E,
+                         slide_length=SLIDE)
+    sp = Spectral(NUM, np.zeros(NUM, np.float32))
+    param = NoveltyParam()
+    on = Onset(time_length=1, fre_length=NUM, slide_length=SLIDE, samplate=SR)
+    torch.cuda.synchronize()
+    (fre, env, h, p), c = run_counted(
+        f"config 5 (YIN + mel flux + HPSS, {MIR_SMALL} x {MIR_SECONDS} s)",
+        lambda: config5_stages(x5, yin, mel, sp, hp, param),
+        ("fft_pow2", "fft_pow2 register route", "fft_inv",
+         "fft_autocorr_yin", "median_filter"))
+    add(c)
+    points = onset_points(env, on)
+    Te = mel.cal_time_length(n5)
+    if tuple(env.shape) != (MIR_SMALL, Te) or not bool(
+            torch.isfinite(env).all()):
+        raise AssertionError(f"config 5 envelope: shape {tuple(env.shape)} "
+                             "or non-finite values")
+    mel_c = MelSpectrogram(num=NUM, samplate=SR, radix2_exp=R2E,
+                           slide_length=SLIDE, **cpu)
+    sp_c = Spectral(NUM, np.zeros(NUM, np.float32), **cpu)
+    env_c = sp_c.flux(mel_c.spectrogram(x5.cpu()), step=param.step,
+                      p=param.p, is_positive=bool(param.is_positive),
+                      is_exp=bool(param.is_exp), tp=param.tp)
+    check(f"gate config 5 flux envelope (all {MIR_SMALL} clips) vs CPU",
+          rel_err(env.cpu(), env_c), GATE_TOL)
+    points_c = onset_points(env_c, on)
+    differ = sum(len(set(a.tolist()) ^ set(b.tolist()))
+                 for a, b in zip(points, points_c))
+    total = sum(len(b) for b in points_c)
+    print(f"  gate config 5 onset frames vs CPU: {differ} of {total} differ "
+          f"(<= {ONSET_SHARE:.0%}); per clip "
+          f"{[len(a) for a in points]} on the card, "
+          f"{[len(b) for b in points_c]} on the CPU")
+    if total == 0 or differ > ONSET_SHARE * total:
+        raise AssertionError(f"config 5 onsets: {differ} of {total} differ")
+    ends = [0, MIR_SMALL - 1]
+    hpss_yin_gates("config 5, first and last clip", x5[ends], h[ends],
+                   p[ends], yin)
+
+    # --- CQT on the kernel tier: num=24 from C1, top-octave FFT 16384 -----
+    cq24 = CQT(num=24, samplate=SR)
+    if cq24.fft_length != 16384:
+        raise AssertionError(f"CQT(num=24) fft_length {cq24.fft_length}")
+    xq = randn((16, SR), gen, 0.2)
+    torch.cuda.synchronize()
+    Cq, c = run_counted("CQT(num=24), FFT 16384", lambda: cq24.cqt(xq),
+                        ("fft_pow2",))
+    add(c)
+    e, pk = complex_err(Cq.cpu(), CQT(num=24, samplate=SR, **cpu)
+                        .cqt(xq.cpu()))
+    check("gate CQT(num=24) (16 clips of 1 s) vs CPU", e / pk, GATE_TOL)
+    print(f"  launches on the slice-7 paths: {launches}")
+    return dict(c1=c1, x1=x1, cq=cq, rb=rb, xs=xs, rows_s=rows_s, rl=rl,
+                xl=xl, x5=x5, yin=yin, hp=hp, mel=mel, sp=sp, param=param,
+                on=on, cq24=cq24, xq=xq, launches=launches)
+
+
+def phase4_slice7_timing(d, errs):
+    phase("phase 4d: configurations 1, 3 and 5 timing (CUDA events, median)")
+    shapes = {}
+    # --- the fused kernel at config 1's shape ----------------------------
+    c1, x1 = d["c1"], d["x1"]
+    plan = fused_plan(c1, 1)
+    n1 = x1.shape[1]
+    T1 = c1.cal_time_length(n1)
+    nfft = c1.fft_length
+    for clips in (C1_CLIPS, C1_FULL):
+        xb = x1[:clips]
+        k_ms = cuda_ms(lambda: fused_mel_mfcc(plan, xb), reps=10)
+        p_ms = cuda_ms(chunked(lambda t: fused_mel_mfcc_ref(plan, t), (xb,),
+                               C1_CLIPS), reps=3, warmup=1)
+        chunks = torch.split(xb, 32)
+        frames_w = [(t.unfold(-1, nfft, plan.slide) * plan.window)
+                    .contiguous() for t in chunks]
+
+        def library():
+            for f in frames_w:
+                s = torch.fft.rfft(f, dim=-1)
+                mel = torch.matmul(s.real.square() + s.imag.square(),
+                                   plan.mel_fb.T)
+                torch.matmul(torch.log10(torch.clamp(mel, min=1e-8)),
+                             plan.dct.T)
+        l_ms = cuda_ms(library, reps=3, warmup=1)
+        del frames_w
+        frames = clips * T1
+        row = kernel_row(
+            "fused_mel_mfcc", "fused_mel_mfcc",
+            "audioflux_tpu/ops/pallas_spectrogram.py:1250",
+            d["launches"]["fused_mel_mfcc"], errs["fused_mel_mfcc"], k_ms,
+            p_ms, l_ms, 4 * (clips * n1 + clips * (513 + 1) * T1),
+            frames * (2.5 * nfft * math.log2(nfft) + 2 * plan.band_nnz
+                      + 513 + 2 * 513),
+            f"config 1: {clips} x {n1}, n_fft 1024, 513 LINEAR bands, cc 1")
+        shapes.setdefault("fused_mel_mfcc", []).append(dict(
+            shape=f"{clips}x{n1} n_fft 1024 slide 256 513 bands cc 1",
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}))
+        e2e = cuda_ms(lambda: c1.bft_fused(xb, cc_num=1)[0], reps=10)
+        hours = clips * n1 / SR / 3600.0
+        print(f"  config 1 BFT.bft_fused {clips} x {C1_SECONDS} s: {e2e:.3f} "
+              f"ms, {hours / (e2e / 1e3):.1f} audio-hours/s (outside the "
+              f"kernel: {e2e - k_ms:.3f} ms)")
+    xb = x1[:C1_CLIPS]
+    # the kernel cut after each stage at config 1's shape: the differences
+    # split its time
+    cut_ms = [cuda_ms(lambda s=s: _launch(plan, xb, T1, stages=s), reps=10)
+              for s in (1, 2, 3, 4)]
+    for s, name in enumerate(("span load + window + first pass",
+                              "second pass + power",
+                              "filterbank + log10 (513 bands)", "DCT")):
+        prev = cut_ms[s - 1] if s else 0.0
+        print(f"  split (config 1, {C1_CLIPS} clips): {name}: "
+              f"{cut_ms[s] - prev:.3f} ms (cut after it: {cut_ms[s]:.3f} ms)")
+    ex = cuda_ms(lambda: c1.bft(xb), reps=5, warmup=1)
+    print(f"  config 1 exact BFT.bft {C1_CLIPS} x {C1_SECONDS} s: {ex:.3f} ms")
+    del d["x1"], x1, xb
+
+    # --- fft_pow2 at n 4096 on the reassignment rows -----------------------
+    rows_s = d["rows_s"]
+    rows_l = reassign_rows(d["rl"], d["xl"], 3)
+    for label, rows in (("server reassignment rows", rows_s),
+                        ("long reassignment rows", rows_l)):
+        nrows = rows.numel() >> C3_R2E
+        n = 1 << C3_R2E
+        k_ms = cuda_ms(lambda: fft_fwd(rows), reps=10)
+        p_ms = cuda_ms(chunked(fft_fwd_ref, (rows,), 250), reps=3, warmup=1)
+        l_ms = cuda_ms(chunked(lambda t: torch.fft.fft(t, dim=-1), (rows,),
+                               250), reps=3, warmup=1)
+        row = kernel_row(
+            "fft_pow2", "fft_pow2", "audioflux_tpu/ops/pallas_fft.py:346",
+            d["launches"]["fft_pow2"], errs["fft_pow2 4096"], k_ms, p_ms,
+            l_ms, 12 * rows.numel(), nrows * 5.0 * n * math.log2(n),
+            f"forward {nrows}x{n} real ({label})")
+        shapes.setdefault("fft_pow2", []).append(dict(
+            shape=f"{nrows}x{n} real, {label}",
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}))
+    del rows_l
+
+    # --- the users' calls: audio-hours per second --------------------------
+    xs, cq, rb = d["xs"], d["cq"], d["rb"]
+    hours = xs.numel() / SR / 3600.0
+    for name, fn in (("abs(CQT.cqt)", lambda: cq.cqt(xs).abs()),
+                     ("chroma_linear", lambda: chroma_linear(
+                         xs, chroma_num=12, radix2_exp=C3_R2E, samplate=SR,
+                         slide_length=C3_SLIDE)),
+                     ("reassigned BFT.bft", lambda: rb.bft(xs,
+                                                           result_type=1))):
+        ms = cuda_ms(fn, reps=10)
+        print(f"  config 3 server {name} {C3_CLIPS} x {C3_N}: {ms:.3f} ms, "
+              f"{hours / (ms / 1e3):.1f} audio-hours/s")
+        if name == "abs(CQT.cqt)":
+            cqt_ms = ms
+    # where abs(CQT.cqt)'s time goes: the resampling chain, the octaves'
+    # padded transforms and kernel products, the rest
+    octave_in = [xs]
+    for _ in range(cq.octave_num - 1):
+        octave_in.append(cq._resampler.resample(octave_in[-1]))
+
+    def chain():
+        y = xs
+        for _ in range(cq.octave_num - 1):
+            y = cq._resampler.resample(y)
+
+    def octaves():
+        for i in range(cq.octave_num):
+            cq._octave_spec(octave_in[cq.octave_num - 1 - i],
+                            C3_SLIDE >> (cq.octave_num - 1 - i),
+                            cq._kernels_t[i])
+    chain_ms = cuda_ms(chain, reps=10)
+    oct_ms = cuda_ms(octaves, reps=10)
+    for name, ms in ((f"the resampling chain ({cq.octave_num - 1} x 2:1)",
+                      chain_ms),
+                     (f"the {cq.octave_num} octaves (pad, frames, FFT 512, "
+                      "kernel products)", oct_ms),
+                     ("the rest (concatenation, scale, abs)",
+                      cqt_ms - chain_ms - oct_ms)):
+        print(f"  split of abs(CQT.cqt) at {C3_CLIPS} clips: {name}: "
+              f"{ms:.3f} ms")
+    del octave_in
+    xl, rl = d["xl"], d["rl"]
+    ms = cuda_ms(lambda: rl.reassign(xl).abs(), reps=5, warmup=1)
+    hours = xl.numel() / SR / 3600.0
+    print(f"  config 3 long Reassign.reassign -> abs {C3_LONG} x "
+          f"{C3_SECONDS} s: {ms:.3f} ms, {hours / (ms / 1e3):.2f} "
+          "audio-hours/s")
+    x5, yin, mel, sp, hp, param, on = (d[k] for k in (
+        "x5", "yin", "mel", "sp", "hp", "param", "on"))
+    hours = x5.numel() / SR / 3600.0
+    dev_ms = cuda_ms(lambda: config5_stages(x5, yin, mel, sp, hp, param),
+                     reps=5, warmup=1)
+    env = config5_stages(x5, yin, mel, sp, hp, param)[1]
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        onset_points(env, on)
+        host.append((time.perf_counter() - t0) * 1e3)
+    host_ms = sorted(host)[2]
+    for name, fn in (("PitchYIN.pitch", lambda: yin.pitch(x5)),
+                     ("mel .spectrogram() -> Spectral.flux", lambda: sp.flux(
+                         mel.spectrogram(x5), step=param.step, p=param.p,
+                         is_positive=bool(param.is_positive),
+                         is_exp=bool(param.is_exp), tp=param.tp)),
+                     ("HPSS.hpss", lambda: hp.hpss(x5))):
+        print(f"  config 5 stage {name} {MIR_SMALL} x {MIR_SECONDS} s: "
+              f"{cuda_ms(fn, reps=5, warmup=1):.3f} ms")
+    print(f"  config 5 device part (YIN + mel flux + HPSS) {MIR_SMALL} x "
+          f"{MIR_SECONDS} s: {dev_ms:.3f} ms, {hours / (dev_ms / 1e3):.2f} "
+          f"audio-hours/s; host stage (fetch + peak-pick, host clock): "
+          f"{host_ms:.3f} ms; both in turn: {dev_ms + host_ms:.3f} ms, "
+          f"{hours / ((dev_ms + host_ms) / 1e3):.2f} audio-hours/s")
+    cq24, xq = d["cq24"], d["xq"]
+    ms = cuda_ms(lambda: cq24.cqt(xq), reps=10)
+    print(f"  CQT(num=24) (FFT 16384) 16 x 1 s: {ms:.3f} ms, "
+          f"{xq.numel() / SR / 3600.0 / (ms / 1e3):.2f} audio-hours/s")
+    return shapes
+
+
+def merge_slice7(rows, launches, shapes):
+    """The kernels line's rows gain the slice-7 paths' launches, and the
+    fused kernel's and fft_pow2's rows their readings at the new shapes
+    (under ``shapes``; the top-level keys keep the earlier paths' shape)."""
+    extra = {"fused_mel_mfcc": launches.get("fused_mel_mfcc", 0),
+             "fft_pow2": launches.get("fft_pow2", 0),
+             "fft_inv": launches.get("fft_inv", 0),
+             "fft_autocorr": launches.get("fft_autocorr_yin", 0),
+             "median_filter": launches.get("median_filter", 0)}
+    for row in rows:
+        row["launches"] += extra.get(row["name"], 0)
+        if row["name"] in shapes:
+            row["shapes"] = shapes[row["name"]]
+    return rows
+
+
 def main():
     upto = int(sys.argv[sys.argv.index("--upto") + 1]) if "--upto" in sys.argv else 4
     smi = phase0_identity()
@@ -1598,12 +2155,16 @@ def main():
         return
     errs = phase2_kernels(gen)
     phase2_wavelet_kernels(gen, errs)
+    phase2_slice7_kernels(gen, errs)
     if upto < 3:
         return
     plan, x, xs, mel_launches = phase3_mel_path(gen)
     mir = phase3_mir_path(gen, errs)
     if upto < 4:
+        del plan, x, xs, mir
         phase3_wavelet_path(gen, errs)
+        torch.cuda.empty_cache()
+        phase3_slice7_paths(gen, errs)
         return
     rows = phase4_timing(plan, x, xs, mel_launches, errs)
     del plan, x, xs
@@ -1611,6 +2172,10 @@ def main():
     del mir
     torch.cuda.empty_cache()
     rows += phase4_wavelet_timing(phase3_wavelet_path(gen, errs), errs)
+    torch.cuda.empty_cache()
+    slice7 = phase3_slice7_paths(gen, errs)
+    shapes = phase4_slice7_timing(slice7, errs)
+    rows = merge_slice7(rows, slice7["launches"], shapes)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
