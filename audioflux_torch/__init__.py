@@ -6,7 +6,10 @@ fused mel+MFCC throughput path, BFT (with reassignment and the fused
 path), temporal features, STFT/ISTFT (also streaming), CQT/VQT with the
 polyphase resampler, the spectral features, deconvolution, onset
 detection, HPSS, YIN pitch and the wavelet family (CWT, PWT,
-synchrosqueezing, WSST), with hand-written Hopper (sm_90a) kernels
+synchrosqueezing, WSST), the remaining transforms (ST, FST, NSGT,
+DWT/WPT/SWT, Cepstrogram, Deep/DeepChroma) behind ``FeatureExtractor``,
+and the DSP one-shots (CZT, xcorr, Hilbert, DCT, convolution, phase
+vocoder, FIR design), with hand-written Hopper (sm_90a) kernels
 for the fused pipeline (``ops.fused_mel``), the pow2 FFT forward, inverse
 and fused autocorrelation (``ops.cuda_fft``), the sliding median
 (``ops.cuda_median``), the wavelet filterbank convolution
@@ -31,6 +34,7 @@ from audioflux_torch.types import (
     PaddingPositionType,
     PaddingModeType,
     WaveletContinueType,
+    WaveletDiscreteType,
     ReassignType,
     NoveltyType,
     ResampleQualityType,
@@ -53,10 +57,22 @@ from audioflux_torch.transforms.bft import BFT
 from audioflux_torch.transforms.cqt import (
     CQT, VQT, SimpleCQT, cqt_filter_bank, chroma_cqt_filter_bank,
 )
-from audioflux_torch.dsp.resample import Resample, WindowResample, resample
+from audioflux_torch.transforms.deep import (
+    DeepSpectrogram, DeepChromaSpectrogram,
+)
+from audioflux_torch.transforms.nsgt import NSGT, NSGTFilterBankType
+from audioflux_torch.transforms.st import ST
+from audioflux_torch.transforms.fst import FST
+from audioflux_torch.transforms.dwt import DWT, WPT, SWT
+from audioflux_torch.transforms.cepstrogram import Cepstrogram
+from audioflux_torch.dsp import (
+    Resample, WindowResample, resample, CZT, czt, Xcorr, XcorrNormalType,
+    xcorr, Hilbert, hilbert, DCT, dct, idct, phase_vocoder,
+)
 from audioflux_torch.features.xxcc import XXCC
 from audioflux_torch.features.spectral import Spectral
 from audioflux_torch.features.deconv import Deconv
+from audioflux_torch.features.extractor import FeatureExtractor, FeatureResult
 from audioflux_torch.mir import HPSS, PitchYIN, Onset, NoveltyParam, peak_pick
 from audioflux_torch.core import (
     linear_spectrogram, mel_spectrogram, bark_spectrogram, erb_spectrogram,

@@ -6,10 +6,13 @@ streaming plan the carried ``tail`` and ``tail_len``; for a ``CWT``,
 ``PWT`` or ``WSST`` plan the wavelet banks, band arrays and support rows;
 for a ``Reassign`` plan its three windows; for a ``CQT`` plan its kernels,
 its resampler's tap table, DCT and scale vector; for a ``Spectral`` plan
-its band frequencies) and installs them as the port plan's constants and
-state, so that both
-packages can be shown to compute the same thing from identical constants,
-also mid-stream.  It takes arrays, not the JAX plan, so this package never
+its band frequencies; for an ``ST`` plan its windows, for an ``NSGT`` plan
+its windows, offsets and expansion index, for a ``DWT``/``WPT``/``SWT``
+plan its decomposition taps, for a ``DeepSpectrogram`` or
+``DeepChromaSpectrogram`` plan its window and chroma fold) and installs
+them as the port plan's constants and state, so that both packages can be
+shown to compute the same thing from identical constants, also
+mid-stream.  It takes arrays, not the JAX plan, so this package never
 imports the other.
 """
 
@@ -21,7 +24,12 @@ from audioflux_torch.features.spectral import Spectral
 from audioflux_torch.ops.backend import as_tensor
 from audioflux_torch.transforms.bft import BFT
 from audioflux_torch.transforms.cqt import CQTBase
+from audioflux_torch.transforms.deep import (DeepChromaSpectrogram,
+                                             _DeepBase)
+from audioflux_torch.transforms.dwt import _Wavelet
+from audioflux_torch.transforms.nsgt import NSGT
 from audioflux_torch.transforms.reassign import Reassign, reassign_windows
+from audioflux_torch.transforms.st import ST
 
 __all__ = ["load_reference_constants"]
 
@@ -87,13 +95,39 @@ def _load_cqt(plan, kernels, resample_filts, dct, scale_vec):
     return plan
 
 
+def _load_nsgt(plan, windows, offsets, expand):
+    """Install a JAX ``NSGT`` plan's per-band windows (``_windows``), slice
+    offsets (``_offsets``) and expansion index (``_expand``)."""
+    if windows is not None:
+        if len(windows) != plan.num:
+            raise ValueError(f"windows: {len(windows)} bands, the plan has "
+                             f"{plan.num}")
+        plan._windows = [_same_shape(f"windows[{i}]", w, own)
+                         for i, (w, own) in enumerate(zip(windows,
+                                                          plan._windows))]
+    if offsets is not None:
+        if len(offsets) != plan.num:
+            raise ValueError(f"offsets: {len(offsets)} bands, the plan has "
+                             f"{plan.num}")
+        plan._offsets = [int(v) for v in offsets]
+    if expand is not None:
+        expand = np.asarray(expand, np.int64)
+        if expand.shape != plan._expand.shape:
+            raise ValueError(f"expand: shape {expand.shape} does not match "
+                             f"the plan's {plan._expand.shape}")
+        plan._expand = expand
+    plan._build_exec()
+    return plan
+
+
 def load_reference_constants(plan, *, window=None, filter_bank=None, dct=None,
                              chroma_filter_bank=None, tail=None,
                              tail_len=None, bank=None, det_bank=None,
                              fre_band_arr=None, bin_band_arr=None,
                              row_h=None, det_row_h=None, wins=None,
                              kernels=None, resample_filts=None,
-                             scale_vec=None):
+                             scale_vec=None, windows=None, offsets=None,
+                             expand=None, lo_d=None, hi_d=None):
     """Install a JAX plan's constants on the port plan and re-upload them
     to its device.  Shapes must match the plan's own constants.
 
@@ -110,7 +144,33 @@ def load_reference_constants(plan, *, window=None, filter_bank=None, dct=None,
     derived from it) and ``filter_bank`` (``None`` for LINEAR); a
     ``Reassign`` plan ``wins``, the stacked (h, dh, th) of the JAX plan's
     ``_wins``; a ``CQT``/``VQT`` plan ``kernels``, ``resample_filts``,
-    ``dct`` and ``scale_vec``; a ``Spectral`` plan ``fre_band_arr``."""
+    ``dct`` and ``scale_vec``; a ``Spectral`` plan ``fre_band_arr``.  An
+    ``ST`` plan takes ``windows`` (the JAX plan's ``_windows``); an
+    ``NSGT`` plan ``windows`` (its list of per-band windows), ``offsets``
+    and ``expand``; a ``DWT``, ``WPT`` or ``SWT`` plan ``lo_d`` and
+    ``hi_d``; a ``DeepSpectrogram`` plan ``window``, a
+    ``DeepChromaSpectrogram`` plan also ``chroma_filter_bank`` (the JAX
+    plan's ``_fold``)."""
+    if isinstance(plan, ST):
+        plan._windows = _same_shape("windows", windows, plan._windows)
+        plan._build_exec()
+        return plan
+    if isinstance(plan, NSGT):
+        return _load_nsgt(plan, windows, offsets, expand)
+    if isinstance(plan, _Wavelet):
+        plan.lo_d = _same_shape("lo_d", lo_d, plan.lo_d)
+        plan.hi_d = _same_shape("hi_d", hi_d, plan.hi_d)
+        plan._build_exec()
+        return plan
+    if isinstance(plan, _DeepBase):
+        if window is not None:
+            plan.window = _same_shape("window", window, plan.window)
+        if isinstance(plan, DeepChromaSpectrogram) and (
+                chroma_filter_bank is not None):
+            plan._fold = _same_shape("chroma_filter_bank",
+                                     chroma_filter_bank, plan._fold)
+        plan._build_exec()
+        return plan
     if isinstance(plan, Spectral):
         plan.fre_band_arr = _same_shape("fre_band_arr", fre_band_arr,
                                         plan.fre_band_arr)

@@ -19,7 +19,7 @@ import torch
 
 from audioflux_torch.ops import cuda_fft
 
-__all__ = ["rfft", "irfft", "fft", "ifft"]
+__all__ = ["rfft", "irfft", "fft", "ifft", "ifft_parts"]
 
 
 def _kernel_tier(n: int, exact: bool) -> bool:
@@ -95,3 +95,16 @@ def ifft(x: torch.Tensor, n=None, dim=-1, exact=False) -> torch.Tensor:
         vi = torch.zeros_like(vr)
     outr, outi = cuda_fft.fft_inv(vr, vi)
     return torch.complex(outr, outi).movedim(-1, dim)
+
+
+def ifft_parts(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """``ifft(re + i im)`` over the last axis, from the two float32 parts of
+    the spectrum.  The kernel tier reads the parts as they are, so a caller
+    that builds a large spectrum part by part never holds it as a complex
+    tensor too (ST's inverse over every bin row)."""
+    n = re.shape[-1]
+    if not cuda_fft.supports(n):
+        return torch.fft.ifft(torch.complex(re, im), dim=-1)
+    outr, outi = cuda_fft.fft_inv(re.to(torch.float32).contiguous(),
+                                  im.to(torch.float32).contiguous())
+    return torch.complex(outr, outi)

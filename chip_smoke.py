@@ -36,7 +36,9 @@ Phases (any failure exits non-zero; no result line is printed then):
    1's shape (n_fft 1024, 513 bands, slide 256, cc 1) at 1e-5,
    ``fft_pow2`` at n 4096 on the reassignment rows' shape at 5e-5, and
    the resampler on the card against the CPU at 1e-5 of the peak (which a
-   TF32 product fails);
+   TF32 product fails); and (2e) the FFT kernels over ST's whole batch of
+   inverse rows (64 x 2048 rows of 4096, forward and inverse) and Deep's
+   7,472 frames at 5e-5;
 3. the main paths at full size, each with the launch counts set to 0 just
    before it and read just after (on the MIR path, before and after each
    user's call; the route counts show the FFT's register route and the
@@ -79,6 +81,23 @@ Phases (any failure exits non-zero; no result line is printed then):
       YIN by 3b's gates); ``CQT(num=24)``, whose top-octave FFT of 16384
       runs the FFT kernel (against the CPU at 1e-4); ``fft_pow2`` over the
       whole server and long reassignment rows against its plain version;
+   e. slice 8 (after 4d): ``FeatureExtractor`` with its nine transforms
+      (``bft, nsgt, cwt, pwt, cqt, st, fst, dwt, wpt``, radix2_exp 12) on
+      64 clips of 4096 samples, each transform alone (ST must launch the
+      FFT forward and inverse, FST and NSGT the forward), then
+      ``spectral(flux)``, ``xxcc`` (13 coefficients; DWT's 11 bands take
+      11) and ``deconv`` on the first 8 clips' results; ``SWT``;
+      ``DeepSpectrogram(num=84)`` orders 1 and 4, ``DeepChromaSpectrogram``
+      and ``Cepstrogram`` (which launches no kernel) on config 5's 8 clips
+      of 30 s; ``hilbert``, ``xcorr`` and ``czt`` on config 3's 1000 clips
+      of 4096 samples (each launches the forward and the inverse) and
+      ``phase_vocoder`` on an ``STFT(2048, HANN, 512)`` of the 8 clips; the
+      first and last clips against the port on the CPU (FFT-based outputs
+      at 1e-4 of the peak, DWT/WPT/SWT at 1e-5, Deep by flips and mass,
+      the phase vocoder's magnitudes at 1e-4 with its complex error
+      printed, xxcc at 1e-3, deconv's pitch against float64 within 4x the
+      CPU's own float32 error); each call's peak device memory printed
+      beside the bytes reckoned for it and held under 60 GB;
 4. timing with CUDA events: each kernel's entries, their plain versions
    and the library yardsticks at the main paths' shapes, the splits of
    ``PitchYIN.pitch`` and ``Synsq.synsq``, the fused kernel,
@@ -90,7 +109,10 @@ Phases (any failure exits non-zero; no result line is printed then):
    at n 4096 on the reassignment rows (their rows in the kernels line
    list these under ``shapes``), config 5's device part and its host
    stage (host clock) apart, and audio-hours per second of the users'
-   calls.
+   calls; the extractor whole and each of its transforms, ``ST.st``, Deep,
+   Cepstrogram and the DSP calls (4e), with ``fft_pow2`` and ``fft_inv``
+   at slice 8's shapes (ST's 131,072 inverse rows both ways, Deep's
+   frames, Hilbert's and xcorr's rows) listed under ``shapes``.
 
 The second-to-last line is the kernels JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -114,7 +136,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 
 from audioflux_torch.core import chroma_linear  # noqa: E402
+from audioflux_torch.dsp import czt, hilbert, phase_vocoder, xcorr  # noqa: E402
 from audioflux_torch.dsp.resample import Resample  # noqa: E402
+from audioflux_torch.features.deconv import Deconv  # noqa: E402
+from audioflux_torch.features.extractor import FeatureExtractor  # noqa: E402
 from audioflux_torch.features.spectral import Spectral  # noqa: E402
 from audioflux_torch.mir import HPSS, PitchYIN  # noqa: E402
 from audioflux_torch.mir.onset import (NoveltyParam, Onset,  # noqa: E402
@@ -144,10 +169,15 @@ from audioflux_torch.transforms.spectrogram import (  # noqa: E402
     ErbSpectrogram, MelSpectrogram)
 from audioflux_torch.transforms.cwt import (CWT,  # noqa: E402
                                             _symmetric_pad)
+from audioflux_torch.transforms.deep import (  # noqa: E402
+    DeepChromaSpectrogram, DeepSpectrogram)
+from audioflux_torch.transforms.dwt import SWT  # noqa: E402
 from audioflux_torch.transforms.bft import BFT  # noqa: E402
+from audioflux_torch.transforms.cepstrogram import Cepstrogram  # noqa: E402
 from audioflux_torch.transforms.cqt import CQT  # noqa: E402
 from audioflux_torch.transforms.pwt import PWT  # noqa: E402
 from audioflux_torch.transforms.reassign import Reassign  # noqa: E402
+from audioflux_torch.transforms.st import ST  # noqa: E402
 from audioflux_torch.transforms.stft import STFT  # noqa: E402
 from audioflux_torch.transforms.synsq import Synsq  # noqa: E402
 from audioflux_torch.transforms.wsst import WSST  # noqa: E402
@@ -184,6 +214,14 @@ RE_FLIP_TOL = 1e-3
 # config 5 (bench.py:440-499): YIN + mel flux onsets + HPSS on 8 x 30 s;
 # the share of onset frames that may differ from the CPU's
 ONSET_SHARE = 0.02
+# slice 8: FeatureExtractor's nine transforms at radix2_exp 12 on 64 clips
+# of 4096 samples (ST's inverse: 64 x 2048 rows of 4096), deconv on the
+# first 8 clips' results; Deep and Cepstrogram on config 5's 8 x 30 s;
+# hilbert, xcorr and czt on config 3's 1000 server clips; the phase
+# vocoder on config 5's STFT; the phase's device memory limit
+FE_NAMES = ("bft", "nsgt", "cwt", "pwt", "cqt", "st", "fst", "dwt", "wpt")
+FE_CLIPS, FE_R2E, FE_DECONV, CC_NUM = 64, 12, 8, 13
+PV_SLIDE, PV_RATE, MEM_LIMIT_GB = 512, 1.25, 60.0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, fp32 outside tensor cores
 
@@ -2145,6 +2183,435 @@ def merge_slice7(rows, launches, shapes):
     return rows
 
 
+def fe_signal(n_clips, n, gen):
+    """(n_clips, n) test audio: per clip two tones at seeded random
+    frequencies (50 Hz .. 12 kHz) plus noise."""
+    t = torch.arange(n, device="cuda", dtype=torch.float32) / SR
+    f = 50.0 + 12000.0 * torch.rand((2, n_clips, 1), generator=gen,
+                                    device="cuda")
+    x = (0.4 * torch.sin(2 * math.pi * f[0] * t)
+         + 0.2 * torch.sin(2 * math.pi * f[1] * t))
+    return x + randn((n_clips, n), gen, 0.05)
+
+
+def st_rows(plan, x):
+    """The rows ST's inverse transforms: per bin the shifted spectrum
+    times its window, as (re, im), each (clips, nbins, L) contiguous."""
+    F = torch.fft.fft(x, dim=-1)
+    return tuple(torch.cat([part, part], dim=-1)[..., plan._idx_t]
+                 .mul_(plan._w_t) for part in (F.real, F.imag))
+
+
+def deep_rows(plan, x):
+    """The rows Deep's forward transforms: frames times its window."""
+    return (x.unfold(-1, plan.fft_length, plan.slide_length)
+            * plan._window_t).contiguous()
+
+
+def read_slice8_counts():
+    counts = read_counts()
+    counts["cwt_ifft_bank"] = cwt_ifft_bank.launches
+    return counts
+
+
+def zero_slice8_counts():
+    zero_counts()
+    cwt_ifft_bank.launches = 0
+
+
+def gate_err(got, ref):
+    """max |got - ref| over the peak of |ref|, complex or real, in float64
+    on the CPU."""
+    got, ref = got.cpu(), ref.cpu()
+    if got.is_complex():
+        e, pk = complex_err(got.to(torch.complex128),
+                            ref.to(torch.complex128))
+        return e / pk
+    return rel_err(got, ref)
+
+
+def deconv_pitch64(mag):
+    """Deconv's pitch part of a (..., num, T) magnitude spectrogram in
+    float64 on the CPU (features/deconv.py's definition)."""
+    num = mag.shape[-2]
+    L = 1 << (2 * num - 1).bit_length()
+    F = torch.fft.fft(mag.double().transpose(-1, -2), n=L, dim=-1)
+    white = F / torch.clamp(F.abs(), min=1e-16)
+    return torch.fft.ifft(white, dim=-1).real[..., :num].transpose(-1, -2)
+
+
+def phase2_slice8_kernels(gen):
+    phase("phase 2e: the FFT kernels at slice 8's shapes against their "
+          "plain versions, over the whole batch")
+    st = ST(radix2_exp=FE_R2E, samplate=SR)
+    n = st.fft_length
+    re, im = st_rows(st, fe_signal(FE_CLIPS, n, gen))
+    what = (f"{re.numel() // n} rows of {n} (ST's inverse rows, {FE_CLIPS} "
+            "clips)")
+    whole_batch(
+        f"fft_pow2 complex, {what}", fft_fwd, fft_fwd_ref, (re, im), 4,
+        FFT_TOL)
+    whole_batch(
+        f"fft_inv, {what}", fft_inv, fft_inv_ref, (re, im), 4, FFT_TOL)
+    del re, im
+    deep = DeepSpectrogram(num=84, radix2_exp=FE_R2E, samplate=SR)
+    rows = deep_rows(deep, mir_signal(MIR_SMALL, MIR_SECONDS * SR, gen))
+    whole_batch(
+        f"fft_pow2 real, {rows.numel() // n} rows of {n} (Deep's frames, "
+        f"{MIR_SMALL} x {MIR_SECONDS} s)", fft_fwd, fft_fwd_ref, (rows,), 1,
+        FFT_TOL)
+
+
+def phase3_slice8_paths(gen):
+    phase("phase 3e: slice 8 at full width (FeatureExtractor's nine "
+          "transforms, Deep, Cepstrogram, the DSP calls)")
+    cpu = {"device": "cpu"}
+    launches = {}
+
+    def counted(label, fn, required, reckoned_gb):
+        """``fn()`` with the launch counts set to 0 just before and read
+        just after; each kernel in ``required`` must have launched.  The
+        peak device memory of the call (what the phase holds included) is
+        printed beside the bytes reckoned beforehand and held under
+        MEM_LIMIT_GB."""
+        zero_slice8_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_slice8_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ran = {k: v for k, v in counts.items() if v}
+        print(f"  {label}: peak device memory {peak:.2f} GB (reckoned "
+              f"{reckoned_gb:.2f} GB); launches {ran}")
+        require_launched(label, {k: counts[k] for k in required})
+        if peak > MEM_LIMIT_GB:
+            raise AssertionError(f"{label}: {peak:.2f} GB > {MEM_LIMIT_GB}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, counts
+
+    def finite(label, t, shape=None):
+        if (shape is not None and tuple(t.shape) != shape) or not bool(
+                torch.isfinite(t).all()):
+            raise AssertionError(f"{label}: shape {tuple(t.shape)} or "
+                                 "non-finite values")
+
+    # --- FeatureExtractor: the nine transforms on 64 clips of 4096 -------
+    L = 1 << FE_R2E
+    x = fe_signal(FE_CLIPS, L, gen)
+    fe = FeatureExtractor(list(FE_NAMES), radix2_exp=FE_R2E, samplate=SR)
+    st = fe._objs["st"]
+    nb = len(st.bin_arr)
+    # the results: ST and FST complex (clips, ~L/2, L), WPT real (clips,
+    # L/2, L), CWT and PWT complex (clips, 84, L); ST's inverse holds its
+    # two input parts, its two output parts and the complex result at once
+    # (3 x its result), after the CWT's and PWT's results
+    st_gb = FE_CLIPS * nb * L * 8 / 1e9
+    wav_gb = 2 * FE_CLIPS * 84 * L * 8 / 1e9
+    held_gb = 2 * st_gb + st_gb / 2 + wav_gb
+    torch.cuda.synchronize()
+    r, _ = counted(f"FeatureExtractor.spectrogram, nine transforms, "
+                   f"{FE_CLIPS} x {L}", lambda: fe.spectrogram(x),
+                   ("fft_pow2", "fft_inv"), max(held_gb, 3 * st_gb + wav_gb))
+    for name in FE_NAMES:
+        finite(f"3e {name}", r[name]["spectrogram"])
+    # each transform alone: ST launches both FFT kernels, FST and NSGT the
+    # forward; CWT and PWT pad 4096 to 8192, below cwt_ifft_bank's 2^14,
+    # and run the forward and the inverse FFT kernels instead
+    required = {"st": ("fft_pow2", "fft_inv"), "fst": ("fft_pow2",),
+                "nsgt": ("fft_pow2",), "cwt": ("fft_pow2", "fft_inv"),
+                "pwt": ("fft_pow2", "fft_inv"), "bft": ("fft_pow2",)}
+    for name in FE_NAMES:
+        out, c = counted(f"{name} alone", lambda name=name: fe._run_one(
+            name, fe._objs[name], x), required.get(name, ()),
+            held_gb + (3 * st_gb if name == "st" else 0.0))
+        del out
+    ends = [0, FE_CLIPS - 1]
+    fe_cpu = FeatureExtractor(list(FE_NAMES), radix2_exp=FE_R2E,
+                              samplate=SR, **cpu)
+    rc = fe_cpu.spectrogram(x[ends].cpu())
+    for name in FE_NAMES:
+        tol = FP32_TOL if name in ("dwt", "wpt") else GATE_TOL
+        check(f"gate 3e {name} (first and last clip) vs CPU",
+              gate_err(r[name]["spectrogram"][ends], rc[name]["spectrogram"]),
+              tol)
+    # spectral flux over every result; against the CPU at 1e-4 of num *
+    # peak^2, the scale of its summed squared differences
+    sp, _ = counted("FeatureExtractor.spectral(flux), nine results",
+                    lambda: fe.spectral(r, "flux"), (), held_gb + st_gb)
+    rcp = {k: {"spectrogram": v["spectrogram"]} for k, v in rc.items()}
+    sp_c = fe_cpu.spectral(rcp, "flux")
+    for name in FE_NAMES:
+        finite(f"3e flux {name}", sp[name]["flux"])
+        mag = rc[name]["spectrogram"].abs()
+        scale = mag.shape[-2] * float(mag.max()) ** 2
+        err = float((sp[name]["flux"][ends].cpu() - sp_c[name]["flux"])
+                    .abs().max()) / scale
+        check(f"gate 3e flux {name} (first and last clip) vs CPU, of num * "
+              "peak^2", err, GATE_TOL)
+    # xxcc over every result with 13 coefficients; DWT has radix2_exp - 1
+    # = 11 bands, and XXCC takes at most as many coefficients as bands (in
+    # both packages), so DWT's gets 11.  The log10 of cells near its 1e-8
+    # floor spreads a rounding over the DCT: 1e-3 of the peak
+    cc_of = {k: (CC_NUM if r[k]["spectrogram"].shape[-2] >= CC_NUM
+                 else r[k]["spectrogram"].shape[-2]) for k in FE_NAMES}
+
+    def xxcc_all(fx, res):
+        out = {}
+        for k in FE_NAMES:
+            out.update(fx.xxcc({k: res[k]}, cc_of[k]))
+        return out
+    cc, _ = counted(f"FeatureExtractor.xxcc (cc {cc_of}), nine results",
+                    lambda: xxcc_all(fe, r), (), held_gb + st_gb)
+    cc_c = xxcc_all(fe_cpu, rcp)
+    for name in FE_NAMES:
+        finite(f"3e xxcc {name}", cc[name]["xxcc"])
+        check(f"gate 3e xxcc {name} (first and last clip) vs CPU",
+              gate_err(cc[name]["xxcc"][ends], cc_c[name]["xxcc"]), 1e-3)
+    del sp, cc
+    # deconv on the first 8 clips' results (ST's 2048 bands: an FFT of
+    # 4096 a frame); the timbre against the CPU on clips 0 and 7 at 1e-4.
+    # The pitch, the inverse of the whitened spectrum F / |F|, turns the
+    # rounding of bins near zero into whole unit vectors: float32 on the
+    # CPU is ~5e-4 of the peak from float64 on ST's band vectors.  So it
+    # is held against the float64 deconvolution of the card's own
+    # spectrogram, within 4x the CPU port's float32 distance from it (and
+    # at least 1e-4); its distance from the CPU port's is printed
+    r8 = {k: {"spectrogram": v["spectrogram"][:FE_DECONV]}
+          for k, v in r.items()}
+    dc, _ = counted(f"FeatureExtractor.deconv, first {FE_DECONV} clips",
+                    lambda: fe.deconv(r8), ("fft_pow2", "fft_inv"),
+                    held_gb + 5 * FE_DECONV * L * L * 8 / 1e9)
+    e8 = [0, FE_DECONV - 1]
+    dc_c = fe_cpu.deconv({k: {"spectrogram": v["spectrogram"][e8].cpu()}
+                          for k, v in r8.items()})
+    for name in FE_NAMES:
+        finite(f"3e deconv {name} timbre", dc[name]["timbre"])
+        finite(f"3e deconv {name} pitch", dc[name]["pitch"])
+        check(f"gate 3e deconv {name} timbre (clips 0 and "
+              f"{FE_DECONV - 1}) vs CPU",
+              gate_err(dc[name]["timbre"][e8], dc_c[name]["timbre"]),
+              GATE_TOL)
+        mag = r8[name]["spectrogram"][e8].abs().cpu()
+        ref = deconv_pitch64(mag)
+        own = gate_err(Deconv(num=mag.shape[-2], **cpu).deconv(mag)[1], ref)
+        print(f"  deconv {name} pitch (clips 0 and {FE_DECONV - 1}) vs "
+              f"CPU: {gate_err(dc[name]['pitch'][e8], dc_c[name]['pitch']):.3e}"
+              f" of the peak; the CPU's float32 vs float64: {own:.3e}")
+        check(f"gate 3e deconv {name} pitch (clips 0 and {FE_DECONV - 1}) "
+              "vs float64 on the card's spectrogram",
+              gate_err(dc[name]["pitch"][e8], ref), max(4 * own, GATE_TOL))
+    del r, r8, dc, rc, rcp, fe_cpu
+    # SWT (not in the extractor) on the same clips, 5 levels
+    swt = SWT(num=5, fft_length=L)
+    (sa, sd), _ = counted(f"SWT(num=5).swt, {FE_CLIPS} x {L}",
+                          lambda: swt.swt(x), (),
+                          2 * FE_CLIPS * 5 * L * 4 / 1e9)
+    swt_c = SWT(num=5, fft_length=L, **cpu).swt(x[ends].cpu())
+    for got, ref, what in ((sa, swt_c[0], "approx"), (sd, swt_c[1],
+                                                      "detail")):
+        check(f"gate 3e SWT {what} (first and last clip) vs CPU",
+              gate_err(got[ends], ref), FP32_TOL)
+    del sa, sd
+    torch.cuda.empty_cache()
+
+    # --- Deep and Cepstrogram on config 5's 8 x 30 s -------------------
+    x5 = mir_signal(MIR_SMALL, MIR_SECONDS * SR, gen)
+    deep1 = DeepSpectrogram(num=84, radix2_exp=FE_R2E, samplate=SR)
+    deep4 = DeepSpectrogram(num=84, radix2_exp=FE_R2E, samplate=SR)
+    deep4.set_deep_order(4)
+    chroma = DeepChromaSpectrogram(radix2_exp=FE_R2E, samplate=SR)
+    cep = Cepstrogram(radix2_exp=FE_R2E, samplate=SR)
+    T5 = deep1.cal_time_length(x5.shape[-1])
+    # Deep: about 16 maps of (frames, L/2 + 1) at 8 bytes (the spectrum
+    # pair, masks, sort keys, running max, scatter indices); Cepstrogram:
+    # about 7 complex (frames, L) tiles
+    cells_gb = MIR_SMALL * T5 * (L // 2 + 1) * 8 / 1e9
+    tile_gb = MIR_SMALL * T5 * L * 8 / 1e9
+    e5 = [0, MIR_SMALL - 1]
+    x5c = x5[e5].cpu()
+    for label, plan, deep in (("DeepSpectrogram order 1", deep1, True),
+                              ("DeepSpectrogram order 4", deep4, True),
+                              ("DeepChromaSpectrogram", chroma, True)):
+        out, _ = counted(f"{label}, {MIR_SMALL} x {MIR_SECONDS} s",
+                         lambda plan=plan: plan.spectrogram(x5),
+                         ("fft_pow2",), 16 * cells_gb)
+        finite(f"3e {label}", out)
+        ref = type(plan)(radix2_exp=FE_R2E, samplate=SR, **cpu)
+        ref.set_deep_order(plan.deep_order)
+        flips_and_mass(f"gate 3e {label} (first and last clip) vs CPU",
+                       out[e5].cpu(), ref.spectrogram(x5c))
+        del out
+    ceps, c = counted(f"Cepstrogram, {MIR_SMALL} x {MIR_SECONDS} s "
+                      "(torch.fft by design)", lambda: cep.cepstrogram(x5),
+                      (), 7 * tile_gb)
+    if c["fft_pow2"] or c["fft_inv"]:
+        raise AssertionError(f"Cepstrogram launched an FFT kernel: {c}")
+    ceps_c = Cepstrogram(radix2_exp=FE_R2E, samplate=SR,
+                         **cpu).cepstrogram(x5c)
+    for got, ref, what, tol in zip(ceps, ceps_c, ("cepstrum", "envelope",
+                                                  "details"),
+                                   (GATE_TOL, GATE_TOL, 1e-3)):
+        finite(f"3e cepstrogram {what}", got)
+        check(f"gate 3e Cepstrogram {what} (first and last clip) vs CPU",
+              gate_err(got[e5], ref), tol)
+    del ceps
+
+    # --- the DSP calls: config 3's 1000 server clips, the phase vocoder --
+    xs = randn((C3_CLIPS, C3_N), gen, 0.2)
+    ys = xs.roll(1, dims=0)
+    e3 = [0, C3_CLIPS - 1]
+    dsp = (("hilbert", lambda: hilbert(xs), lambda: hilbert(xs[e3].cpu(),
+                                                             **cpu)),
+           ("xcorr", lambda: xcorr(xs, ys)[0], lambda: xcorr(
+               xs[e3].cpu(), ys[e3].cpu(), **cpu)[0]),
+           ("czt", lambda: czt(xs, 0.1, 0.3), lambda: czt(
+               xs[e3].cpu(), 0.1, 0.3, **cpu)))
+    for name, fn, ref_fn in dsp:
+        # about ten complex (clips, 8192) rows: the two spectra, their
+        # product, the inverse's parts and the result
+        out, _ = counted(f"{name}, {C3_CLIPS} x {C3_N}", fn,
+                         ("fft_pow2", "fft_inv"), C3_CLIPS * 2 * C3_N * 80
+                         / 1e9)
+        finite(f"3e {name}", out)
+        check(f"gate 3e {name} (first and last clip) vs CPU",
+              gate_err(out[e3], ref_fn()), GATE_TOL)
+        del out
+    stft = STFT(radix2_exp=R2E, window_type=WindowType.HANN,
+                slide_length=PV_SLIDE)
+    D = stft.stft(x5)
+    pv, _ = counted(f"phase_vocoder(STFT(2048, HANN, 512).stft, 512, "
+                    f"{PV_RATE}), {MIR_SMALL} x {MIR_SECONDS} s",
+                    lambda: phase_vocoder(D, PV_SLIDE, PV_RATE), (),
+                    D.numel() * 8 * 10 / 1e9)
+    finite("3e phase vocoder", pv)
+    pv_c = phase_vocoder(D[e5].cpu(), PV_SLIDE, PV_RATE, **cpu)
+    check("gate 3e phase vocoder magnitudes (first and last clip) vs CPU",
+          gate_err(pv[e5].abs(), pv_c.abs()), GATE_TOL)
+    print(f"  phase vocoder complex output vs CPU (first and last clip): "
+          f"max err / peak = {gate_err(pv[e5], pv_c):.3e} (printed, not "
+          "gated: the phase adds up to ~pi * 512 * T)")
+    del pv
+    print(f"  launches on the slice-8 paths: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return dict(fe=fe, x=x, x5=x5, xs=xs, ys=ys, deep1=deep1, deep4=deep4,
+                chroma=chroma, cep=cep, D=D, launches=launches)
+
+
+def phase4_slice8_timing(d):
+    phase("phase 4e: slice 8 timing (CUDA events, median)")
+    shapes = {}
+    fe, x, x5, xs, ys = (d[k] for k in ("fe", "x", "x5", "xs", "ys"))
+    hours = x.numel() / SR / 3600.0
+    ms = cuda_ms(lambda: fe.spectrogram(x), reps=5, warmup=1)
+    print(f"  FeatureExtractor.spectrogram, nine transforms, {FE_CLIPS} x "
+          f"{x.shape[-1]}: {ms:.3f} ms, {hours / (ms / 1e3):.3f} "
+          "audio-hours/s")
+    for name in FE_NAMES:
+        obj = fe._objs[name]
+        ms = cuda_ms(lambda: fe._run_one(name, obj, x), reps=5, warmup=1)
+        print(f"  {name} alone, {FE_CLIPS} x {x.shape[-1]}: {ms:.3f} ms")
+
+    def shape_row(name, fn, ref, lib, tensors, chunk, n_bytes, n_rows, n,
+                  what):
+        """One entry of the kernel's ``shapes``: its error against the
+        plain version over these rows, kernel, plain, library and bound."""
+        err = whole_batch(f"{name} {what} vs plain", fn, ref, tensors, chunk,
+                          FFT_TOL)
+        k_ms = cuda_ms(lambda: fn(*tensors), reps=10)
+        p_ms = cuda_ms(chunked(ref, tensors, chunk), reps=3, warmup=1)
+        l_ms = cuda_ms(lib, reps=5, warmup=1)
+        row = kernel_row(name, "fft_pow2", "audioflux_tpu/ops/pallas_fft.py:"
+                         + ("346" if name == "fft_pow2" else "360"), 0, err,
+                         k_ms, p_ms, l_ms, n_bytes,
+                         n_rows * 5.0 * n * math.log2(n), what)
+        shapes.setdefault(name, []).append(dict(shape=what, **{
+            k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "max_abs_err")}))
+
+    # --- the FFT kernels on ST's inverse rows, both directions ---------
+    st = fe._objs["st"]
+    n = st.fft_length
+    re, im = st_rows(st, x)
+    z = torch.complex(re, im)
+    nrows = re.numel() // n
+    shape_row("fft_pow2", fft_fwd, fft_fwd_ref,
+              lambda: torch.fft.fft(z, dim=-1), (re, im), 8,
+              16 * re.numel(), nrows, n,
+              f"forward {nrows}x{n} complex, ST's inverse rows")
+    shape_row("fft_inv", fft_inv, fft_inv_ref,
+              lambda: torch.fft.ifft(z, dim=-1), (re, im), 8,
+              16 * re.numel(), nrows, n,
+              f"{nrows}x{n} complex, ST's inverse rows")
+    del re, im, z
+    # --- the forward on Deep's frames (real) ---------------------------
+    rows = deep_rows(d["deep1"], x5)
+    nrows = rows.numel() // n
+    shape_row("fft_pow2", fft_fwd, fft_fwd_ref,
+              lambda: torch.fft.fft(rows, dim=-1), (rows,), 1,
+              12 * rows.numel(), nrows, n,
+              f"forward {nrows}x{n} real, Deep's frames")
+    del rows
+    # --- the DSP calls' rows: Hilbert's inverse at 4096, xcorr's
+    # transforms at 8192 (one clip of 4096 zero-padded) -----------------
+    F = torch.fft.fft(xs, dim=-1)
+    F[..., 1:C3_N // 2] *= 2
+    F[..., C3_N // 2 + 1:] = 0
+    hr, hi = F.real.contiguous(), F.imag.contiguous()
+    shape_row("fft_inv", fft_inv, fft_inv_ref,
+              lambda: torch.fft.ifft(F, dim=-1), (hr, hi), 250,
+              16 * hr.numel(), C3_CLIPS, C3_N,
+              f"{C3_CLIPS}x{C3_N} complex, Hilbert's inverse")
+    n2 = 2 * C3_N
+    xp = torch.nn.functional.pad(xs, (0, C3_N))
+    shape_row("fft_pow2", fft_fwd, fft_fwd_ref,
+              lambda: torch.fft.fft(xp, dim=-1), (xp,), 250, 12 * xp.numel(),
+              C3_CLIPS, n2, f"forward {C3_CLIPS}x{n2} real, xcorr's")
+    P = torch.fft.fft(xp, dim=-1) * torch.fft.fft(
+        torch.nn.functional.pad(ys, (0, C3_N)), dim=-1).conj()
+    pr, pi = P.real.contiguous(), P.imag.contiguous()
+    shape_row("fft_inv", fft_inv, fft_inv_ref,
+              lambda: torch.fft.ifft(P, dim=-1), (pr, pi), 250,
+              16 * pr.numel(), C3_CLIPS, n2,
+              f"{C3_CLIPS}x{n2} complex, xcorr's inverse")
+    del F, hr, hi, xp, P, pr, pi
+
+    # --- the users' calls: audio-hours per second ------------------------
+    h5 = x5.numel() / SR / 3600.0
+    h3 = xs.numel() / SR / 3600.0
+    D = d["D"]
+    for name, fn, h in (
+            ("ST.st", lambda: st.st(x), hours),
+            ("DeepSpectrogram order 1", lambda: d["deep1"].spectrogram(x5),
+             h5),
+            ("DeepSpectrogram order 4", lambda: d["deep4"].spectrogram(x5),
+             h5),
+            ("DeepChromaSpectrogram", lambda: d["chroma"].spectrogram(x5),
+             h5),
+            ("Cepstrogram", lambda: d["cep"].cepstrogram(x5), h5),
+            ("hilbert", lambda: hilbert(xs), h3),
+            ("xcorr", lambda: xcorr(xs, ys), h3),
+            ("czt", lambda: czt(xs, 0.1, 0.3), h3),
+            ("phase_vocoder", lambda: phase_vocoder(D, PV_SLIDE, PV_RATE),
+             h5)):
+        ms = cuda_ms(fn, reps=5, warmup=1)
+        print(f"  {name}: {ms:.3f} ms, {h / (ms / 1e3):.3f} audio-hours/s")
+    return shapes
+
+
+def merge_slice8(rows, launches, shapes):
+    """The kernels line's rows gain the slice-8 paths' launches and the
+    FFT rows their readings at slice 8's shapes (under ``shapes``)."""
+    for row in rows:
+        key = {"fft_pow2": "fft_pow2", "fft_inv": "fft_inv",
+               "cwt_ifft_bank": "cwt_ifft_bank"}.get(row["name"])
+        if key is not None:
+            row["launches"] += launches.get(key, 0)
+        if row["name"] in shapes:
+            row.setdefault("shapes", []).extend(shapes[row["name"]])
+    return rows
+
+
 def main():
     upto = int(sys.argv[sys.argv.index("--upto") + 1]) if "--upto" in sys.argv else 4
     smi = phase0_identity()
@@ -2156,6 +2623,7 @@ def main():
     errs = phase2_kernels(gen)
     phase2_wavelet_kernels(gen, errs)
     phase2_slice7_kernels(gen, errs)
+    phase2_slice8_kernels(gen)
     if upto < 3:
         return
     plan, x, xs, mel_launches = phase3_mel_path(gen)
@@ -2165,6 +2633,8 @@ def main():
         phase3_wavelet_path(gen, errs)
         torch.cuda.empty_cache()
         phase3_slice7_paths(gen, errs)
+        torch.cuda.empty_cache()
+        phase3_slice8_paths(gen)
         return
     rows = phase4_timing(plan, x, xs, mel_launches, errs)
     del plan, x, xs
@@ -2176,6 +2646,11 @@ def main():
     slice7 = phase3_slice7_paths(gen, errs)
     shapes = phase4_slice7_timing(slice7, errs)
     rows = merge_slice7(rows, slice7["launches"], shapes)
+    del slice7
+    torch.cuda.empty_cache()
+    slice8 = phase3_slice8_paths(gen)
+    rows = merge_slice8(rows, slice8["launches"], phase4_slice8_timing(slice8))
+    del slice8
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
