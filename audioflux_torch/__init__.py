@@ -9,7 +9,10 @@ detection, HPSS, YIN pitch and the wavelet family (CWT, PWT,
 synchrosqueezing, WSST), the remaining transforms (ST, FST, NSGT,
 DWT/WPT/SWT, Cepstrogram, Deep/DeepChroma) behind ``FeatureExtractor``,
 and the DSP one-shots (CZT, xcorr, Hilbert, DCT, convolution, phase
-vocoder, FIR design), with hand-written Hopper (sm_90a) kernels
+vocoder, FIR design), the pitch engines (NCF, CEP, HPS, LHS, PEF, STFT,
+FFP), harmonic counting and harmonic ratio, the tuner ``TuneTrack``, time
+stretch and pitch shift, and the classic family (NMF, HMM, Viterbi, and
+``HPSSNMF`` built on NMF), with hand-written Hopper (sm_90a) kernels
 for the fused pipeline (``ops.fused_mel``), the pow2 FFT forward, inverse
 and fused autocorrelation (``ops.cuda_fft``), the sliding median
 (``ops.cuda_median``), the wavelet filterbank convolution
@@ -73,12 +76,19 @@ from audioflux_torch.features.xxcc import XXCC
 from audioflux_torch.features.spectral import Spectral
 from audioflux_torch.features.deconv import Deconv
 from audioflux_torch.features.extractor import FeatureExtractor, FeatureResult
-from audioflux_torch.mir import HPSS, PitchYIN, Onset, NoveltyParam, peak_pick
+from audioflux_torch.mir import (
+    HPSS, HPSSNMF, PitchYIN, Onset, NoveltyParam, peak_pick,
+    PitchNCF, PitchCEP, PitchHPS, PitchLHS, PitchPEF, PitchSTFT, PitchFFP,
+    Harmonic, HarmonicRatio, TimeStretch, PitchShift,
+)
+from audioflux_torch.track import TuneTrack
+from audioflux_torch.classic import NMF, HMM, nmf, viterbi
 from audioflux_torch.core import (
     linear_spectrogram, mel_spectrogram, bark_spectrogram, erb_spectrogram,
     mfcc, bfcc, gtcc, cqt, vqt, cqcc, chroma_linear, chroma_octave,
     chroma_cqt,
 )
 from audioflux_torch.convert import load_reference_constants
+from audioflux_torch import utils
 
 __version__ = "0.1.0"

@@ -15,7 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "require_sm90", "as_tensor", "f32_scalar"]
+__all__ = ["resolve_device", "require_sm90", "as_tensor", "host_f32",
+           "f32_scalar"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -51,6 +52,15 @@ def as_tensor(x, device: torch.device) -> torch.Tensor:
     if not x.flags.writeable:  # e.g. a read-only view of another library's buffer
         x = x.copy()
     return torch.from_numpy(x).to(device)
+
+
+def host_f32(x) -> np.ndarray:
+    """float32 numpy array of ``x`` (a tensor on any device, or host
+    data), for the host stages of the engines that walk frames on the
+    host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).cpu().numpy()
+    return np.asarray(x, dtype=np.float32)
 
 
 def f32_scalar(value: float, device) -> torch.Tensor:

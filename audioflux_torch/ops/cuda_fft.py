@@ -28,6 +28,7 @@ __all__ = ["supports", "fft_fwd", "fft_fwd_ref", "fft_inv", "fft_inv_ref",
            "fft_autocorr_yin_ref", "twiddle_table"]
 
 REGISTER_N = (2048, 4096)   # the lengths of the register-resident route
+FOUR_STEP_MIN = 32768       # from here on the four-step split with its buffer
 
 
 def supports(n: int) -> bool:
@@ -85,11 +86,11 @@ def _check_rows(who: str, **tensors) -> int:
 def _call(fn, who: str, x: torch.Tensor, n: int, *ptrs, stages=None):
     """Launch ``fn(*ptrs, scratch, tw, batch, log2n[, stages], stream)`` on
     ``x``'s device and stream; raise on a CUDA error.  ``scratch`` is the
-    four-step split's device buffer (n > 16384 only)."""
+    four-step split's device buffer (n >= FOUR_STEP_MIN only)."""
     require_sm90(x.device)
     batch, log2n = x.numel() // n, n.bit_length() - 1
     scratch = (torch.empty((batch, n, 2), dtype=torch.float32,
-                           device=x.device) if log2n > 14 else None)
+                           device=x.device) if n >= FOUR_STEP_MIN else None)
     tw = twiddle_table(n, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -134,6 +135,7 @@ def _fwd(xr, xi, n, stages=3):
           yi.data_ptr(), stages=stages)
     fft_fwd.launches += 1
     fft_fwd.register_launches += int(n in REGISTER_N)
+    fft_fwd.four_step_launches += int(n >= FOUR_STEP_MIN)
     return yr, yi
 
 
@@ -164,6 +166,7 @@ def fft_inv(yr: torch.Tensor, yi: torch.Tensor, out_imag: bool = True):
           stages=3)
     fft_inv.launches += 1
     fft_inv.register_launches += int(n in REGISTER_N)
+    fft_inv.four_step_launches += int(n >= FOUR_STEP_MIN)
     return xr, xi
 
 
@@ -262,5 +265,7 @@ fft_fwd.launches = 0
 fft_inv.launches = 0
 fft_fwd.register_launches = 0   # those at n = 2048, 4096 (the register route)
 fft_inv.register_launches = 0
+fft_fwd.four_step_launches = 0  # those at n = 32768 (the four-step route)
+fft_inv.four_step_launches = 0
 fft_autocorr.launches = 0
 fft_autocorr_yin.launches = 0

@@ -19,7 +19,7 @@ import torch
 
 from audioflux_torch.ops import cuda_fft
 
-__all__ = ["rfft", "irfft", "fft", "ifft", "ifft_parts"]
+__all__ = ["rfft", "irfft", "fft", "ifft", "fft_parts", "ifft_parts"]
 
 
 def _kernel_tier(n: int, exact: bool) -> bool:
@@ -97,14 +97,32 @@ def ifft(x: torch.Tensor, n=None, dim=-1, exact=False) -> torch.Tensor:
     return torch.complex(outr, outi).movedim(-1, dim)
 
 
-def ifft_parts(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+def fft_parts(re: torch.Tensor, im: torch.Tensor | None = None):
+    """``fft(re + i im)`` over the last axis (``im=None``: real input) as
+    the two float32 parts of the spectrum.  The kernel tier writes the
+    parts as they are, so a caller that takes a large spectrum apart never
+    holds it as a complex tensor too (HPS's and PEF's 32768-point rows)."""
+    n = re.shape[-1]
+    if not cuda_fft.supports(n):
+        y = torch.fft.fft(re if im is None else torch.complex(re, im), dim=-1)
+        return y.real, y.imag
+    return cuda_fft.fft_fwd(
+        re.to(torch.float32).contiguous(),
+        None if im is None else im.to(torch.float32).contiguous())
+
+
+def ifft_parts(re: torch.Tensor, im: torch.Tensor, real_only: bool = False):
     """``ifft(re + i im)`` over the last axis, from the two float32 parts of
     the spectrum.  The kernel tier reads the parts as they are, so a caller
     that builds a large spectrum part by part never holds it as a complex
-    tensor too (ST's inverse over every bin row)."""
+    tensor too (ST's inverse over every bin row).  ``real_only=True``
+    returns the real part alone (the kernel then writes no imaginary
+    part: PEF's cross-correlation)."""
     n = re.shape[-1]
     if not cuda_fft.supports(n):
-        return torch.fft.ifft(torch.complex(re, im), dim=-1)
+        y = torch.fft.ifft(torch.complex(re, im), dim=-1)
+        return y.real if real_only else y
     outr, outi = cuda_fft.fft_inv(re.to(torch.float32).contiguous(),
-                                  im.to(torch.float32).contiguous())
-    return torch.complex(outr, outi)
+                                  im.to(torch.float32).contiguous(),
+                                  out_imag=not real_only)
+    return outr if real_only else torch.complex(outr, outi)

@@ -38,7 +38,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    the resampler on the card against the CPU at 1e-5 of the peak (which a
    TF32 product fails); and (2e) the FFT kernels over ST's whole batch of
    inverse rows (64 x 2048 rows of 4096, forward and inverse) and Deep's
-   7,472 frames at 5e-5;
+   7,472 frames at 5e-5; and (2f) over slice 9's rows of config 5's 8 x
+   30 s (7,472 frames): ``fft_autocorr`` at 8192 on NCF's and
+   HarmonicRatio's operands, ``fft_pow2`` at 32768 on HPS's real rows,
+   PEF's cross-correlation input and its product spectrum (complex),
+   ``fft_inv`` at 32768 on that product (the four-step route), and
+   ``fft_pow2`` at 8192 on PEF's frames, at 5e-5;
 3. the main paths at full size, each with the launch counts set to 0 just
    before it and read just after (on the MIR path, before and after each
    user's call; the route counts show the FFT's register route and the
@@ -98,6 +103,23 @@ Phases (any failure exits non-zero; no result line is printed then):
       printed, xxcc at 1e-3, deconv's pitch against float64 within 4x the
       CPU's own float32 error); each call's peak device memory printed
       beside the bytes reckoned for it and held under 60 GB;
+   f. slice 9 (after 4e): ``PitchNCF``, ``PitchCEP`` (which launches no
+      kernel), ``PitchHPS``, ``PitchLHS``, ``PitchPEF``,
+      ``HarmonicRatio``, ``TimeStretch`` at rates 0.5 and 1.25 and
+      ``PitchShift`` at +2, -5 and +7 semitones on config 5's 8 x 30 s;
+      ``PitchSTFT``, ``PitchFFP``, ``Harmonic``, ``TuneTrack`` and
+      ``HPSSNMF`` on its first clip; ``nmf`` (k 16) on HPSSNMF's
+      magnitude, an ``HMM(16, 64)`` trained on 16 steps and decoded, and
+      ``viterbi`` (log domain) over 7,472 steps; NCF and HarmonicRatio
+      must launch ``fft_autocorr``, HPS, LHS and PEF the four-step route
+      (PEF its inverse too), TuneTrack ``fft_autocorr_yin``; each against
+      the port on the CPU (first and last clip): at most 2% of the frames
+      off by more than one step of the engine's grid, HarmonicRatio by
+      more than 1e-4, TimeStretch/PitchShift at 1e-3 of the peak,
+      HPSSNMF's h + p against its input and its energy split within 0.02
+      of the CPU's, NMF's reconstruction within 1.05x the CPU's, HMM at
+      1e-4, viterbi's states (2%) and log-probabilities (1e-5 relative);
+      each call's peak device memory printed beside its reckoning;
 4. timing with CUDA events: each kernel's entries, their plain versions
    and the library yardsticks at the main paths' shapes, the splits of
    ``PitchYIN.pitch`` and ``Synsq.synsq``, the fused kernel,
@@ -112,7 +134,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    calls; the extractor whole and each of its transforms, ``ST.st``, Deep,
    Cepstrogram and the DSP calls (4e), with ``fft_pow2`` and ``fft_inv``
    at slice 8's shapes (ST's 131,072 inverse rows both ways, Deep's
-   frames, Hilbert's and xcorr's rows) listed under ``shapes``.
+   frames, Hilbert's and xcorr's rows) listed under ``shapes``; slice 9
+   (4f): audio-hours per second of each batched call, the host-clock ms
+   of the single-clip calls, NMF, HMM and viterbi (its microseconds a
+   step), the splits of NCF, PEF, FFP and HPSSNMF, and the FFT kernels at
+   slice 9's shapes under ``shapes`` of ``fft_pow2``, ``fft_inv`` and
+   ``fft_autocorr`` (whose row counts both entries' launches).
 
 The second-to-last line is the kernels JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -121,6 +148,7 @@ The second-to-last line is the kernels JSON object; the last line is
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import os
@@ -130,18 +158,24 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np  # noqa: E402
 
+from audioflux_torch.classic import HMM, nmf, viterbi  # noqa: E402
 from audioflux_torch.core import chroma_linear  # noqa: E402
 from audioflux_torch.dsp import czt, hilbert, phase_vocoder, xcorr  # noqa: E402
 from audioflux_torch.dsp.resample import Resample  # noqa: E402
 from audioflux_torch.features.deconv import Deconv  # noqa: E402
 from audioflux_torch.features.extractor import FeatureExtractor  # noqa: E402
 from audioflux_torch.features.spectral import Spectral  # noqa: E402
-from audioflux_torch.mir import HPSS, PitchYIN  # noqa: E402
+from audioflux_torch.mir import (  # noqa: E402
+    HPSS, HPSSNMF, Harmonic, HarmonicRatio, PitchCEP, PitchFFP, PitchHPS,
+    PitchLHS, PitchNCF, PitchPEF, PitchShift, PitchSTFT, PitchYIN,
+    TimeStretch)
+from audioflux_torch.mir.pitch import autocorr_operands  # noqa: E402
 from audioflux_torch.mir.onset import (NoveltyParam, Onset,  # noqa: E402
                                        peak_pick)
 from audioflux_torch.filterbank.auditory import (  # noqa: E402
@@ -162,6 +196,7 @@ from audioflux_torch.ops.cuda_scatter import (  # noqa: E402
     columnar_scatter, columnar_scatter_ref)
 from audioflux_torch.ops.cuda_unwrap import (  # noqa: E402
     bin_map, synsq_bins, synsq_bins_ref, unwrap_diff, unwrap_diff_ref)
+from audioflux_torch.ops.fft import rfft  # noqa: E402
 from audioflux_torch.ops.fused_mel import (FusedMelPlan,  # noqa: E402
                                            _launch, fused_mel_mfcc,
                                            fused_mel_mfcc_ref)
@@ -181,6 +216,7 @@ from audioflux_torch.transforms.st import ST  # noqa: E402
 from audioflux_torch.transforms.stft import STFT  # noqa: E402
 from audioflux_torch.transforms.synsq import Synsq  # noqa: E402
 from audioflux_torch.transforms.wsst import WSST  # noqa: E402
+from audioflux_torch.track import TuneTrack  # noqa: E402
 from audioflux_torch.types import (  # noqa: E402
     ResampleQualityType, SpectralDataType, SpectralFilterBankScaleType,
     WaveletContinueType, WindowType)
@@ -222,6 +258,25 @@ ONSET_SHARE = 0.02
 FE_NAMES = ("bft", "nsgt", "cwt", "pwt", "cqt", "st", "fst", "dwt", "wpt")
 FE_CLIPS, FE_R2E, FE_DECONV, CC_NUM = 64, 12, 8, 13
 PV_SLIDE, PV_RATE, MEM_LIMIT_GB = 512, 1.25, 60.0
+# slice 9: the batched pitch engines, HarmonicRatio, TimeStretch and
+# PitchShift on config 5's 8 x 30 s, the single-signal engines on its first
+# clip, NMF (k 16) on HPSSNMF's magnitude, HMM(16, 64) and viterbi over the
+# 7,472 frames' count of steps.  Gates against the CPU port: at most 2% of
+# the frames (the onset gate's form) may differ by more than one step of
+# the engine's own grid (a bin, a lag), HarmonicRatio by more than 1e-4;
+# TimeStretch/PitchShift at 1e-3 of the peak (the phase vocoder sums the
+# FFT's rounding into each bin's phase over 934 frames); HPSSNMF's h + p
+# is the input inside its edges at 1e-3 of the peak, and its harmonic
+# energy share within 0.02 of the CPU's; NMF's reconstruction within 1.05x
+# the CPU's (tests/test_classic.py's bound).  The unscaled HMM recursions
+# (the C's and the JAX package's) underflow float32 after about 20 steps
+# at 64 symbols, so HMM trains on 16, for 5 iterations: past about 10, a
+# state that 16 steps stop visiting gets 0/0 in its transition row (both
+# packages).
+S9_SHARE, S9_HR_TOL, S9_TS_TOL, S9_REC_TOL, S9_SPLIT_TOL = (
+    0.02, 1e-4, 1e-3, 1e-3, 0.02)
+S9_RATES, S9_SHIFTS = (0.5, 1.25), (2, -5, 7)
+S9_NMF_K, S9_HMM_S, S9_HMM_N, S9_HMM_T, S9_HMM_ITERS = 16, 16, 64, 16, 5
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, fp32 outside tensor cores
 
@@ -2178,6 +2233,8 @@ def merge_slice7(rows, launches, shapes):
              "median_filter": launches.get("median_filter", 0)}
     for row in rows:
         row["launches"] += extra.get(row["name"], 0)
+        for e in row.get("entries", ()):
+            e["launches"] += launches.get(e["entry"], 0)
         if row["name"] in shapes:
             row["shapes"] = shapes[row["name"]]
     return rows
@@ -2208,15 +2265,47 @@ def deep_rows(plan, x):
             * plan._window_t).contiguous()
 
 
-def read_slice8_counts():
+def read_path_counts():
+    """Every counter a later slice's paths read: the phase-3 counters, the
+    wavelet kernel's and the FFT's four-step route."""
     counts = read_counts()
     counts["cwt_ifft_bank"] = cwt_ifft_bank.launches
+    counts["fft_pow2 four-step route"] = fft_fwd.four_step_launches
+    counts["fft_inv four-step route"] = fft_inv.four_step_launches
     return counts
 
 
-def zero_slice8_counts():
+def zero_path_counts():
     zero_counts()
     cwt_ifft_bank.launches = 0
+    fft_fwd.four_step_launches = fft_inv.four_step_launches = 0
+
+
+def count_call(label, fn, required, reckoned_gb, launches, forbidden=()):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after; each kernel in ``required`` must have launched, none in
+    ``forbidden``.  The peak device memory of the call (what the phase
+    holds included) is printed beside the bytes reckoned beforehand and
+    held under MEM_LIMIT_GB; the counts are added to ``launches``.
+    Returns (fn's result, the counts)."""
+    zero_path_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = read_path_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ran = {k: v for k, v in counts.items() if v}
+    print(f"  {label}: peak device memory {peak:.2f} GB (reckoned "
+          f"{reckoned_gb:.2f} GB); launches {ran}")
+    require_launched(label, {k: counts[k] for k in required})
+    for k in forbidden:
+        if counts[k]:
+            raise AssertionError(f"{label} launched {k}: {counts}")
+    if peak > MEM_LIMIT_GB:
+        raise AssertionError(f"{label}: {peak:.2f} GB > {MEM_LIMIT_GB}")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    return out, counts
 
 
 def gate_err(got, ref):
@@ -2269,26 +2358,7 @@ def phase3_slice8_paths(gen):
     launches = {}
 
     def counted(label, fn, required, reckoned_gb):
-        """``fn()`` with the launch counts set to 0 just before and read
-        just after; each kernel in ``required`` must have launched.  The
-        peak device memory of the call (what the phase holds included) is
-        printed beside the bytes reckoned beforehand and held under
-        MEM_LIMIT_GB."""
-        zero_slice8_counts()
-        torch.cuda.reset_peak_memory_stats()
-        out = fn()
-        torch.cuda.synchronize()
-        counts = read_slice8_counts()
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        ran = {k: v for k, v in counts.items() if v}
-        print(f"  {label}: peak device memory {peak:.2f} GB (reckoned "
-              f"{reckoned_gb:.2f} GB); launches {ran}")
-        require_launched(label, {k: counts[k] for k in required})
-        if peak > MEM_LIMIT_GB:
-            raise AssertionError(f"{label}: {peak:.2f} GB > {MEM_LIMIT_GB}")
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
-        return out, counts
+        return count_call(label, fn, required, reckoned_gb, launches)
 
     def finite(label, t, shape=None):
         if (shape is not None and tuple(t.shape) != shape) or not bool(
@@ -2612,6 +2682,476 @@ def merge_slice8(rows, launches, shapes):
     return rows
 
 
+# --- slice 9: the pitch engines, HarmonicRatio, TuneTrack,
+# TimeStretch/PitchShift and the classic family ----------------------------
+
+def s9_plans(device):
+    """The slice's plans at their reference defaults (radix2_exp 12, the
+    engines' own slides: 1024 for every one here), on ``device``."""
+    d = {"device": device}
+    return dict(
+        ncf=PitchNCF(samplate=SR, **d), cep=PitchCEP(samplate=SR, **d),
+        hps=PitchHPS(samplate=SR, **d), lhs=PitchLHS(samplate=SR, **d),
+        pef=PitchPEF(samplate=SR, **d), hr=HarmonicRatio(samplate=SR, **d),
+        stft=PitchSTFT(samplate=SR, **d), ffp=PitchFFP(samplate=SR, **d),
+        harm=Harmonic(samplate=SR, **d), tune=TuneTrack(samplate=SR, **d),
+        hpssnmf=HPSSNMF(k=S9_NMF_K, **d), ts=TimeStretch(**d),
+        ps=PitchShift(**d))
+
+
+def s9_rows(p, x):
+    """The rows the batched engines hand the FFT kernels, rebuilt as they
+    build them: NCF's and HarmonicRatio's autocorrelation operands at 8192,
+    HPS's real rows at 32768, PEF's frames at 8192, its cross-correlation
+    input (real) and product spectrum (complex) at 32768."""
+    pef = p["pef"]
+    X = pef.xcorr_fft_length
+    buf = pef._xcorr_rows(x)
+    pr, pi = pef._xcorr_spectrum(buf)
+    hr = p["hr"]
+    hr_frames = x.unfold(-1, hr.window_length, hr.slide_length) * hr._window_t
+    return dict(
+        ncf=autocorr_operands(p["ncf"]._frames(x), 2 * p["ncf"].fft_length),
+        hr=autocorr_operands(hr_frames, hr.fft_length),
+        hps=F.pad(p["hps"]._frames(x), (0, p["hps"].interp_fft_length
+                                        - p["hps"].fft_length)).contiguous(),
+        pef8=F.pad(pef._frames(x), (0, pef.fft_length)).contiguous(),
+        pef_buf=buf, pef_prod=(pr, pi), X=X)
+
+
+def phase2_slice9_kernels(gen):
+    phase("phase 2f: the FFT kernels at slice 9's shapes against their "
+          "plain versions, over the whole batch (config 5's 8 x 30 s)")
+    p = s9_plans("cuda")
+    x = mir_signal(MIR_SMALL, MIR_SECONDS * SR, gen)
+    r = s9_rows(p, x)
+    rows = r["hps"].numel() // r["X"]
+    errs = {}
+    what = f"{rows} rows"
+    errs["acf_ncf"] = whole_batch(
+        f"fft_autocorr 8192, NCF's {what}", fft_autocorr, fft_autocorr_ref,
+        r["ncf"], 1, FFT_TOL)
+    errs["acf_hr"] = whole_batch(
+        f"fft_autocorr 8192, HarmonicRatio's {what}", fft_autocorr,
+        fft_autocorr_ref, r["hr"], 1, FFT_TOL)
+    errs["hps"] = whole_batch(
+        f"fft_pow2 real 32768 (four-step), HPS's {what}", fft_fwd,
+        fft_fwd_ref, (r["hps"],), 1, FFT_TOL)
+    errs["pef_buf"] = whole_batch(
+        f"fft_pow2 real 32768 (four-step), PEF's cross-correlation {what}",
+        fft_fwd, fft_fwd_ref, (r["pef_buf"],), 1, FFT_TOL)
+    errs["pef_fwd_c"] = whole_batch(
+        f"fft_pow2 complex 32768 (four-step), PEF's product {what}", fft_fwd,
+        fft_fwd_ref, r["pef_prod"], 1, FFT_TOL)
+    errs["pef_inv"] = whole_batch(
+        f"fft_inv 32768 (four-step), PEF's product {what}", fft_inv,
+        fft_inv_ref, r["pef_prod"], 1, FFT_TOL)
+    errs["pef8"] = whole_batch(
+        f"fft_pow2 real 8192, PEF's frames, {what}", fft_fwd, fft_fwd_ref,
+        (r["pef8"],), 1, FFT_TOL)
+    return errs
+
+
+def share_gate(label, got, ref, tol, share=S9_SHARE):
+    """At most ``share`` of the frames may differ by more than ``tol``;
+    prints the count and the largest difference."""
+    got = torch.as_tensor(np.asarray(got.cpu() if isinstance(
+        got, torch.Tensor) else got)).double().reshape(-1)
+    ref = torch.as_tensor(np.asarray(ref.cpu() if isinstance(
+        ref, torch.Tensor) else ref)).double().reshape(-1)
+    diff = (got - ref).abs()
+    n_off = int((diff > tol).sum())
+    print(f"  gate {label}: {n_off} of {diff.numel()} frames differ by more "
+          f"than {tol:g} (limit {share:.0%}); largest difference "
+          f"{float(diff.max()):.4g}", flush=True)
+    if n_off > share * diff.numel():
+        raise AssertionError(f"{label}: {n_off} of {diff.numel()} frames")
+
+
+def pitch_index(name, plan, fre):
+    """The bin or lag index behind each frame's pitch (the argmax the
+    engine took), so that "one bin" is one step of its own grid."""
+    fre = torch.as_tensor(fre).double().cpu()
+    if name == "ncf":
+        return torch.round(SR / fre)
+    if name == "cep":
+        return torch.round(SR / fre) - 1
+    if name in ("hps", "lhs"):
+        return torch.round(fre * plan.interp_fft_length / SR) - 1
+    grid = torch.from_numpy(plan._log_fre.astype(np.float32)).double()
+    return torch.searchsorted(grid, fre).double()
+
+
+def phase3_slice9_paths(gen):
+    phase("phase 3f: slice 9 at full width (the pitch engines, "
+          "HarmonicRatio, TuneTrack, TimeStretch/PitchShift, the classic "
+          "family)")
+    launches = {}
+    p, pc = s9_plans("cuda"), s9_plans("cpu")
+    x = mir_signal(MIR_SMALL, MIR_SECONDS * SR, gen)
+    ends = [0, MIR_SMALL - 1]
+    xc = x[ends].cpu()
+    rows = MIR_SMALL * p["ncf"].cal_time_length(x.shape[-1])
+    row_gb = rows * 4 / 1e9            # one fp32 value a frame
+    four = "fft_pow2 four-step route"
+    # --- the batched engines and HarmonicRatio on 8 x 30 s -------------
+    # reckoned: NCF the two operands, the autocorrelation and its scaled
+    # copy (4 x 8192 a row); HPS/LHS the padded rows, the four-step
+    # buffer and the spectrum (5 x 32768), the kept bins (3 x 10001) and
+    # the gather; PEF the spectrum at 8192 (2 x 8192), the cross-
+    # correlation rows, its spectrum, the buffer, the product and the
+    # inverse (8 x 32768); CEP torch.fft's complex tiles (6 x 8192)
+    batched = (("ncf", ("fft_autocorr",), (), 4 * 8192),
+               ("cep", (), ("fft_pow2", "fft_inv", "fft_autocorr"), 6 * 8192),
+               ("hps", ("fft_pow2", four), (), 5 * 32768 + 4 * 10001),
+               ("lhs", ("fft_pow2", four), (), 5 * 32768 + 4 * 10001),
+               ("pef", ("fft_pow2", four, "fft_inv four-step route"), (),
+                8 * 32768 + 2 * 8192))
+    out = {}
+    for name, req, forbid, per_row in batched:
+        plan = p[name]
+        fre, _ = count_call(f"{type(plan).__name__}.pitch, {MIR_SMALL} x "
+                       f"{MIR_SECONDS} s", lambda: plan.pitch(x), req,
+                       per_row * row_gb, launches, forbid)
+        if tuple(fre.shape) != (MIR_SMALL, rows // MIR_SMALL) or not bool(
+                torch.isfinite(fre).all()):
+            raise AssertionError(f"3f {name}: shape {tuple(fre.shape)} or "
+                                 "non-finite values")
+        ref = pc[name].pitch(xc)
+        share_gate(f"3f {type(plan).__name__} bin or lag (first and last "
+                   "clip) vs CPU, more than one step",
+                   pitch_index(name, plan, fre[ends].cpu()),
+                   pitch_index(name, plan, ref), 1.0)
+        out[name] = fre
+    hr, _ = count_call(f"HarmonicRatio.harmonic_ratio, {MIR_SMALL} x "
+                  f"{MIR_SECONDS} s", lambda: p["hr"].harmonic_ratio(x),
+                  ("fft_autocorr",), 4 * 8192 * row_gb, launches)
+    share_gate("3f HarmonicRatio (first and last clip) vs CPU",
+               hr[ends], pc["hr"].harmonic_ratio(xc), S9_HR_TOL)
+    # --- TimeStretch and PitchShift on 8 x 30 s -------------------------
+    spec_gb = rows * 2049 * 8 / 1e9
+    for label, fn, fn_c in (
+            [(f"TimeStretch rate {r}", lambda r=r: p["ts"].time_stretch(x, r),
+              lambda r=r: pc["ts"].time_stretch(xc, r)) for r in S9_RATES]
+            + [(f"PitchShift {s:+d} semitones",
+                lambda s=s: p["ps"].pitch_shift(x, s, SR),
+                lambda s=s: pc["ps"].pitch_shift(xc, s, SR))
+               for s in S9_SHIFTS]):
+        y, _ = count_call(f"{label}, {MIR_SMALL} x {MIR_SECONDS} s", fn,
+                     ("fft_pow2", "fft_inv"), 12 * spec_gb, launches)
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"3f {label}: non-finite values")
+        check(f"gate 3f {label} (first and last clip) vs CPU",
+              gate_err(y[ends], fn_c()), S9_TS_TOL)
+        del y
+    # --- the single-signal engines on one 30 s clip ---------------------
+    x1, x1c = x[0], xc[0]
+    n1 = x1.numel()
+    bin_hz = SR / p["stft"].fft_length
+    one = f"one {MIR_SECONDS} s clip"
+    (fre, db), _ = count_call(f"PitchSTFT.pitch, {one}",
+                       lambda: p["stft"].pitch(x1), ("fft_pow2",), 0.2,
+                       launches)
+    fre_c, db_c = pc["stft"].pitch(x1c)
+    share_gate("3f PitchSTFT fre vs CPU, more than one bin", fre, fre_c,
+               bin_hz)
+    (fre, db), _ = count_call(f"PitchFFP.pitch, {one}",
+                       lambda: p["ffp"].pitch(x1), ("fft_pow2",), 0.2,
+                       launches)
+    fre_c, db_c = pc["ffp"].pitch(x1c)
+    share_gate("3f PitchFFP fre vs CPU, more than one bin", fre, fre_c,
+               bin_hz)
+    cnt, _ = count_call(f"Harmonic.exec -> count_range(80, 4000), {one}",
+                   lambda: p["harm"].exec(x1).count_range(80, 4000),
+                   ("fft_pow2",), 0.2, launches)
+    share_gate("3f Harmonic counts vs CPU", cnt,
+               pc["harm"].exec(x1c).count_range(80, 4000), 0.0)
+    p["tune"].clear()
+    tf, _ = count_call(f"TuneTrack.tune, {one}",
+                  lambda: p["tune"].tune(x1),
+                  ("fft_pow2", "fft_autocorr", "fft_autocorr_yin"), 0.5,
+                  launches)
+    pc["tune"].clear()
+    tf_c = pc["tune"].tune(x1c)
+    share_gate("3f TuneTrack fre vs CPU, more than one bin", tf, tf_c,
+               bin_hz)
+    print(f"  TuneTrack: {int((tf > 0).sum())} of {tf.size} frames tracked "
+          f"(CPU {int((tf_c > 0).sum())})")
+    # HPSSNMF: the masks sum to 1, so h + p is the input inside its
+    # edges; NMF on the card reaches a different rounding of the
+    # factors, so the split is held by its energy share against the CPU
+    # and the factors' reconstruction below
+    (h, pp), _ = count_call(f"HPSSNMF.hpss, {one}",
+                     lambda: p["hpssnmf"].hpss(x1), ("fft_pow2", "fft_inv"),
+                     24 * 2049 * (rows // MIR_SMALL) * 4 / 1e9, launches)
+    h_c, p_c = pc["hpssnmf"].hpss(x1c)
+    N = p["hpssnmf"].fft_length
+    peak = float(x1.abs().max())
+    check("gate 3f HPSSNMF h + p vs the input inside the edges",
+          float((h + pp - x1[:h.numel()])[N:-N].abs().max()) / peak,
+          S9_REC_TOL)
+    share = float((h * h).sum() / ((h * h).sum() + (pp * pp).sum()))
+    share_c = float((h_c * h_c).sum() / ((h_c * h_c).sum()
+                                         + (p_c * p_c).sum()))
+    print(f"  HPSSNMF harmonic energy share {share:.5f} (CPU {share_c:.5f});"
+          f" h, p vs CPU {gate_err(h, h_c):.3e}, {gate_err(pp, p_c):.3e} "
+          "of the peak (printed)")
+    if not abs(share - share_c) <= S9_SPLIT_TOL:
+        raise AssertionError(f"HPSSNMF energy share {share} vs {share_c}")
+    # --- NMF on HPSSNMF's magnitude, HMM, viterbi -----------------------
+    nmf_plan = p["hpssnmf"]
+    V = stft_mag(nmf_plan, x1)
+    (W, H), _ = count_call(f"nmf(k={S9_NMF_K}) on HPSSNMF's magnitude "
+                    f"{tuple(V.shape)}",
+                    lambda: nmf(V, S9_NMF_K, max_iter=nmf_plan.max_iter,
+                                device="cuda"), (), 12 * V.numel() * 4 / 1e9,
+                    launches)
+    Wc, Hc = nmf(V.cpu(), S9_NMF_K, max_iter=nmf_plan.max_iter, device="cpu")
+    rec = float((V - W @ H).abs().mean())
+    rec_c = float((V.cpu() - Wc @ Hc).abs().mean())
+    print(f"  NMF reconstruction mean |V - WH|: card {rec:.6e}, CPU "
+          f"{rec_c:.6e} (limit 1.05 x the CPU's); factors vs CPU: W "
+          f"{gate_err(W, Wc):.3e}, H {gate_err(H, Hc):.3e} of the peak")
+    if not rec <= 1.05 * rec_c:
+        raise AssertionError("NMF reconstruction on the card > 1.05 x CPU")
+    hmm = HMM(S9_HMM_S, S9_HMM_N, seed=0, device="cuda")
+    hmm_c = HMM(S9_HMM_S, S9_HMM_N, seed=0, device="cpu")
+    o_train, _ = hmm.generate(S9_HMM_T, seed=1)
+    count_call(f"HMM({S9_HMM_S}, {S9_HMM_N}).train, {S9_HMM_T} steps",
+             lambda: hmm.train(o_train, max_iter=S9_HMM_ITERS), (), 0.01,
+             launches)
+    hmm_c.train(o_train, max_iter=S9_HMM_ITERS)
+    err = max(float(np.abs(a - b).max()) for a, b in (
+        (hmm.pi, hmm_c.pi), (hmm.A, hmm_c.A), (hmm.B, hmm_c.B)))
+    print(f"  HMM trained parameters vs CPU: max |diff| {err:.3e} "
+          "(limit 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError("HMM parameters differ from the CPU's")
+    s_d, p_d = hmm.decode(o_train)
+    s_c, p_dc = hmm_c.decode(o_train)
+    if not np.array_equal(s_d, s_c) or not abs(p_d - p_dc) <= 1e-4 * abs(
+            p_dc):
+        raise AssertionError("HMM.decode differs from the CPU's")
+    print(f"  HMM.decode ({S9_HMM_T} steps): states equal, probability "
+          f"{p_d:.6e} (CPU {p_dc:.6e})")
+    o_long, _ = hmm.generate(rows, seed=2)
+    (s_v, p_v, m_v), _ = count_call(
+        f"viterbi(is_log=True), T = {rows}, {S9_HMM_S} states",
+        lambda: viterbi(hmm.pi, hmm.A, hmm.B, o_long, is_log=True,
+                        device="cuda"), (), 0.01, launches)
+    s_vc, p_vc, m_vc = viterbi(hmm.pi, hmm.A, hmm.B, o_long, is_log=True,
+                               device="cpu")
+    share_gate("3f viterbi states vs CPU", s_v, s_vc, 0.0)
+    check("gate 3f viterbi log-probabilities vs CPU (relative)",
+          float(((m_v.cpu() - m_vc).abs() / m_vc.abs()).max()), 1e-5)
+    print(f"  launches on the slice-9 paths: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return dict(p=p, x=x, x1=x1, V=V, hmm=hmm, o_train=o_train,
+                o_long=o_long, launches=launches)
+
+
+def stft_mag(plan, x1):
+    """HPSSNMF's magnitude (m, T) of one clip, as its call builds it."""
+    frames = x1.unfold(-1, plan.fft_length, plan.slide_length)
+    return torch.fft.rfft(frames * plan._window_t, dim=-1).abs().T.contiguous()
+
+
+def phase4_slice9_timing(d, errs):
+    phase("phase 4f: slice 9 timing (CUDA events, median)")
+    p, x, x1 = d["p"], d["x"], d["x1"]
+    hours = x.numel() / SR / 3600.0
+    shapes = {}
+    call_ms = {}
+    for name, fn in (("PitchNCF", lambda: p["ncf"].pitch(x)),
+                     ("PitchCEP", lambda: p["cep"].pitch(x)),
+                     ("PitchHPS", lambda: p["hps"].pitch(x)),
+                     ("PitchLHS", lambda: p["lhs"].pitch(x)),
+                     ("PitchPEF", lambda: p["pef"].pitch(x)),
+                     ("HarmonicRatio", lambda: p["hr"].harmonic_ratio(x)),
+                     *[(f"TimeStretch rate {r}",
+                        lambda r=r: p["ts"].time_stretch(x, r))
+                       for r in S9_RATES],
+                     *[(f"PitchShift {s:+d}",
+                        lambda s=s: p["ps"].pitch_shift(x, s, SR))
+                       for s in S9_SHIFTS]):
+        ms = cuda_ms(fn, reps=5, warmup=1)
+        call_ms[name] = ms
+        print(f"  {name}, {MIR_SMALL} x {MIR_SECONDS} s: {ms:.3f} ms, "
+              f"{hours / (ms / 1e3):.3f} audio-hours/s")
+
+    def host_ms(fn, reps=3):
+        """Median wall ms of ``fn()`` (a call that ends on the host)."""
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[len(times) // 2]
+    h1 = x1.numel() / SR / 3600.0
+    for name, fn in (("PitchSTFT.pitch", lambda: p["stft"].pitch(x1)),
+                     ("PitchFFP.pitch", lambda: p["ffp"].pitch(x1)),
+                     ("Harmonic.exec", lambda: p["harm"].exec(x1)),
+                     ("TuneTrack.tune", lambda: (p["tune"].clear(),
+                                                 p["tune"].tune(x1))),
+                     ("HPSSNMF.hpss", lambda: p["hpssnmf"].hpss(x1))):
+        ms = host_ms(fn)
+        call_ms[name] = ms
+        print(f"  {name}, one {MIR_SECONDS} s clip: {ms:.3f} ms (host clock), "
+              f"{h1 / (ms / 1e3):.4f} audio-hours/s")
+    V = d["V"]
+    nmf_key = f"nmf(k={S9_NMF_K}) on {tuple(V.shape)}"
+    for name, fn in (
+            (nmf_key,
+             lambda: nmf(V, S9_NMF_K, max_iter=p["hpssnmf"].max_iter,
+                         device="cuda")),
+            (f"HMM.train, {S9_HMM_T} steps, {S9_HMM_ITERS} iterations",
+             lambda: HMM(S9_HMM_S, S9_HMM_N, seed=0, device="cuda").train(
+                 d["o_train"], max_iter=S9_HMM_ITERS)),
+            (f"viterbi(is_log=True), T = {len(d['o_long'])}",
+             lambda: viterbi(d["hmm"].pi, d["hmm"].A, d["hmm"].B,
+                             d["o_long"], is_log=True, device="cuda"))):
+        ms = host_ms(fn)
+        call_ms[name] = ms
+        print(f"  {name}: {ms:.3f} ms (host clock)")
+    steps = len(d["o_long"])
+    print(f"  viterbi: {call_ms[name] / steps * 1e3:.2f} us a step "
+          "(one step a launch chain: the recursion's launch cost)")
+    # NMF's iterations (its update counted through the module) and the
+    # cost of its host check (two norms stacked and fetched) an iteration
+    nmod = importlib.import_module("audioflux_torch.classic.nmf")
+    update, its = nmod._update, [0]
+
+    def counting(*args):
+        its[0] += 1
+        return update(*args)
+    nmod._update = counting
+    try:
+        nmf(V, S9_NMF_K, max_iter=p["hpssnmf"].max_iter, device="cuda")
+    finally:
+        nmod._update = update
+    a = torch.ones((), device="cuda")
+    check_us = host_ms(lambda: [torch.stack([torch.linalg.norm(a),
+                                             torch.linalg.norm(a)]).tolist()
+                                for _ in range(100)]) * 10.0
+    print(f"  nmf: {its[0]} iterations, {call_ms[nmf_key] / its[0]:.3f} ms "
+          f"an iteration; the host check alone {check_us:.1f} us an "
+          "iteration (host clock, 100 in a row)")
+
+    r = s9_rows(p, x)
+    X = r["X"]
+    nrows = r["hps"].numel() // X
+
+    def shape_row(name, fn, ref, lib, tensors, n_bytes, n_ops, what, err):
+        """One entry of a kernel's ``shapes`` at this slice's rows."""
+        k_ms = cuda_ms(lambda: fn(*tensors), reps=10)
+        p_ms = cuda_ms(chunked(ref, tensors, 1), reps=3, warmup=1)
+        l_ms = cuda_ms(chunked(lib, tensors, 1), reps=3, warmup=1)
+        row = kernel_row(name, "fft_pow2", "audioflux_tpu/ops/pallas_fft.py:"
+                         + {"fft_pow2": "346", "fft_inv": "360",
+                            "fft_autocorr": "267"}[name], 0, err, k_ms, p_ms,
+                         l_ms, n_bytes, n_ops, what)
+        shapes.setdefault(name, []).append(dict(shape=what, **{
+            k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "max_abs_err")}))
+        return k_ms
+
+    def acf_lib(a, b):
+        s = torch.fft.fft(torch.complex(a, b), dim=-1)
+        return torch.fft.ifft(s * s, dim=-1)
+
+    def fwd_lib(a, b=None):
+        return torch.fft.fft(a if b is None else torch.complex(a, b), dim=-1)
+
+    def inv_lib(a, b):
+        return torch.fft.ifft(torch.complex(a, b), dim=-1)
+    n8 = 8192
+    acf_ops = nrows * (10.0 * n8 * math.log2(n8) + 6.0 * n8)
+    k_ncf = shape_row("fft_autocorr", fft_autocorr, fft_autocorr_ref, acf_lib,
+                      r["ncf"], 12 * r["ncf"][0].numel(), acf_ops,
+                      f"{nrows}x{n8} rows (xr, xi), NCF's", errs["acf_ncf"])
+    shape_row("fft_autocorr", fft_autocorr, fft_autocorr_ref, acf_lib,
+              r["hr"], 12 * r["hr"][0].numel(), acf_ops,
+              f"{nrows}x{n8} rows (xr, xi), HarmonicRatio's", errs["acf_hr"])
+    fops = nrows * 5.0 * X * math.log2(X)
+    shape_row("fft_pow2", fft_fwd, fft_fwd_ref, fwd_lib, (r["hps"],),
+              12 * r["hps"].numel(), fops,
+              f"forward {nrows}x{X} real, HPS's rows (four-step)", errs["hps"])
+    k_buf = shape_row("fft_pow2", fft_fwd, fft_fwd_ref, fwd_lib,
+                      (r["pef_buf"],), 12 * r["pef_buf"].numel(), fops,
+                      f"forward {nrows}x{X} real, PEF's cross-correlation "
+                      "rows (four-step)", errs["pef_buf"])
+    shape_row("fft_pow2", fft_fwd, fft_fwd_ref, fwd_lib, r["pef_prod"],
+              16 * r["pef_prod"][0].numel(), fops,
+              f"forward {nrows}x{X} complex, PEF's product rows (four-step)",
+              errs["pef_fwd_c"])
+    k_inv = shape_row("fft_inv", fft_inv, fft_inv_ref, inv_lib,
+                      r["pef_prod"], 16 * r["pef_prod"][0].numel(), fops,
+                      f"{nrows}x{X} complex, PEF's product rows (four-step)",
+                      errs["pef_inv"])
+    k_8 = shape_row("fft_pow2", fft_fwd, fft_fwd_ref, fwd_lib, (r["pef8"],),
+                    12 * r["pef8"].numel(), nrows * 5.0 * n8 * math.log2(n8),
+                    f"forward {nrows}x{n8} real, PEF's frames",
+                    errs["pef8"])
+    del r
+    # --- the splits: kernels against PyTorch (and host) time ------------
+    print(f"  split PitchNCF: fft_autocorr {k_ncf:.3f} ms of "
+          f"{call_ms['PitchNCF']:.3f} (PyTorch {call_ms['PitchNCF'] - k_ncf:.3f})")
+    k_pef = k_8 + k_buf + k_inv
+    print(f"  split PitchPEF: kernels {k_pef:.3f} ms (forward 8192 {k_8:.3f}, "
+          f"forward 32768 {k_buf:.3f}, inverse 32768 {k_inv:.3f}) of "
+          f"{call_ms['PitchPEF']:.3f} (PyTorch "
+          f"{call_ms['PitchPEF'] - k_pef:.3f})")
+    ffp = p["ffp"]._chain
+    fr1 = (x1.unfold(-1, ffp.fft_length, ffp.slide_length)
+           * ffp._window_t).contiguous()
+    k_1 = cuda_ms(lambda: fft_fwd(fr1), reps=10)
+    dev_ms = host_ms(lambda: (lambda s: (s.real ** 2 + s.imag ** 2).cpu())(
+        rfft(fr1, dim=-1)))
+    print(f"  split PitchFFP: fft_pow2 {k_1:.3f} ms ({fr1.shape[0]} rows of "
+          f"{ffp.fft_length}), device stage with the fetch {dev_ms:.3f} ms, "
+          f"host chains {call_ms['PitchFFP.pitch'] - dev_ms:.3f} ms of "
+          f"{call_ms['PitchFFP.pitch']:.3f}")
+    hn = p["hpssnmf"]
+    Vn = d["V"]
+    nmf_ms = host_ms(lambda: nmf(Vn, hn.k, max_iter=hn.max_iter, tp=hn.tp,
+                                 thresh=hn.thresh, device="cuda"))
+    Z = torch.fft.fft(fr1, dim=-1)
+    zr, zi = Z.real.contiguous(), Z.imag.contiguous()
+    k_inv1 = cuda_ms(lambda: fft_inv(zr, zi), reps=10)
+    # the NMF alone runs on the torch.fft magnitude, whose rounding may
+    # move its stop by an iteration: its time is shown beside the call's,
+    # not subtracted from it
+    print(f"  split HPSSNMF.hpss ({call_ms['HPSSNMF.hpss']:.3f} ms): kernels "
+          f"{k_1 + k_inv1:.3f} ms (forward {k_1:.3f}, inverse {k_inv1:.3f}); "
+          f"the NMF loop alone {nmf_ms:.3f} ms (one host check an "
+          "iteration)")
+    return shapes
+
+
+def merge_slice9(rows, launches, shapes):
+    """The kernels line's rows gain the slice-9 paths' launches and the
+    FFT rows their readings at slice 9's shapes (under ``shapes``); the
+    autocorrelation's entries gain their own launches, and its row counts
+    both entries'."""
+    for row in rows:
+        name = row["name"]
+        if name in ("fft_pow2", "fft_inv"):
+            row["launches"] += launches.get(name, 0)
+        if name == "fft_autocorr":
+            for e in row["entries"]:
+                e["launches"] += launches.get(e["entry"], 0)
+            row["launches"] = sum(e["launches"] for e in row["entries"])
+            row["measures"] += ("; launches: both entries' main-path "
+                                "launches (the general entry's since "
+                                "slice 9)")
+        if name in shapes:
+            row.setdefault("shapes", []).extend(shapes[name])
+    return rows
+
+
 def main():
     upto = int(sys.argv[sys.argv.index("--upto") + 1]) if "--upto" in sys.argv else 4
     smi = phase0_identity()
@@ -2624,6 +3164,8 @@ def main():
     phase2_wavelet_kernels(gen, errs)
     phase2_slice7_kernels(gen, errs)
     phase2_slice8_kernels(gen)
+    errs9 = phase2_slice9_kernels(gen)
+    torch.cuda.empty_cache()
     if upto < 3:
         return
     plan, x, xs, mel_launches = phase3_mel_path(gen)
@@ -2635,6 +3177,8 @@ def main():
         phase3_slice7_paths(gen, errs)
         torch.cuda.empty_cache()
         phase3_slice8_paths(gen)
+        torch.cuda.empty_cache()
+        phase3_slice9_paths(gen)
         return
     rows = phase4_timing(plan, x, xs, mel_launches, errs)
     del plan, x, xs
@@ -2651,6 +3195,11 @@ def main():
     slice8 = phase3_slice8_paths(gen)
     rows = merge_slice8(rows, slice8["launches"], phase4_slice8_timing(slice8))
     del slice8
+    torch.cuda.empty_cache()
+    slice9 = phase3_slice9_paths(gen)
+    rows = merge_slice9(rows, slice9["launches"],
+                        phase4_slice9_timing(slice9, errs9))
+    del slice9
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
