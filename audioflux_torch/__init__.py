@@ -17,7 +17,12 @@ for the fused pipeline (``ops.fused_mel``), the pow2 FFT forward, inverse
 and fused autocorrelation (``ops.cuda_fft``), the sliding median
 (``ops.cuda_median``), the wavelet filterbank convolution
 (``ops.cuda_cwt``), the phase unwrap + difference (``ops.cuda_unwrap``)
-and the reassignment scatter (``ops.cuda_scatter``).
+and the reassignment scatter (``ops.cuda_scatter``); and the rest of the
+surface: WAV I/O (``io.wave``, the native loader ``io.native``), the
+parallel family (``parallel``: a device mesh, halo-sharded mel and STFT,
+band-sharded wavelet and full-signal transforms, a pipeline, a batch
+runner, multi-process start-up), ``observe``, ``utils``, ``fftlib`` and
+``display``.
 
 Plans and one-shots take ``device=None``, which means ``cuda``: with no
 CUDA device they raise; pass ``device="cpu"`` to run the plain PyTorch
@@ -40,6 +45,7 @@ from audioflux_torch.types import (
     WaveletDiscreteType,
     ReassignType,
     NoveltyType,
+    PitchType,
     ResampleQualityType,
     SpectralNoveltyMethodType,
     SpectralNoveltyDataType,
@@ -89,6 +95,12 @@ from audioflux_torch.core import (
     chroma_cqt,
 )
 from audioflux_torch.convert import load_reference_constants
+from audioflux_torch.io.wave import (
+    read, write, WaveReader, WaveWriter, chirp, convert_mono,
+)
 from audioflux_torch import utils
+from audioflux_torch import parallel
+from audioflux_torch import display
+from audioflux_torch import observe
 
 __version__ = "0.1.0"

@@ -94,10 +94,16 @@ class FST:
             raise ValueError(f"data length must be {L}")
         key = (min_index, max_index)
         if key not in self._gather:
-            rows = np.arange(L // 2 - min_index, L // 2 - max_index - 1, -1)
             self._gather[key] = torch.from_numpy(
-                self._index[rows]).to(self.device)
+                self._gather_rows(min_index, max_index)).to(self.device)
         return self._fst_chain(x)[..., self._gather[key]]
+
+    def _gather_rows(self, min_index: int, max_index: int) -> np.ndarray:
+        """(nbins, L) expansion index of the band range into the chain's
+        value-indexed output."""
+        L = self.fft_length
+        rows = np.arange(L // 2 - min_index, L // 2 - max_index - 1, -1)
+        return self._index[rows]
 
     def _fst_chain(self, x):
         """The FST segment chain: ifftshift -> FFT -> fftshift -> dyadic

@@ -61,6 +61,15 @@ def _lin32(start, stop, n):
             + np.arange(n, dtype=np.float32) * step).astype(np.float32)
 
 
+def _nsgt_body(x, buckets, expand_t):
+    """FFT, one inverse per window-length bucket, the expansion gather:
+    (..., L) -> (..., bands, max_time_length)."""
+    F = afft.fft(x, dim=-1)
+    cells = [afft.ifft(F[..., gidx] * win, dim=-1).flatten(-2)
+             for gidx, win in buckets]
+    return torch.cat(cells, dim=-1)[..., expand_t]
+
+
 class NSGT:
     """API mirrors ``python/audioflux/nsgt.py:123-367``, plus ``device``
     (``None`` means ``cuda``)."""
@@ -200,28 +209,37 @@ class NSGT:
         self._build_exec()
 
     def _build_exec(self):
-        """Per length bucket, the spectrum gather (band slice, clip and
-        rotation by -(ln//2) in one index) and the rotated windows; the
-        expansion index into the cells concatenated in bucket order."""
+        self._buckets, self._expand_t = self._band_plan(range(self.num),
+                                                        self.device)
+
+    def _band_plan(self, bands, device):
+        """For the bands ``bands`` (in order), per length bucket the
+        spectrum gather (band slice, clip and rotation by -(ln//2) in one
+        index) and the rotated windows; the expansion index into the cells
+        concatenated in bucket order.  A band-sharded NSGT plans each
+        shard's bands."""
         L = self.fft_length
+        bands = list(bands)
         by_len = {}
-        for i in range(self.num):
+        for i in bands:
             by_len.setdefault(int(self._lens[i]), []).append(i)
-        self._buckets = []
-        start = np.zeros(self.num, np.int64)    # band's first cell
+        buckets = []
+        start = {}                              # band's first cell
         pos = 0
         for ln, idxs in by_len.items():
             rot = (np.arange(ln) + ln // 2) % ln
             gidx = np.stack([np.clip(self._offsets[i] + rot, 0, L - 1)
                              for i in idxs])
             win = np.stack([self._windows[i][rot] for i in idxs])
-            self._buckets.append((torch.from_numpy(gidx).to(self.device),
-                                  as_tensor(win, self.device)))
+            buckets.append((torch.from_numpy(gidx).to(device),
+                            as_tensor(win, device)))
             for j, i in enumerate(idxs):
                 start[i] = pos + j * ln
             pos += len(idxs) * ln
-        self._expand_t = torch.from_numpy(
-            start[:, None] + self._expand).to(self.device)
+        first = np.array([start[i] for i in bands], np.int64)
+        expand = torch.from_numpy(first[:, None] + self._expand[bands]).to(
+            device)
+        return buckets, expand
 
     # ------------------------------------------------------------------
     def get_max_time_length(self):
@@ -245,10 +263,7 @@ class NSGT:
         x = as_tensor(data_arr, self.device)
         if x.shape[-1] != self.fft_length:
             raise ValueError(f"data length must be {self.fft_length}")
-        F = afft.fft(x, dim=-1)
-        cells = [afft.ifft(F[..., gidx] * win, dim=-1).flatten(-2)
-                 for gidx, win in self._buckets]
-        return torch.cat(cells, dim=-1)[..., self._expand_t]
+        return _nsgt_body(x, self._buckets, self._expand_t)
 
     def y_coords(self):
         return self.fre_band_arr

@@ -38,6 +38,26 @@ def _st_windows(fft_length: int, factor: float, norm: float,
     return w.astype(np.float32)
 
 
+def _st_body(x, w_t, idx_t, zero_rows):
+    """The rows ``idx_t`` (their windows ``w_t``) of the ST of ``x``:
+    FFT, the windowed shifted spectra as float parts, one inverse; the
+    rows ``zero_rows`` (bin 0) hold the signal mean.  A bin-sharded ST
+    passes each shard's rows."""
+    F = afft.fft(x, dim=-1)
+    F2r = torch.cat([F.real, F.real], dim=-1)
+    F2i = torch.cat([F.imag, F.imag], dim=-1)
+    del F
+    re = F2r[..., idx_t].mul_(w_t)
+    im = F2i[..., idx_t].mul_(w_t)
+    del F2r, F2i
+    out = afft.ifft_parts(re, im)
+    del re, im
+    if zero_rows is not None:
+        mean = x.mean(dim=-1)[..., None, None].to(out.dtype)
+        out[..., zero_rows, :] = mean
+    return out
+
+
 class ST:
     """API mirrors ``python/audioflux/st.py``, plus ``device`` (``None``
     means ``cuda``)."""
@@ -92,19 +112,7 @@ class ST:
         x = as_tensor(data_arr, self.device)
         if x.shape[-1] != self.fft_length:
             raise ValueError(f"data length must be {self.fft_length}")
-        F = afft.fft(x, dim=-1)
-        F2r = torch.cat([F.real, F.real], dim=-1)
-        F2i = torch.cat([F.imag, F.imag], dim=-1)
-        del F
-        re = F2r[..., self._idx_t].mul_(self._w_t)
-        im = F2i[..., self._idx_t].mul_(self._w_t)
-        del F2r, F2i
-        out = afft.ifft_parts(re, im)
-        del re, im
-        if self._zero_rows is not None:
-            mean = x.mean(dim=-1)[..., None, None].to(out.dtype)
-            out[..., self._zero_rows, :] = mean
-        return out
+        return _st_body(x, self._w_t, self._idx_t, self._zero_rows)
 
     def cst(self, data_arr):
         """Continuous ST over long signals: run the fft-length ST every

@@ -120,6 +120,25 @@ Phases (any failure exits non-zero; no result line is printed then):
       of the CPU's, NMF's reconstruction within 1.05x the CPU's, HMM at
       1e-4, viterbi's states (2%) and log-probabilities (1e-5 relative);
       each call's peak device memory printed beside its reckoning;
+   g. slice 10, the parallel family on a (data 2, time 4) mesh (eight
+      distinct cards where the machine has them, else its cards cycled:
+      on one H100 every shard on cuda:0; the device map is printed): the
+      headline mel+MFCC fused per time shard on 16 recordings of 30 min,
+      then plain, and the spectral statistics of its output; config 5's
+      STFT -> ISTFT on 8 x 10 min; CWT, cwt_det, PWT, CWT -> Synsq and
+      WSST band-sharded on 16 noise clips of 2^15 and ccwt on 2 x 2^20;
+      ST, FST, NSGT and cst at slice 8's widths and config 3's CQT; HPSS
+      and YIN through the batch map on 64 x 30 s; the headline chain in
+      four pipeline stages; BatchRunner over 16 WAV files (files against
+      arrays, and a resumed run that does each file once); two processes
+      of ``parallel.distributed`` (NCCL with a card each, else gloo on
+      one card; the script says which) against one; the dry run.  Each
+      call's counts are set to 0 before it and read after it, and every
+      kernel of the call must have launched at least once a shard; gates:
+      equal to the unsharded call on the card, or within 1e-5 of the peak
+      with the differing cells counted (synsq and WSST by flips and mass;
+      ST, NSGT, cst, CQT at tests/test_sharded_full.py's tolerances), the
+      headline's first and last recordings against the CPU at 1e-4;
 4. timing with CUDA events: each kernel's entries, their plain versions
    and the library yardsticks at the main paths' shapes, the splits of
    ``PitchYIN.pitch`` and ``Synsq.synsq``, the fused kernel,
@@ -139,11 +158,18 @@ Phases (any failure exits non-zero; no result line is printed then):
    of the single-clip calls, NMF, HMM and viterbi (its microseconds a
    step), the splits of NCF, PEF, FFP and HPSSNMF, and the FFT kernels at
    slice 9's shapes under ``shapes`` of ``fft_pow2``, ``fft_inv`` and
-   ``fft_autocorr`` (whose row counts both entries' launches).
+   ``fft_autocorr`` (whose row counts both entries' launches); slice 10
+   (4g): audio-hours per second of the sharded calls beside the same
+   calls unsharded on the same card, the halo bytes and the time of the
+   split with its block copies, BatchRunner's files per second (host
+   clock) with the loader's time apart, and the kernels at one shard's
+   shapes under ``shapes``.
 
 The second-to-last line is the kernels JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 ``--upto N`` stops after phase N (a development aid: no result lines).
+``--s10-worker RANK PORT OUT`` is one process of phase 3g's two-process
+call (the script starts both itself).
 """
 
 from __future__ import annotations
@@ -180,6 +206,17 @@ from audioflux_torch.mir.onset import (NoveltyParam, Onset,  # noqa: E402
                                        peak_pick)
 from audioflux_torch.filterbank.auditory import (  # noqa: E402
     auditory_filter_bank)
+from audioflux_torch.io.wave import read as wave_read  # noqa: E402
+from audioflux_torch.io.wave import write as wave_write  # noqa: E402
+from audioflux_torch.observe import metrics  # noqa: E402
+from audioflux_torch.parallel import (  # noqa: E402
+    BatchRunner, distributed, make_mesh, pipeline_chain_fn,
+    sharded_batch_map_fn, sharded_ccwt_fn, sharded_cqt_fn, sharded_cst_fn,
+    sharded_cwt_fn, sharded_fst_fn, sharded_istft_fn, sharded_nsgt_fn,
+    sharded_pwt_fn, sharded_spectral_stats_fn, sharded_spectrogram_fn,
+    sharded_st_fn, sharded_stft_fn, sharded_synsq_fn, sharded_wsst_fn)
+from audioflux_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
+from audioflux_torch.parallel.sharded import _time_blocks  # noqa: E402
 from audioflux_torch.ops import _build  # noqa: E402
 from audioflux_torch.ops import cuda_cwt, cuda_fft, cuda_median  # noqa: E402
 from audioflux_torch.ops import median_network  # noqa: E402
@@ -3152,7 +3189,735 @@ def merge_slice9(rows, launches, shapes):
     return rows
 
 
+# --- slice 10: the parallel family on a (data 2, time 4) mesh -------------
+#
+# Over eight distinct cards where the machine has them, else over its cards
+# cycled (one H100: every shard on cuda:0).  a: the headline mel+MFCC fused
+# per time shard on 16 recordings of 30 min (each time block 14,400,000
+# samples, 28,125 slides), then plain, then the spectral statistics; b:
+# config 5's STFT -> ISTFT on 8 x 10 min; c: config 4's wavelet width on 16
+# noise clips (21 bands a shard) and ccwt on 2 x 2^20 samples; d: the
+# full-signal twins at slice 8's extractor widths on 64 x 4096 (cst on 8 x
+# 32768) and config 3's CQT on 1000 x 4096; e: config 5's HPSS and YIN
+# through the batch map on 64 x 30 s; f: the headline chain in four
+# pipeline stages on 64 clips of T = 1000; g: BatchRunner over 16 WAV files
+# of 30 s; h: two processes (NCCL with a card each, else gloo on one card);
+# i: the dry run.  The gates: equal, or within S10_EQ_TOL of the peak with
+# the differing cells counted, against the unsharded call on the card.
+S10_DATA, S10_TIME = 2, 4
+S10_HEAD = (16, 1800)            # recordings, seconds
+S10_STFT = (8, 600)
+S10_WAV_CLIPS, S10_CCWT = 16, (2, 1 << 20)
+S10_FE_CLIPS, S10_CQT_CLIPS, S10_CST = 64, 1000, (8, 1 << 15)
+S10_MIR = (64, 30)
+S10_PIPE = (64, 1000)            # clips, frames
+S10_FILES = (16, 30)             # WAV files, seconds
+S10_MP = (4, 64)                 # the two-process batch: recordings, seconds
+S10_EQ_TOL = FP32_TOL
+S10_COUNTERS = {"fused_mel_mfcc": (fused_mel_mfcc, "launches"),
+                "fft_pow2": (fft_fwd, "launches"),
+                "fft_inv": (fft_inv, "launches"),
+                "fft_autocorr": (fft_autocorr, "launches"),
+                "fft_autocorr_yin": (fft_autocorr_yin, "launches"),
+                "median_filter": (median_filter_last_axis, "launches"),
+                "cwt_ifft_bank": (cwt_ifft_bank, "launches"),
+                "synsq_bins": (synsq_bins, "launches"),
+                "columnar_scatter": (columnar_scatter, "launches")}
+
+
+def s10_counts(zero=False):
+    if zero:
+        for fn, attr in S10_COUNTERS.values():
+            setattr(fn, attr, 0)
+    return {k: getattr(fn, attr) for k, (fn, attr) in S10_COUNTERS.items()}
+
+
+def s10_call(label, fn, per_shard, reckoned_gb, launches):
+    """``fn()`` with every count set to 0 just before and read just after;
+    each kernel in ``per_shard`` ({name: shards}) must have launched at
+    least once a shard.  The peak device memory, and its part above what
+    was held before the call beside the call's reckoning; the peak under
+    MEM_LIMIT_GB.  Returns (fn's result, the counts)."""
+    s10_counts(zero=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9
+    out = fn()
+    torch.cuda.synchronize()
+    counts = s10_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  {label}: peak device memory {peak:.2f} GB, {peak - held:.2f} "
+          f"GB above the {held:.2f} GB held before it (reckoned "
+          f"{reckoned_gb:.2f} GB); launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    for k, shards in per_shard.items():
+        if counts[k] < shards:
+            raise AssertionError(f"{label}: {k} launched {counts[k]} times "
+                                 f"for {shards} shards")
+    if peak > MEM_LIMIT_GB:
+        raise AssertionError(f"{label}: {peak:.2f} GB > {MEM_LIMIT_GB}")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    return out, counts
+
+
+def s10_equal(label, got, ref, tol=S10_EQ_TOL):
+    """Equal, or within ``tol`` of the peak with the differing cells
+    counted and printed."""
+    if got.shape != ref.shape:
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} != "
+                             f"{tuple(ref.shape)}")
+    diff = int((got != ref).sum())
+    if diff == 0:
+        print(f"  {label}: equal ({got.numel()} cells)")
+        return 0.0
+    err = gate_err(got, ref)
+    print(f"  {label}: {diff} of {got.numel()} cells differ")
+    check(label, err, tol)
+    return err
+
+
+def s10_mesh():
+    n = torch.cuda.device_count()
+    devs = [torch.device("cuda", i % n) for i in range(S10_DATA * S10_TIME)]
+    mesh = make_mesh(S10_DATA, S10_TIME, devices=devs)
+    print(f"  mesh {mesh.shape} over {n} card(s): "
+          f"{[[str(d) for d in row] for row in mesh.devices]}")
+    return mesh
+
+
+def s10_mp_batch(device):
+    """The two-process batch, made from a seed on ``device``."""
+    g = torch.Generator(device=device)
+    g.manual_seed(10)
+    n, sec = S10_MP
+    return torch.randn((n, sec * SR), generator=g, device=device) * 0.2
+
+
+def s10_worker(rank, port, out):
+    """One process of phase 3g h: its rows of the batch through the sharded
+    fused mel on its own mesh (data 1, time 4), the processes' results
+    gathered."""
+    nproc = 2
+    distributed.initialize(f"localhost:{port}", nproc, rank)
+    card = rank if distributed.backend() == "nccl" else 0
+    dev = torch.device("cuda", card)
+    mesh = make_mesh(1, S10_TIME, devices=[dev] * S10_TIME)
+    plan = MelSpectrogram(num=NUM, samplate=SR, radix2_exp=R2E,
+                          slide_length=SLIDE, device=dev)
+    fn = sharded_spectrogram_fn(plan, mesh, with_xxcc=CC, fused=True)
+    full = s10_mp_batch(dev)
+    rows = full.shape[0] // nproc
+    x = distributed.global_from_local(full[rank * rows:(rank + 1) * rows],
+                                      mesh, ("data", "time"))
+    s10_counts(zero=True)
+    mel, cc = fn(x)
+    torch.cuda.synchronize()
+    launched = fused_mel_mfcc.launches
+    mel_g = distributed.process_allgather(mel)
+    cc_g = distributed.process_allgather(cc)
+    distributed.process_barrier()
+    print(f"  worker {rank}: backend {distributed.backend()}, {dev}, "
+          f"fused_mel_mfcc launched {launched} times", flush=True)
+    if launched < S10_TIME:
+        raise AssertionError(f"worker {rank}: {launched} launches")
+    if rank == 0:
+        torch.save({"mel": mel_g.cpu(), "cc": cc_g.cpu(),
+                    "backend": distributed.backend()}, out)
+
+
+def s10_two_processes(mesh, launches):
+    """Phase 3g h: two worker processes of this script against this
+    process's sharded call on the same batch."""
+    import socket
+    import tempfile
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "gathered.pt")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--s10-worker",
+             str(r), str(port), out], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            print("\n".join("    " + ln for ln in log.strip().splitlines()
+                            if "backend" in ln or "worker" in ln
+                            or "Error" in ln))
+            if p.returncode != 0:
+                raise AssertionError(f"worker {r} exited {p.returncode}:\n"
+                                     f"{log[-3000:]}")
+        got = torch.load(out)
+    plan = MelSpectrogram(num=NUM, samplate=SR, radix2_exp=R2E,
+                          slide_length=SLIDE)
+    x = s10_mp_batch(torch.device("cuda", 0))
+    (mel, cc), _ = s10_call(
+        "3g h: the same batch in this process, (data 2, time 4)",
+        lambda: sharded_spectrogram_fn(plan, mesh, with_xxcc=CC,
+                                       fused=True)(x),
+        {"fused_mel_mfcc": S10_DATA * S10_TIME}, 0.0, launches)
+    nccl = got["backend"] == "nccl"
+    print(f"  3g h: backend {got['backend']}: NCCL "
+          f"{'was' if nccl else 'was not'} exercised "
+          f"({torch.cuda.device_count()} card(s))")
+    s10_equal("gate 3g h two-process mel vs one process", got["mel"],
+              mel.cpu())
+    s10_equal("gate 3g h two-process cc vs one process", got["cc"], cc.cpu())
+    return got["backend"]
+
+
+def phase3_slice10_paths(gen):
+    phase("phase 3g: slice 10, the parallel family on a (data 2, time 4) "
+          "mesh")
+    mesh = s10_mesh()
+    shards = S10_DATA * S10_TIME
+    launches = {}
+    cpu = {"device": "cpu"}
+    d = {"mesh": mesh, "launches": launches}
+
+    def call(label, fn, per_shard, gb):
+        return s10_call(label, fn, per_shard, gb, launches)[0]
+
+    # --- a: the headline mel+MFCC, fused per time shard -------------------
+    B, sec = S10_HEAD
+    n = sec * SR
+    x = randn((B, n), gen, 0.2)
+    plan = MelSpectrogram(num=NUM, samplate=SR, radix2_exp=R2E,
+                          slide_length=SLIDE)
+    T = (n - plan.fft_length) // SLIDE + 1
+    out_gb = B * (NUM + CC) * T * 4 / 1e9
+    in_gb = x.numel() * 4 / 1e9
+    fused = sharded_spectrogram_fn(plan, mesh, with_xxcc=CC, fused=True)
+    mel, cc = call(f"3g a: sharded fused mel+MFCC, {B} x {sec} s "
+                   f"({n // S10_TIME} samples a time block)", lambda: fused(x),
+                   {"fused_mel_mfcc": shards},
+                   in_gb + out_gb + in_gb / shards)
+    um, uc = plan.spectrogram_mfcc_fused(x, cc_num=CC)
+    s10_equal("gate 3g a sharded fused mel vs unsharded", mel, um)
+    s10_equal("gate 3g a sharded fused cc vs unsharded", cc, uc)
+    del um, uc
+    err = 0.0
+    for i in range(B):
+        err = max(err, rel_err(mel[i].cpu(), plan.spectrogram(x[i]).cpu()))
+    check("gate 3g a mel vs .spectrogram() on the card, each recording",
+          err, GATE_TOL)
+    pc = MelSpectrogram(num=NUM, samplate=SR, radix2_exp=R2E,
+                        slide_length=SLIDE, **cpu)
+    for i in (0, B - 1):
+        rm, rc = pc.spectrogram_mfcc_fused(x[i].cpu(), cc_num=CC)
+        check(f"gate 3g a recording {i} mel vs CPU", rel_err(mel[i].cpu(), rm),
+              GATE_TOL)
+        check(f"gate 3g a recording {i} cc vs CPU", rel_err(cc[i].cpu(), rc),
+              GATE_TOL)
+    del cc
+    plain = sharded_spectrogram_fn(plan, mesh, with_xxcc=CC)
+    pm, pcc = call("3g a: sharded plain mel+MFCC (fft_pow2 per shard)",
+                   lambda: plain(x), {"fft_pow2": shards},
+                   in_gb + 2 * out_gb + 6 * in_gb / shards)
+    check("gate 3g a plain vs fused sharded mel", rel_err(pm.cpu(), mel.cpu()),
+          GATE_TOL)
+    del pcc, mel
+    t4 = S10_TIME * (T // S10_TIME)
+    S = pm[..., :t4]
+    stats = call("3g a: sharded spectral stats over the plain mel",
+                 lambda: sharded_spectral_stats_fn(mesh)(S), {},
+                 2 * out_gb)
+    mean = S.double().mean(-1)
+    ref = {"sum": S.double().sum(-1), "mean": mean,
+           "max": S.amax(-1).double(),
+           "var": (S.double() ** 2).mean(-1) - mean ** 2}
+    sq_peak = float((S.double() ** 2).mean(-1).max())
+    for k in ("sum", "mean", "max", "var"):
+        scale = sq_peak if k == "var" else float(ref[k].abs().max())
+        check(f"gate 3g a stats {k} vs unsharded (of its peak)",
+              float((stats[k].double() - ref[k]).abs().max()) / scale,
+              S10_EQ_TOL)
+    del pm, S, stats, ref, mean
+    d.update(head_x=x, head_plan=plan, head_fused=fused)
+
+    # --- b: STFT -> ISTFT, config 5's plan, 8 x 10 min ---------------------
+    B, sec = S10_STFT
+    xs = randn((B, sec * SR), gen, 0.2)
+    st = STFT(radix2_exp=R2E, window_type=WindowType.HANN,
+              slide_length=SLIDE)
+    fwd = sharded_stft_fn(mesh, st.fft_length, SLIDE, st.window)
+    inv = sharded_istft_fn(mesh, st.fft_length, SLIDE, st.window)
+    spec_gb = B * (xs.shape[1] // SLIDE) * (st.fft_length // 2 + 1) * 8 / 1e9
+    D = call(f"3g b: sharded STFT, {B} x {sec} s", lambda: fwd(xs),
+             {"fft_pow2": shards}, 2 * spec_gb)
+    Du = st.stft(xs)
+    s10_equal("gate 3g b sharded STFT frames vs STFT.stft", D.transpose(-1, -2),
+              Du)
+    y = call("3g b: sharded ISTFT", lambda: inv(D), {"fft_inv": shards},
+             3 * spec_gb)
+    yu = st.istft(Du)
+    nf = st.fft_length
+    # the edges divide by a window-energy sum that falls to 1e-6 (HANN), so
+    # an inverse's rounding there is amplified up to 1e3-fold: the gate
+    # holds the interior, the whole length is printed with its worst place
+    diff = (y - yu).abs()
+    at = int(diff.reshape(-1).argmax()) % y.shape[-1]
+    print(f"  3g b sharded ISTFT vs .istft over the whole length: "
+          f"{float(diff.max()) / float(yu.abs().max()):.3e} of the peak, "
+          f"worst at sample {at} of {y.shape[-1]}")
+    check("gate 3g b sharded ISTFT vs .istft, interior (of the peak)",
+          rel_err(y[:, nf:-nf].cpu(), yu[:, nf:-nf].cpu()), S10_EQ_TOL)
+    del diff
+    err = float((y[:, nf:-nf] - xs[:, nf:-nf]).abs().max())
+    check("gate 3g b round trip interior (absolute)", err, 1e-3)
+    del D, Du, y, yu
+    d.update(stft_x=xs, stft_fwd=fwd, stft_inv=inv, stft=st)
+
+    # --- c: the wavelet family at config 4's width ------------------------
+    n = 1 << WAV_R2E
+    xw = randn((S10_WAV_CLIPS, n), gen, 0.2)
+    cwt = CWT(**WAV_KW, wavelet_type=WaveletContinueType.MORLET,
+              scale_type=OCTAVE)
+    sq = Synsq(num=WAV_NUM, radix2_exp=WAV_R2E, samplate=SR)
+    ws = WSST(**WAV_KW, wavelet_type=WaveletContinueType.MORLET,
+              scale_type=OCTAVE)
+    pw = PWT(**WAV_KW)
+    wav_gb = S10_WAV_CLIPS * WAV_NUM * n * 8 / 1e9
+    f_cwt = sharded_cwt_fn(cwt, mesh)
+    W = call(f"3g c: sharded CWT, {S10_WAV_CLIPS} x {n}, "
+             f"{WAV_NUM // S10_TIME} bands a shard", lambda: f_cwt(xw),
+             {"cwt_ifft_bank": shards}, 3 * wav_gb)
+    check("gate 3g c sharded CWT vs CWT.cwt", gate_err(W, cwt.cwt(xw)),
+          S10_EQ_TOL)
+    Wd = call("3g c: sharded cwt_det", lambda: sharded_cwt_fn(
+        cwt, mesh, det=True)(xw), {"cwt_ifft_bank": shards}, 3 * wav_gb)
+    check("gate 3g c sharded cwt_det vs CWT.cwt_det",
+          gate_err(Wd, cwt.cwt_det(xw)), S10_EQ_TOL)
+    del Wd
+    P = call("3g c: sharded PWT", lambda: sharded_pwt_fn(pw, mesh)(xw),
+             {"cwt_ifft_bank": shards}, 3 * wav_gb)
+    check("gate 3g c sharded PWT vs PWT.pwt", gate_err(P, pw.pwt(xw)),
+          S10_EQ_TOL)
+    del P
+    f_sq = sharded_synsq_fn(cwt, sq, mesh)
+    Y = call("3g c: sharded CWT -> synsq", lambda: f_sq(xw),
+             {"cwt_ifft_bank": shards, "synsq_bins": shards,
+              "columnar_scatter": shards}, 4 * wav_gb)
+    flips_and_mass("gate 3g c sharded synsq vs unsharded", Y.abs(),
+                   sq.synsq(W, OCTAVE, cwt.get_fre_band_arr()).abs())
+    del Y
+    (Q, Dq) = call("3g c: sharded WSST", lambda: sharded_wsst_fn(ws, mesh)(xw),
+                   {"cwt_ifft_bank": 2 * shards, "columnar_scatter": shards},
+                   5 * wav_gb)
+    Qu, Du = ws.wsst(xw)
+    check("gate 3g c sharded WSST cwt vs unsharded", gate_err(Dq, Du),
+          S10_EQ_TOL)
+    flips_and_mass("gate 3g c sharded WSST vs unsharded", Q.abs(), Qu.abs())
+    del Q, Dq, Qu, Du, W
+    Bc, nc = S10_CCWT
+    xl = randn((Bc, nc), gen, 0.2)
+    cc_gb = Bc * WAV_NUM * nc * 8 / 1e9
+    C = call(f"3g c: sharded ccwt, {Bc} x {nc}", lambda: sharded_ccwt_fn(
+        cwt, mesh)(xl), {"cwt_ifft_bank": shards}, 3 * cc_gb)
+    check("gate 3g c sharded ccwt vs CWT.ccwt", gate_err(C, cwt.ccwt(xl)),
+          S10_EQ_TOL)
+    del C, xl
+    d.update(wav_x=xw, cwt=cwt, sq=sq, f_cwt=f_cwt, f_sq=f_sq)
+
+    # --- d: the full-signal twins at slice 8's extractor widths ----------
+    L = 1 << FE_R2E
+    xf = fe_signal(S10_FE_CLIPS, L, gen)
+    objs = FeatureExtractor(["st", "fst", "nsgt"], radix2_exp=FE_R2E,
+                            samplate=SR)._objs
+    st_obj, fst_obj, ns = objs["st"], objs["fst"], objs["nsgt"]
+    st_gb = S10_FE_CLIPS * len(st_obj.bin_arr) * L * 8 / 1e9
+    got = call(f"3g d: sharded ST, {S10_FE_CLIPS} x {L}",
+               lambda: sharded_st_fn(st_obj, mesh)(xf),
+               {"fft_pow2": shards, "fft_inv": shards}, 4 * st_gb)
+    check("gate 3g d sharded ST vs ST.st", gate_err(got, st_obj.st(xf)),
+          2e-6)
+    del got
+    got = call("3g d: sharded FST", lambda: sharded_fst_fn(fst_obj, mesh)(xf),
+               {"fft_pow2": shards}, 2 * st_gb)
+    ref = fst_obj.fst(xf)
+    if not torch.equal(got, ref):
+        raise AssertionError("3g d: sharded FST is not bit-equal to FST.fst")
+    print("  gate 3g d sharded FST vs FST.fst: equal")
+    del got, ref
+    got = call("3g d: sharded NSGT", lambda: sharded_nsgt_fn(ns, mesh)(xf),
+               {"fft_pow2": shards}, 1.0)
+    check("gate 3g d sharded NSGT vs NSGT.nsgt", gate_err(got, ns.nsgt(xf)),
+          5e-6)
+    Bs, ns_ = S10_CST
+    xc = fe_signal(Bs, ns_, gen)
+    cst_gb = Bs * len(st_obj.bin_arr) * ns_ * 8 / 1e9
+    got = call(f"3g d: sharded cst, {Bs} x {ns_}",
+               lambda: sharded_cst_fn(st_obj, mesh)(xc),
+               {"fft_pow2": shards, "fft_inv": shards}, 4 * cst_gb)
+    check("gate 3g d sharded cst vs ST.cst", gate_err(got, st_obj.cst(xc)),
+          2e-6)
+    del got, xc
+    xq = fe_signal(S10_CQT_CLIPS, C3_N, gen)
+    cq = CQT(num=84, samplate=SR, slide_length=C3_SLIDE)
+    got = call(f"3g d: sharded CQT (batch over the {shards} shards), "
+               f"{S10_CQT_CLIPS} x {C3_N}",
+               lambda: sharded_cqt_fn(cq, mesh)(xq), {}, 1.0)
+    check("gate 3g d sharded CQT vs CQT.cqt", gate_err(got, cq.cqt(xq)), 2e-6)
+    del got, xq, xf
+
+    # --- e: config 5's MIR calls through the batch map ---------------------
+    B, sec = S10_MIR
+    xm = mir_signal(B, sec * SR, gen)
+    hp = HPSS(radix2_exp=R2E, window_type=WindowType.HAMM, slide_length=SLIDE,
+              h_order=H_ORDER, p_order=P_ORDER)
+    yin = PitchYIN(samplate=SR, radix2_exp=YIN_R2E, slide_length=YIN_SLIDE)
+    f_hp = sharded_batch_map_fn(hp.hpss, mesh)
+    f_yin = sharded_batch_map_fn(yin.pitch, mesh)
+    h, p = call(f"3g e: HPSS.hpss through the batch map, {B} x {sec} s",
+                lambda: f_hp(xm), {"fft_pow2": S10_DATA, "fft_inv": S10_DATA,
+                                   "median_filter": S10_DATA}, 20.0)
+    h0, p0 = hp.hpss(xm)
+    s10_equal("gate 3g e batch-mapped HPSS h vs unsharded", h, h0, 0.0)
+    s10_equal("gate 3g e batch-mapped HPSS p vs unsharded", p, p0, 0.0)
+    del h, p, h0, p0
+    got = call("3g e: PitchYIN.pitch through the batch map", lambda: f_yin(xm),
+               {"fft_autocorr_yin": S10_DATA}, 4.0)
+    ref = yin.pitch(xm)
+    for a, b in zip(got, ref):
+        s10_equal("gate 3g e batch-mapped YIN vs unsharded", a, b, 0.0)
+    del got, ref
+    d.update(mir_x=xm, f_hp=f_hp, f_yin=f_yin, hp=hp, yin=yin)
+
+    # --- f: the headline chain in four pipeline stages ---------------------
+    B, T = S10_PIPE
+    nfft = plan.fft_length
+    n = (T - 1) * SLIDE + nfft
+    xp = randn((B, n), gen, 0.2)
+    win, fb = plan._window_t, plan._fb_t
+    stages = [lambda v: (v.unfold(-1, nfft, SLIDE) * win).contiguous(),
+              lambda v: (lambda s: s.real.square() + s.imag.square())(
+                  rfft(v, dim=-1)),
+              lambda v: torch.matmul(v, fb.T),
+              lambda v: torch.log10(torch.clamp(v, min=1e-8))]
+    shapes = [(n,), (T, nfft), (T, nfft // 2 + 1), (T, NUM), (T, NUM)]
+    pipe = pipeline_chain_fn(stages, shapes, mesh, axis="time",
+                             n_micro=S10_TIME)
+    got = call(f"3g f: the headline chain in {S10_TIME} pipeline stages, "
+               f"{B} x T={T}", lambda: pipe(xp), {"fft_pow2": S10_TIME},
+               3 * B * T * nfft * 4 / 1e9 / S10_TIME)
+    want = xp
+    for fn in stages:
+        want = fn(want)
+    print(f"  gate 3g f pipeline vs direct composition: "
+          f"{gate_err(got, want):.3e} of the peak")
+    torch.testing.assert_close(got, want, rtol=2e-6,
+                               atol=2e-6 * float(want.abs().max()))
+    del got, want, xp
+
+    # --- g: BatchRunner over 16 WAV files of 30 s ------------------------
+    import tempfile
+    nf, sec = S10_FILES
+    clip = (sec * SR // (S10_TIME * SLIDE)) * S10_TIME * SLIDE
+    xr = mir_signal(nf, sec * SR, gen).clamp(-1.0, 1.0).cpu().numpy()
+    tmp = tempfile.mkdtemp(prefix="af_s10_")
+    paths = []
+    for i in range(nf):
+        pth = os.path.join(tmp, f"clip{i:02d}.wav")
+        wave_write(pth, xr[i], SR)
+        paths.append(pth)
+    runner = BatchRunner(plan, mesh, clip_length=clip, with_xxcc=CC)
+    (rs, rc), good = call(f"3g g: BatchRunner.run_files, {nf} files of "
+                          f"{sec} s", lambda: runner.run_files(paths),
+                          {"fft_pow2": shards}, 1.0)
+    if good != nf:
+        raise AssertionError(f"3g g: {good} of {nf} files decoded")
+    decoded = np.stack([wave_read(pth)[0][:clip] for pth in paths])
+    rs2, rc2 = runner.run_array(decoded)
+    s10_equal("gate 3g g run_files vs run_array of the decoded batch", rs, rs2,
+              0.0)
+    s10_equal("gate 3g g run_files cc vs run_array", rc, rc2, 0.0)
+    out_dir = os.path.join(tmp, "out")
+    half = nf // 2
+    n1 = runner.run_files_resumable(paths, out_dir, chunk_size=half,
+                                    max_chunks=1)
+    n2 = runner.run_files_resumable(paths, out_dir, chunk_size=half)
+    n3 = runner.run_files_resumable(paths, out_dir, chunk_size=half)
+    with open(os.path.join(out_dir, "manifest.jsonl")) as fh:
+        done = [json.loads(ln)["path"] for ln in fh if ln.strip()]
+    print(f"  3g g resumable: (done, skipped) {n1}, {n2}, {n3}; manifest "
+          f"{len(done)} entries")
+    if (n1, n2, n3) != ((half, 0), (nf - half, half), (0, nf)) or \
+            sorted(done) != sorted(paths):
+        raise AssertionError("3g g: the files were not each done once")
+    for lo in (0, half):
+        (ref, _), _ = runner.run_files(paths[lo:lo + half])
+        saved = torch.from_numpy(np.stack([np.load(os.path.join(
+            out_dir, os.path.splitext(os.path.basename(pth))[0] + ".npy"))
+            for pth in paths[lo:lo + half]]))
+        s10_equal(f"gate 3g g resumed files {lo}..{lo + half - 1} vs "
+                  "run_files", saved, ref.cpu(), 0.0)
+    d.update(runner=runner, paths=paths, tmp=tmp)
+
+    # --- h: two processes ---------------------------------------------------
+    d["mp_backend"] = s10_two_processes(mesh, launches)
+
+    # --- i: the dry run ------------------------------------------------------
+    call("3g i: dryrun_multichip(8) over the mesh's devices",
+         lambda: dryrun_multichip(shards, devices=list(mesh.devices.flat)),
+         {"fused_mel_mfcc": shards}, 1.0)
+    print(f"  launches on the slice-10 paths: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return d
+
+
+def phase4_slice10_timing(d):
+    phase("phase 4g: slice 10 timing (CUDA events, median)")
+    mesh = d["mesh"]
+    shards = S10_DATA * S10_TIME
+    shapes = {}
+    one = len({str(v) for v in mesh.devices.flat}) == 1
+
+    def reading(name, source, replaces, launches, err, k_ms, p_ms, l_ms,
+                n_bytes, n_ops, what, entry=None):
+        """A kernel's reading at one shard's shape, for its ``shapes``."""
+        row = kernel_row(name, source, replaces, launches, err, k_ms, p_ms,
+                         l_ms, n_bytes, n_ops, what, entry=entry)
+        shapes.setdefault(name, []).append(dict(
+            shape=(f"{entry}: " if entry else "") + what,
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "max_abs_err")}))
+    print(f"  {'one card: these times measure the split, the halos and the '
+           'assembly, not scaling' if one else 'several cards'}")
+
+    def versus(label, sharded, unsharded, hours):
+        s_ms = cuda_ms(sharded, reps=3, warmup=1)
+        u_ms = cuda_ms(unsharded, reps=3, warmup=1)
+        print(f"  {label}: sharded {s_ms:.3f} ms = {hours / (s_ms / 1e3):.3f} "
+              f"audio-hours/s; unsharded {u_ms:.3f} ms = "
+              f"{hours / (u_ms / 1e3):.3f}; sharded / unsharded "
+              f"{s_ms / u_ms:.3f}")
+        return s_ms, u_ms
+
+    # --- a: the headline, fused --------------------------------------------
+    x, plan, fused = d["head_x"], d["head_plan"], d["head_fused"]
+    hours = x.numel() / SR / 3600.0
+    versus(f"3g a fused mel+MFCC {tuple(x.shape)}", lambda: fused(x),
+           lambda: plan.spectrogram_mfcc_fused(x, cc_num=CC), hours)
+    halo = plan.fft_length - SLIDE
+    halo_bytes = shards * (x.shape[0] // S10_DATA) * halo * 4
+    def split_only():
+        for *_, blk in _time_blocks(x, mesh, "data", "time", SLIDE, halo,
+                                    "halo")[1]:
+            del blk
+    blocks_ms = cuda_ms(split_only, reps=3, warmup=1)
+    print(f"  3g a halos: {halo_bytes} bytes ({halo} samples x "
+          f"{x.shape[0] // S10_DATA} rows x {shards} shards); the split with "
+          f"its halo copies and the blocks' copies (each block and its halo "
+          f"into one buffer, {x.numel() * 4 / 1e9:.2f} GB in all): "
+          f"{blocks_ms:.3f} ms")
+    # the fused kernel at one shard's shape
+    fplan = FusedMelPlan(plan.window, plan.filter_bank, plan._dct[:CC], SLIDE)
+    n_loc = x.shape[1] // S10_TIME
+    b_loc = x.shape[0] // S10_DATA
+    ext = x[:b_loc, :n_loc + halo].contiguous()
+    T = n_loc // SLIDE
+    k_ms = cuda_ms(lambda: fused_mel_mfcc(fplan, ext), reps=5)
+    p_ms = cuda_ms(chunked(lambda t: fused_mel_mfcc_ref(fplan, t), (ext,), 1),
+                   reps=2, warmup=1)
+    l_ms = cuda_ms(lambda: fused_mel_mfcc_ref(fplan, ext), reps=2, warmup=1)
+    err = gate_err(fused_mel_mfcc(fplan, ext)[0],
+                   fused_mel_mfcc_ref(fplan, ext)[0])
+    nfft = plan.fft_length
+    reading("fused_mel_mfcc", "fused_mel_mfcc",
+            "audioflux_tpu/ops/pallas_spectrogram.py:1250", 0, err,
+            k_ms, p_ms, l_ms, 4 * (ext.numel() + b_loc * (NUM + CC) * T),
+            b_loc * T * (2.5 * nfft * math.log2(nfft)
+                         + 2 * fplan.band_nnz + NUM + 2 * CC * NUM),
+            f"one time shard: {b_loc}x{ext.shape[1]} -> {T} frames")
+    del ext
+
+    # --- b: STFT and ISTFT ------------------------------------------------
+    xs, st = d["stft_x"], d["stft"]
+    hours = xs.numel() / SR / 3600.0
+    versus(f"3g b STFT {tuple(xs.shape)}", lambda: d["stft_fwd"](xs),
+           lambda: st.stft(xs), hours)
+    D = d["stft_fwd"](xs)
+    Du = D.transpose(-1, -2)
+    versus("3g b ISTFT", lambda: d["stft_inv"](D), lambda: st.istft(Du),
+           hours)
+    # the FFT kernels at one shard's shape
+    b_loc = xs.shape[0] // S10_DATA
+    n_loc = xs.shape[1] // S10_TIME
+    ext = xs[:b_loc, :n_loc + halo]
+    frames = (ext.unfold(-1, nfft, SLIDE) * st._window_t).contiguous()
+    nrows = frames.numel() // nfft
+    fops = nrows * 5.0 * nfft * math.log2(nfft)
+    k_ms = cuda_ms(lambda: fft_fwd(frames), reps=10)
+    p_ms = cuda_ms(chunked(fft_fwd_ref, (frames,), 1), reps=3, warmup=1)
+    l_ms = cuda_ms(lambda: torch.fft.fft(frames, dim=-1), reps=5)
+    reading("fft_pow2", "fft_pow2",
+            "audioflux_tpu/ops/pallas_fft.py:346", 0,
+            pair_rel(fft_fwd(frames), fft_fwd_ref(frames)), k_ms,
+            p_ms, l_ms, 12 * frames.numel(), fops,
+            f"forward {nrows}x{nfft} real, one STFT shard's frames")
+    T_loc = nrows // b_loc
+    half = D[:b_loc, :T_loc].contiguous()
+    vr, vi = half.real.contiguous(), half.imag.clone()
+    vi[..., 0] = 0
+    vi[..., -1] = 0
+    yr = torch.cat([vr, vr[..., 1:nfft // 2].flip(-1)], dim=-1).contiguous()
+    yi = torch.cat([vi, -vi[..., 1:nfft // 2].flip(-1)], dim=-1).contiguous()
+    k_ms = cuda_ms(lambda: fft_inv(yr, yi, out_imag=False), reps=10)
+    p_ms = cuda_ms(chunked(lambda a, b: fft_inv_ref(a, b, out_imag=False),
+                           (yr, yi), 1), reps=3, warmup=1)
+    l_ms = cuda_ms(lambda: torch.fft.irfft(half, n=nfft, dim=-1), reps=5)
+    reading("fft_inv", "fft_pow2",
+            "audioflux_tpu/ops/pallas_fft.py:360", 0,
+            pair_rel(fft_inv(yr, yi, out_imag=False)[:1],
+                     fft_inv_ref(yr, yi, out_imag=False)[:1]),
+            k_ms, p_ms, l_ms, 12 * yr.numel(), fops,
+            f"{b_loc * T_loc}x{nfft} real output, one ISTFT "
+            "shard's frames")
+    del D, Du, frames, half, vr, vi, yr, yi
+
+    # --- c: the wavelet family ----------------------------------------------
+    xw, cwt, sq = d["wav_x"], d["cwt"], d["sq"]
+    hours = xw.numel() / SR / 3600.0
+    versus(f"3g c CWT {tuple(xw.shape)}", lambda: d["f_cwt"](xw),
+           lambda: cwt.cwt(xw), hours)
+    versus("3g c CWT -> synsq", lambda: d["f_sq"](xw),
+           lambda: sq.synsq(cwt.cwt(xw), OCTAVE, cwt.get_fre_band_arr()),
+           hours)
+    # the wavelet kernels at one band shard's shape
+    n, p = 1 << WAV_R2E, cwt.pad_length
+    N = n + 2 * p
+    b_loc = xw.shape[0] // S10_DATA
+    nb = -(-WAV_NUM // S10_TIME)
+    bank = cwt._bank_t[:nb].contiguous()
+    row_h = torch.tensor(band_row_counts(cwt._bank[:nb], N), dtype=torch.int32,
+                         device="cuda")
+    Fb = torch.fft.fft(_symmetric_pad(xw[:b_loc], p), dim=-1)
+    k_ms = cuda_ms(lambda: cwt_ifft_bank(Fb, bank, pad=p, length=n,
+                                         row_h=row_h), reps=10)
+    p_ms = cuda_ms(chunked(lambda t: cwt_ifft_bank_ref(t, bank, pad=p,
+                                                       length=n), (Fb,), 1),
+                   reps=3, warmup=1)
+    l_ms = cuda_ms(lambda: torch.fft.ifft(bank * Fb[:, None, :], dim=-1)[
+        ..., p:p + n], reps=5)
+    Wl = cwt_ifft_bank(Fb, bank, pad=p, length=n, row_h=row_h)
+    cells = b_loc * nb * n
+    reading("cwt_ifft_bank", "cwt_ifft_bank",
+            "audioflux_tpu/ops/pallas_cwt.py:183", 0,
+            gate_err(Wl, cwt_ifft_bank_ref(Fb, bank, pad=p, length=n)),
+            k_ms, p_ms, l_ms, 8 * b_loc * N + 4 * nb * N + 8 * cells,
+            b_loc * nb * 5.0 * N * math.log2(N),
+            f"one band shard: {b_loc}x{nb} band-rows, N={N}")
+    fre_t = torch.from_numpy(np.asarray(cwt.fre_band_arr, np.float32)).to("cuda")
+    bins_ms = cuda_ms(lambda: synsq_bins(Wl, fre_t, "log", WAV_NUM, float(SR),
+                                         sq.thresh), reps=10)
+    p_ms = cuda_ms(chunked(lambda v: synsq_bins_ref(
+        v, fre_t, "log", WAV_NUM, float(SR), sq.thresh), (Wl,), 1), reps=3,
+        warmup=1)
+    fi = synsq_bins(Wl, fre_t, "log", WAV_NUM, float(SR), sq.thresh)
+    diff = int((fi != synsq_bins_ref(Wl, fre_t, "log", WAV_NUM, float(SR),
+                                     sq.thresh)).sum())
+    print(f"  synsq_bins at one band shard: {diff} of {fi.numel()} bins "
+          "differ from the plain version")
+    reading("unwrap_diff", "unwrap_diff",
+            "audioflux_tpu/ops/pallas_unwrap.py:102", 0,
+            diff / fi.numel(), bins_ms, p_ms, None, 12 * cells,
+            60.0 * cells, f"one band shard: {b_loc}x{nb}x{n} cells "
+            "-> bins", entry="synsq_bins")
+    k_ms = cuda_ms(lambda: columnar_scatter(Wl, fi, WAV_NUM), reps=10)
+    p_ms = cuda_ms(chunked(lambda v, f: columnar_scatter_ref(v, f, WAV_NUM),
+                           (Wl, fi), 1), reps=2, warmup=1)
+
+    def lib_scatter(v, f):
+        buf = torch.zeros((v.shape[0], WAV_NUM + 1, n, 2), device="cuda")
+        buf.scatter_add_(1, f.long()[..., None].expand(*f.shape, 2),
+                         torch.view_as_real(v))
+    l_ms = cuda_ms(lambda: lib_scatter(Wl, fi), reps=5)
+    same = torch.equal(columnar_scatter(Wl, fi, WAV_NUM),
+                       columnar_scatter_ref(Wl, fi, WAV_NUM))
+    if not same:
+        raise AssertionError("columnar_scatter differs at one band shard")
+    reading("columnar_scatter", "columnar_scatter",
+            "audioflux_tpu/ops/pallas_scatter.py:71", 0,
+            0.0, k_ms, p_ms, l_ms,
+            (12 + 8) * cells, 2.0 * cells,
+            f"one band shard: {b_loc} x {nb} -> {WAV_NUM} x {n}")
+    del Fb, Wl, fi
+
+    # --- e: the batch map ----------------------------------------------------
+    xm, hp, yin = d["mir_x"], d["hp"], d["yin"]
+    hours = xm.numel() / SR / 3600.0
+    versus(f"3g e HPSS.hpss {tuple(xm.shape)}", lambda: d["f_hp"](xm),
+           lambda: hp.hpss(xm), hours)
+    versus("3g e PitchYIN.pitch", lambda: d["f_yin"](xm),
+           lambda: yin.pitch(xm), hours)
+
+    # --- g: BatchRunner, host clock --------------------------------------
+    runner, paths = d["runner"], d["paths"]
+    metrics.reset()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.run_files(paths)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    rep = metrics.report()
+    wall = sorted(times)[1]
+    load = rep["af.load_batch.seconds"] / rep["af.load_batch.calls"]
+    print(f"  3g g BatchRunner.run_files, {len(paths)} files (host clock, "
+          f"median of 3): {wall * 1e3:.1f} ms = {len(paths) / wall:.1f} "
+          f"files/s; the loader {load * 1e3:.1f} ms of it "
+          f"({rep['af.load_batch.calls']} calls), the sharded mel "
+          f"{rep['af.run_array.seconds'] / rep['af.run_array.calls'] * 1e3:.1f}"
+          " ms")
+    shutil.rmtree(d["tmp"], ignore_errors=True)
+    return shapes
+
+
+def pair_rel(got, ref):
+    """max error over the peak of (re, im) pairs (im may be None)."""
+    e, pk = pair_err(got, ref)
+    return e / pk
+
+
+def merge_slice10(rows, launches, shapes):
+    """The kernels line's rows gain the slice-10 paths' launches (the
+    entries of a kernel of several entries their own) and their readings
+    at one shard's shapes under ``shapes``."""
+    extra = {"fused_mel_mfcc": ("fused_mel_mfcc",), "fft_pow2": ("fft_pow2",),
+             "fft_inv": ("fft_inv",), "median_filter": ("median_filter",),
+             "cwt_ifft_bank": ("cwt_ifft_bank",),
+             "columnar_scatter": ("columnar_scatter",)}
+    for row in rows:
+        name = row["name"]
+        if "entries" in row:
+            for e in row["entries"]:
+                e["launches"] += launches.get(e["entry"], 0)
+            main = next(e for e in row["entries"] if e["entry"] == row["entry"])
+            row["launches"] = (sum(e["launches"] for e in row["entries"])
+                               if name == "fft_autocorr" else main["launches"])
+        else:
+            row["launches"] += sum(launches.get(k, 0)
+                                   for k in extra.get(name, ()))
+        if name in shapes:
+            row.setdefault("shapes", []).extend(shapes[name])
+    return rows
+
+
 def main():
+    if "--s10-worker" in sys.argv:     # one process of phase 3g h
+        i = sys.argv.index("--s10-worker")
+        s10_worker(int(sys.argv[i + 1]), int(sys.argv[i + 2]), sys.argv[i + 3])
+        return
     upto = int(sys.argv[sys.argv.index("--upto") + 1]) if "--upto" in sys.argv else 4
     smi = phase0_identity()
     phase1_build()
@@ -3179,6 +3944,8 @@ def main():
         phase3_slice8_paths(gen)
         torch.cuda.empty_cache()
         phase3_slice9_paths(gen)
+        torch.cuda.empty_cache()
+        shutil.rmtree(phase3_slice10_paths(gen)["tmp"], ignore_errors=True)
         return
     rows = phase4_timing(plan, x, xs, mel_launches, errs)
     del plan, x, xs
@@ -3200,6 +3967,11 @@ def main():
     rows = merge_slice9(rows, slice9["launches"],
                         phase4_slice9_timing(slice9, errs9))
     del slice9
+    torch.cuda.empty_cache()
+    slice10 = phase3_slice10_paths(gen)
+    rows = merge_slice10(rows, slice10["launches"],
+                         phase4_slice10_timing(slice10))
+    del slice10
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
