@@ -37,15 +37,42 @@
 //     (PERF.md compares this with storing the bins as floats straight from
 //     registers); at 4096 with real input the buffer carries the partners'
 //     halves, and those bins go out as floats.
-//   * n = 8192, 16384: one block per row, n/16 threads; the row (at most
-//     139 KB with padding) lives in dynamic shared memory for the radix-16
-//     Stockham passes of fft_smem.cuh, so device memory sees one read and
-//     one write per point;
-//   * n = 32768 (256 KB, more than a block's 227 KB of shared memory):
-//     four-step split n = n1 * n2 (n1 = 128) through a device scratch
-//     buffer: column FFTs of length n1 with the twiddle W_n^(t2 k1) applied
-//     on the way out, then row FFTs of length n2 that write bin
-//     k1 + n1 k2 in natural order.
+//   * n = 8192..32768, a forward of real rows or an inverse with real
+//     output (HPS, LHS and PEF at 32768, PEF's frames and xcorr at 8192,
+//     every rfft from 8192 on): real_fwd_kernel / real_inv_kernel, one
+//     block per row, N / 16 threads, N = n / 2.  A real row of n points is
+//     one complex row of N points, z[m] = x[2m] + i x[2m+1], exactly as it
+//     lies in memory as float2; at n = 32768 that half row fills 139,296
+//     bytes of fft_smem.cuh's padded layout, one block an SM, so the row
+//     never leaves the chip, and the work is half a complex transform's.
+//     The forward loads z with cp.async (8-byte copies: the layout's gap
+//     every 16 points leaves every other 128-byte piece 8 bytes off a
+//     16-byte boundary; 4-byte copies where a row is not 8-byte aligned),
+//     runs the N-point transform with the N-point table (half the bytes of
+//     the n-point one for its twiddle gathers), and splits in
+//     place: the thread of k pairs Z[k] with Z[N - k], E = (Z[k] + conj
+//     Z[N - k]) / 2, O = (Z[k] - conj Z[N - k]) / 2i, X[k] = E + W^k O and
+//     X[N - k] = conj(E - W^k O); X[0] and X[N] are Re Z[0] +- Im Z[0], and
+//     X[N/2] = conj Z[N/2].  It writes only bins [0, bins) of the natural
+//     spectrum, the mirror half as conj X[n - k] (HPS keeps 10,001 of
+//     32,768).  The inverse returns Re(ifft(Y)) of any Y, through the
+//     Hermitian part H[k] = (Y[k] + conj Y[n - k]) / 2: the thread of k
+//     reads Y[k], Y[N - k], Y[N + k] and Y[n - k] (each value of the row
+//     once), forms E = H[k] + H[k + N] and O = (H[k] - H[k + N]) W^-k for
+//     both k and N - k (halves dropped: the store scales by 1 / 2n), runs
+//     the N-point inverse by the conjugation above and writes x[2m] =
+//     Re z[m], x[2m+1] = Im z[m] as float2.  No device buffer, no
+//     imaginary half, no mirror half beyond the bins asked for;
+//   * complex rows at n = 8192, 16384: fft_row_kernel, one block per row,
+//     n/16 threads; the row (at most 139 KB with padding) lives in dynamic
+//     shared memory for the radix-16 Stockham passes of fft_smem.cuh, so
+//     device memory sees one read and one write per point;
+//   * complex rows at n = 32768 (256 KB, more than a block's 227 KB of
+//     shared memory), and the autocorrelation there: four-step split
+//     n = n1 * n2 (n1 = 128) through a device scratch buffer: column FFTs
+//     of length n1 with the twiddle W_n^(t2 k1) applied on the way out,
+//     then row FFTs of length n2 that write bin k1 + n1 k2 in natural
+//     order.  No main path launches it.
 //
 // The autocorrelation (YIN's, 59,776 rows of 4096 a call) reads its two
 // operands once and writes one real row: 12 bytes a point against two
@@ -95,6 +122,7 @@ using afx::seq_stride;
 namespace {
 
 constexpr int kMaxSinglePassLog2 = 14;
+constexpr int kRealMinLog2 = 13;  // the real-row route from n = 8192 on
 constexpr int kLog2N1 = 7;   // four-step column length 128
 constexpr int kCols = 16;    // columns per block in the column pass
 constexpr int kRows = 8;     // rows per block in the row pass
@@ -595,6 +623,121 @@ fft_row_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
+// The real-row route, forward (n = 8192..32768, see the note at the top):
+// one real row of x per block, N / 16 threads, N = n / 2; bins [0, bins)
+// of the spectrum into yr, yi, rows `bins` apart.  `stages` cuts it for
+// timing: 1 stores what it loaded, 2 the N-point transform, 3 is the whole
+// kernel; every cut stores as many values as the whole kernel.
+__global__ void __launch_bounds__(1024)
+real_fwd_kernel(const float* __restrict__ x, float* __restrict__ yr,
+                float* __restrict__ yi, const float2* __restrict__ tw,
+                int log2n, int bins, int stages) {
+  extern __shared__ float2 z[];
+  const int N = 1 << (log2n - 1), n = 2 * N;
+  const int T = blockDim.x;
+  const float* row = x + (static_cast<size_t>(blockIdx.x) << log2n);
+  // z[m] = (x[2m], x[2m+1]) into the padded layout
+  if ((reinterpret_cast<uintptr_t>(row) & 7) == 0) {
+    for (int m = threadIdx.x; m < N; m += T) {
+      __pipeline_memcpy_async(&z[pad(m)], row + 2 * m, 8);
+    }
+  } else {
+    for (int m = threadIdx.x; m < N; m += T) {
+      __pipeline_memcpy_async(&z[pad(m)].x, row + 2 * m, 4);
+      __pipeline_memcpy_async(&z[pad(m)].y, row + 2 * m + 1, 4);
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  if (stages > 1) fft_smem(z, log2n - 1, tw + (1 << log2n), log2n - 1);
+  // the split, in place: X[k] at z[pad(k)] for k < N, X[N] at z[pad(N)]
+  for (int k = threadIdx.x; stages > 2 && k < N / 2; k += T) {
+    if (k == 0) {
+      const float2 v = z[0];
+      const float2 h = z[pad(N / 2)];
+      z[0] = make_float2(v.x + v.y, 0.f);
+      z[pad(N)] = make_float2(v.x - v.y, 0.f);
+      z[pad(N / 2)] = make_float2(h.x, -h.y);
+      continue;
+    }
+    const float2 a = z[pad(k)], b = z[pad(N - k)];
+    const float2 e = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
+    const float2 o = make_float2(0.5f * (a.y + b.y), 0.5f * (b.x - a.x));
+    const float2 wo = cmul(__ldg(&tw[k]), o);
+    z[pad(k)] = make_float2(e.x + wo.x, e.y + wo.y);
+    z[pad(N - k)] = make_float2(e.x - wo.x, wo.y - e.y);
+  }
+  __syncthreads();
+  const size_t off = static_cast<size_t>(blockIdx.x) * bins;
+  for (int k = threadIdx.x; k < bins; k += T) {
+    const bool low = k <= N;
+    const float2 v = z[pad(low ? k : n - k)];
+    yr[off + k] = v.x;
+    yi[off + k] = low ? v.y : -v.y;
+  }
+}
+
+// The real-row route, inverse: x = Re(ifft(yr + i yi)) of one row per
+// block (yi may be null: zeros), N / 16 threads, N = n / 2.  `stages` 1
+// cuts it before the transform (it stores the merged halves), for timing.
+__global__ void __launch_bounds__(1024)
+real_inv_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
+                float* __restrict__ x, const float2* __restrict__ tw,
+                int log2n, int stages) {
+  extern __shared__ float2 z[];
+  const int N = 1 << (log2n - 1), n = 2 * N;
+  const int T = blockDim.x;
+  const size_t off = static_cast<size_t>(blockIdx.x) << log2n;
+  const float* ar = yr + off;
+  const float* ai = yi == nullptr ? nullptr : yi + off;
+  auto load = [&](int k) {
+    return make_float2(__ldg(ar + k), ai == nullptr ? 0.f : __ldg(ai + k));
+  };
+  // A = Y[k] + conj Y[n - k], B = Y[N + k] + conj Y[N - k] (twice H[k] and
+  // H[k + N]); E = A + B, O = (A - B) W^-k; Z[k] = E + i O and Z[N - k] =
+  // conj E + i conj O; the inverse's conjugation stores conj Z
+  for (int k = threadIdx.x; k < N / 2; k += T) {
+    if (k == 0) {
+      // Z[0] = (A + B) + i (A - B) with A, B real; k = N/2 pairs with
+      // itself: B = conj A, W^-(N/2) = i, so Z = 2 conj A
+      const float a = 2.f * __ldg(ar), b = 2.f * __ldg(ar + N);
+      const float2 p = load(N / 2), q = load(N + N / 2);
+      z[0] = make_float2(a + b, b - a);
+      z[pad(N / 2)] = make_float2(2.f * (p.x + q.x), 2.f * (p.y - q.y));
+      continue;
+    }
+    const float2 yk = load(k), ynk = load(n - k);
+    const float2 yNk = load(N + k), yNmk = load(N - k);
+    const float2 A = make_float2(yk.x + ynk.x, yk.y - ynk.y);
+    const float2 B = make_float2(yNk.x + yNmk.x, yNk.y - yNmk.y);
+    const float2 e = make_float2(A.x + B.x, A.y + B.y);
+    const float2 w = __ldg(&tw[k]);
+    const float2 o = cmul(make_float2(A.x - B.x, A.y - B.y),
+                          make_float2(w.x, -w.y));
+    z[pad(k)] = make_float2(e.x - o.y, -e.y - o.x);
+    z[pad(N - k)] = make_float2(e.x + o.y, e.y - o.x);
+  }
+  __syncthreads();
+  if (stages > 1) fft_smem(z, log2n - 1, tw + (1 << log2n), log2n - 1);
+  // z = conj(F) / N of the halves' Z, that is conj(F) / 2n here
+  const float s = 0.5f / static_cast<float>(n);
+  float* out = x + off;
+  if ((reinterpret_cast<uintptr_t>(out) & 7) == 0) {
+    float2* out2 = reinterpret_cast<float2*>(out);
+    for (int m = threadIdx.x; m < N; m += T) {
+      const float2 v = z[pad(m)];
+      out2[m] = make_float2(s * v.x, -s * v.y);
+    }
+  } else {
+    for (int m = threadIdx.x; m < N; m += T) {
+      const float2 v = z[pad(m)];
+      out[2 * m] = s * v.x;
+      out[2 * m + 1] = -s * v.y;
+    }
+  }
+}
+
 // The fused autocorrelation of one row per block (n = 8192, 16384):
 // out = 0.5 * Im(ifft(fft(xr + i xi)^2)).  With S = fft(z)^2 and
 // F = fft(conj(S)), ifft(S) = conj(F) / n, so out = -0.5 / n * Im(F).
@@ -815,14 +958,46 @@ int launch_acf(const AcfArgs& a, const float2* tw, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The real-row route (n >= 2^kRealMinLog2): a forward of the real rows in
+// (ir) into bins [0, bins) of (or, oi), or the inverse of (ir, ii) into the
+// real rows of or.
+int launch_real(const float* ir, const float* ii, float* or_, float* oi,
+                const float2* tw, long long batch, int log2n, int bins,
+                bool forward, int stages, cudaStream_t st) {
+  const int half = 1 << (log2n - 1);
+  const int smem = static_cast<int>(sizeof(float2)) * seq_stride(half);
+  const unsigned grid = static_cast<unsigned>(batch);
+  cudaError_t e = forward ? allow_smem(real_fwd_kernel, smem)
+                          : allow_smem(real_inv_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (forward) {
+    real_fwd_kernel<<<grid, half / 16, smem, st>>>(ir, or_, oi, tw, log2n,
+                                                   bins, stages);
+  } else {
+    real_inv_kernel<<<grid, half / 16, smem, st>>>(ir, ii, or_, tw, log2n,
+                                                   stages);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bins: the forward's count of leading natural-order bins, n except on the
+// real-row route; the inverse ignores it.
 int transform(const float* xr, const float* xi, float* yr, float* yi,
               void* scratch, const void* tw, long long batch, int log2n,
-              Dir d, int stages, void* stream) {
+              Dir d, int bins, int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float2* twf = static_cast<const float2*>(tw);
+  const bool forward = d.sign > 0.f;
   if (batch <= 0) return 0;
+  const bool real_route =
+      log2n >= kRealMinLog2 && (forward ? xi == nullptr : yi == nullptr);
   if (bad_args(batch, log2n) || stages < 1 || stages > 3 ||
-      (stages != 3 && log2n > 12)) {
+      (stages != 3 && log2n > 12 && !real_route)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n = 1 << log2n;
+  if (!forward) bins = n;
+  if (bins < 1 || bins > n || (bins != n && !real_route)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (log2n == 11) {
@@ -830,6 +1005,10 @@ int transform(const float* xr, const float* xi, float* yr, float* yi,
   }
   if (log2n == 12) {
     return launch_reg<64, 64>(xr, xi, yr, yi, twf, batch, d, stages, st);
+  }
+  if (real_route) {
+    return launch_real(xr, xi, yr, yi, twf, batch, log2n, bins, forward,
+                       stages, st);
   }
   if (log2n <= kMaxSinglePassLog2) {
     const int smem = static_cast<int>(sizeof(float2)) * seq_stride(1 << log2n);
@@ -839,6 +1018,7 @@ int transform(const float* xr, const float* xi, float* yr, float* yi,
                      st>>>(xr, xi, yr, yi, twf, log2n, d);
     return static_cast<int>(cudaGetLastError());
   }
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int n1 = 1 << kLog2N1;
   const int n2 = 1 << (log2n - kLog2N1);
   float2* y = static_cast<float2*>(scratch);
@@ -856,34 +1036,39 @@ int transform(const float* xr, const float* xi, float* yr, float* yi,
 }  // namespace
 
 // xr, xi: (batch, n) fp32 rows (xi may be null: real input).
-// yr, yi: (batch, n) fp32 natural-order spectrum.  scratch: batch * n
-// float2, used only when n > 2^14.  tw: n float2, exp(-2 pi i k / n).
-// stages: 3 (the whole transform), or at n = 2048 and 4096 1 or 2 to cut
-// the kernel for timing (the output is then not the spectrum).  Returns
-// the CUDA error code of the launches (0 on success).
+// yr, yi: (batch, bins) fp32, the first bins of the natural-order spectrum;
+// bins < n only for real input at n >= 8192 (else bins = n).  scratch:
+// batch * n float2, used only by complex rows at n = 32768 (null
+// elsewhere).  tw: 3n/2 float2, exp(-2 pi i k / n) for k < n, then
+// exp(-2 pi i k / (n/2)) for k < n/2 (the real-row route's transform
+// reads the second table).  stages: 3 (the whole
+// transform), or at n = 2048 and 4096 and on the real-row route 1 or 2 to
+// cut the kernel for timing (the output is then not the spectrum).
+// Returns the CUDA error code of the launches (0 on success).
 extern "C" int af_fft_pow2_fwd(const float* xr, const float* xi, float* yr,
                                float* yi, void* scratch, const void* tw,
-                               long long batch, int log2n, int stages,
-                               void* stream) {
+                               long long batch, int log2n, int bins,
+                               int stages, void* stream) {
   return transform(xr, xi, yr, yi, scratch, tw, batch, log2n, Dir{1.f, 1.f},
-                   stages, stream);
+                   bins, stages, stream);
 }
 
 // The inverse, 1/n included: yr, yi (batch, n) natural-order spectrum ->
 // xr, xi (batch, n) signal.  yi may be null (a spectrum with no imaginary
-// part); xi may be null: the imaginary output is then not written.
-// scratch, tw and stages as above.
+// part); xi may be null: the imaginary output is then not written (from
+// n = 8192 on the real-row route; scratch is then unused).  bins is
+// ignored; scratch, tw and stages as above.
 extern "C" int af_fft_pow2_inv(const float* yr, const float* yi, float* xr,
                                float* xi, void* scratch, const void* tw,
-                               long long batch, int log2n, int stages,
-                               void* stream) {
+                               long long batch, int log2n, int bins,
+                               int stages, void* stream) {
   return transform(yr, yi, xr, xi, scratch, tw, batch, log2n,
-                   Dir{-1.f, 1.f / static_cast<float>(1 << log2n)}, stages,
-                   stream);
+                   Dir{-1.f, 1.f / static_cast<float>(1 << log2n)}, bins,
+                   stages, stream);
 }
 
 // out = 0.5 * Im(ifft(fft(xr + i xi)^2)), all (batch, n) fp32.  scratch and
-// tw as above.
+// tw as above (the second table unread).
 extern "C" int af_fft_pow2_autocorr(const float* xr, const float* xi,
                                     float* out, void* scratch, const void* tw,
                                     long long batch, int log2n, void* stream) {
@@ -902,6 +1087,7 @@ extern "C" int af_fft_pow2_autocorr(const float* xr, const float* xi,
                           smem, st>>>(xr, xi, out, twf, log2n);
     return static_cast<int>(cudaGetLastError());
   }
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int n1 = 1 << kLog2N1;
   const int n2 = 1 << (log2n - kLog2N1);
   const unsigned b = static_cast<unsigned>(batch);
@@ -925,7 +1111,8 @@ extern "C" int af_fft_pow2_autocorr(const float* xr, const float* xi,
 // YIN's autocorrelation, n = 2048 or 4096: x (clips, samples) fp32, frame
 // f of a clip at samples [f * slide, f * slide + n), f < frames;
 // out (clips * frames, n - lag) = lags [lag, n) of 0.5 * Im(ifft(fft(z)^2)),
-// z[j] = frame[j] + i (frame[lag - j] if j <= lag else 0).  tw as above.
+// z[j] = frame[j] + i (frame[lag - j] if j <= lag else 0).  tw: the n
+// entries of the first table above.
 extern "C" int af_fft_pow2_autocorr_yin(const float* x, float* out,
                                         const void* tw, long long clips,
                                         long long samples, int frames,

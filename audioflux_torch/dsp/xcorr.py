@@ -4,7 +4,7 @@ Counterpart of ``audioflux_tpu/dsp/xcorr.py`` (reference
 ``src/dsp/xcorr_algorithm.c``): full correlation over lags -(n-1)..(n-1),
 optional coefficient normalization by sqrt(sum(x^2)*sum(y^2)).  The
 transforms at ceil_pow2(2n) go through ``ops.fft`` (the FFT kernels on the
-card at lengths 2048..32768).
+card at lengths 2048..32768); the inverse writes its real part only.
 """
 
 from __future__ import annotations
@@ -43,7 +43,9 @@ def xcorr(v1, v2=None, norm_type: XcorrNormalType = XcorrNormalType.COEFF,
         y = as_tensor(v2, dev)
         prod = F1 * torch.conj(afft.fft(y, n=L, dim=-1))
         e2 = torch.sum(y * y, dim=-1, keepdim=True)
-    r = afft.ifft(prod, dim=-1).real
+    pr, pi = ((prod.real, prod.imag) if prod.is_complex()
+              else (prod, torch.zeros_like(prod)))
+    r = afft.ifft_parts(pr, pi, real_only=True)
     out = torch.cat([r[..., L - (n - 1):], r[..., :n]], dim=-1)
     if XcorrNormalType(norm_type) == XcorrNormalType.COEFF:
         e1 = torch.sum(x * x, dim=-1, keepdim=True)

@@ -172,13 +172,13 @@ class _HarmonicGrid(_PitchBase):
 
     def _harmonics(self, data_arr, fn):
         """``fn(|F|)`` of the frames' interp_fft_length-point spectrum at
-        the harmonic gather, (..., T, max_index + 1, harmonics).  Only the
-        bins the gather reads are kept past the transform."""
+        the harmonic gather, (..., T, max_index + 1, harmonics).  The
+        transform writes only the bins the gather reads."""
         X = self.interp_fft_length
+        K = min(int(self._hidx.max()) + 1, X)
         yr, yi = afft.fft_parts(F.pad(self._frames(data_arr),
-                                      (0, X - self.fft_length)))
-        K = int(self._hidx.max()) + 1
-        mag = fn(torch.complex(yr[..., :K], yi[..., :K]).abs())
+                                      (0, X - self.fft_length)), bins=K)
+        mag = fn(torch.complex(yr, yi).abs())
         del yr, yi
         g = mag[..., self._hidx_t]
         return g.reshape(g.shape[:-1] + self._hidx.shape)
@@ -326,7 +326,7 @@ class PitchPEF(_PitchBase):
         input."""
         N = self.fft_length
         frames = self._frames(data_arr)
-        Fs = afft.fft(frames, n=2 * N, dim=-1)[..., :N + 1]
+        Fs = afft.rfft(frames, n=2 * N, dim=-1)
         power = Fs.real ** 2 + Fs.imag ** 2
         del Fs
         p1 = power[..., self._pos_t]

@@ -6,8 +6,22 @@ Counterpart of ``audioflux_tpu/ops/pallas_fft.py`` (``fft4_fwd``,
 ``fft4_inv``, ``fft4_autocorr``, ``supports``).  The kernels read and
 write natural bin order, so the TPU package's layout converters
 (``t_to_natural``, ``natural_to_t``, ``permute_bins_t``) have no
-counterpart here: consumers slice the first n//2+1 bins of the natural
-spectrum and never add the mirror half.
+counterpart here.
+
+Which route takes a call (:func:`route`):
+
+* n = 2048, 4096 (:data:`REGISTER_N`): the register route, every
+  direction and kind; it writes the full spectrum, so a forward's ``bins``
+  is a copy of its first bins;
+* n = 8192..32768, a forward of real rows or an inverse with real output
+  (:data:`REAL_MIN`): the real-row route, one complex transform of n/2
+  points a row in shared memory; a forward writes only its first ``bins``
+  natural-order bins;
+* complex rows at 8192, 16384 (forward, or an inverse with an imaginary
+  output): one row a block in shared memory;
+* complex rows at 32768 (:data:`FOUR_STEP_MIN`), and ``fft_autocorr`` at
+  32768: the four-step split through a device buffer of (rows, n, 2)
+  floats, allocated for those calls only.
 """
 
 from __future__ import annotations
@@ -23,17 +37,30 @@ from audioflux_torch.ops import _build
 from audioflux_torch.ops.backend import require_sm90
 from audioflux_torch.ops.frame import cal_time_length, frame_signal
 
-__all__ = ["supports", "fft_fwd", "fft_fwd_ref", "fft_inv", "fft_inv_ref",
-           "fft_autocorr", "fft_autocorr_ref", "fft_autocorr_yin",
-           "fft_autocorr_yin_ref", "twiddle_table"]
+__all__ = ["supports", "route", "fft_fwd", "fft_fwd_ref", "fft_inv",
+           "fft_inv_ref", "fft_autocorr", "fft_autocorr_ref",
+           "fft_autocorr_yin", "fft_autocorr_yin_ref", "twiddle_table"]
 
 REGISTER_N = (2048, 4096)   # the lengths of the register-resident route
-FOUR_STEP_MIN = 32768       # from here on the four-step split with its buffer
+REAL_MIN = 8192             # from here on real rows take the real-row route
+FOUR_STEP_MIN = 32768       # from here on complex rows take the four-step
+                            # split
 
 
 def supports(n: int) -> bool:
     """The kernel's domain: pow2 n in [2048, 32768]."""
     return n > 0 and not n & (n - 1) and 2048 <= n <= 32768
+
+
+def route(n: int, real: bool) -> str:
+    """The route of a transform of n points: ``real`` is a forward of real
+    rows or an inverse with real output.  "register", "real", "row" or
+    "four_step" (the only one with a device buffer)."""
+    if n in REGISTER_N:
+        return "register"
+    if real:
+        return "real"
+    return "four_step" if n >= FOUR_STEP_MIN else "row"
 
 
 @functools.lru_cache(maxsize=None)
@@ -46,10 +73,18 @@ def twiddle_table(n: int, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+def _kernel_table(n: int, device: torch.device) -> torch.Tensor:
+    """The table the row kernels take: :func:`twiddle_table` of n, then
+    that of n/2 (the real-row route's n/2-point transform reads the
+    shorter table)."""
+    return torch.cat([twiddle_table(n, device), twiddle_table(n // 2, device)])
+
+
+@functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("fft_pow2")
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    rows = [p, p, p, p, p, p, ll, i, i, p]
+    rows = [p, p, p, p, p, p, ll, i, i, i, p]
     auto = [p, p, p, p, p, ll, i, p]
     yin = [p, p, p, ll, ll, i, i, i, i, p]
     for fn, argtypes in ((lib.af_fft_pow2_fwd, rows),
@@ -83,60 +118,90 @@ def _check_rows(who: str, **tensors) -> int:
     return n
 
 
-def _call(fn, who: str, x: torch.Tensor, n: int, *ptrs, stages=None):
-    """Launch ``fn(*ptrs, scratch, tw, batch, log2n[, stages], stream)`` on
+def _call(fn, who: str, x: torch.Tensor, n: int, *ptrs, extra=(),
+          four_step=False):
+    """Launch ``fn(*ptrs, scratch, tw, batch, log2n, *extra, stream)`` on
     ``x``'s device and stream; raise on a CUDA error.  ``scratch`` is the
-    four-step split's device buffer (n >= FOUR_STEP_MIN only)."""
+    four-step split's device buffer, allocated only where ``four_step``."""
     require_sm90(x.device)
     batch, log2n = x.numel() // n, n.bit_length() - 1
     scratch = (torch.empty((batch, n, 2), dtype=torch.float32,
-                           device=x.device) if n >= FOUR_STEP_MIN else None)
-    tw = twiddle_table(n, x.device)
+                           device=x.device) if four_step else None)
+    tw = _kernel_table(n, x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*ptrs, None if scratch is None else scratch.data_ptr(),
-                 tw.data_ptr(), batch, log2n,
-                 *(() if stages is None else (stages,)), stream)
+                 tw.data_ptr(), batch, log2n, *extra, stream)
     if err:
         raise RuntimeError(f"{who} launch failed: CUDA error {err}")
 
 
-def fft_fwd_ref(xr: torch.Tensor, xi: torch.Tensor | None = None):
-    """Plain version: ``torch.fft.fft`` of ``xr + i xi`` -> (re, im)."""
+def _check_bins(n: int, bins, xi) -> int:
+    """``bins`` of a forward: None (all n), or 1..n with real input."""
+    if bins is None:
+        return n
+    if xi is not None:
+        raise ValueError("bins needs real input (xi=None)")
+    if not 1 <= bins <= n:
+        raise ValueError(f"bins must be in [1, {n}], got {bins}")
+    return int(bins)
+
+
+def fft_fwd_ref(xr: torch.Tensor, xi: torch.Tensor | None = None,
+                bins: int | None = None):
+    """Plain version: ``torch.fft.fft`` of ``xr + i xi`` -> (re, im), its
+    first ``bins`` bins (None: all)."""
     z = xr if xi is None else torch.complex(xr, xi)
-    y = torch.fft.fft(z, dim=-1)
+    y = torch.fft.fft(z, dim=-1)[..., :bins]
     return y.real.contiguous(), y.imag.contiguous()
 
 
-def fft_fwd(xr: torch.Tensor, xi: torch.Tensor | None = None):
+def fft_fwd(xr: torch.Tensor, xi: torch.Tensor | None = None,
+            bins: int | None = None):
     """Forward FFT of (..., n) fp32 rows (``xi=None``: real input) ->
-    (re, im), each (..., n), natural bin order, the full spectrum.
+    (re, im), each (..., bins), natural bin order: the first ``bins`` bins
+    of the spectrum (None: all n; 1 <= bins <= n, real input only).
 
     A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
     takes the plain version.  ~1e-6 of the peak (the TPU kernel's contract
     is 5e-5).  At n = 2048 and 4096 real rows are transformed two at a time
-    (one packed complex transform, separated in the kernel)."""
+    (one packed complex transform, separated in the kernel); from 8192 on
+    each real row is one complex transform of n/2 points, and only the
+    bins asked for are written."""
     n = _check_rows("fft_fwd", xr=xr, xi=xi)
+    bins = _check_bins(n, bins, xi)
     if xr.device.type == "cpu":
-        return fft_fwd_ref(xr, xi)
-    return _fwd(xr, xi, n)
+        return fft_fwd_ref(xr, xi, bins)
+    return _fwd(xr, xi, n, bins)
 
 
-def _fwd(xr, xi, n, stages=3):
-    """Launch the forward kernel; ``stages`` 1 and 2 (n = 2048 and 4096)
-    cut it after its first or second pass, for measurements (the output
-    is then not the spectrum)."""
-    yr = torch.empty_like(xr)
-    yi = torch.empty_like(xr)
+def _fwd(xr, xi, n, bins=None, stages=3):
+    """Launch the forward kernel; ``stages`` 1 and 2 cut it, for
+    measurements (the output is then not the spectrum): at n = 2048 and
+    4096 after its first or second pass, on the real-row route after the
+    load or after the n/2-point transform."""
+    bins = n if bins is None else bins
+    way = route(n, xi is None)
+    if way == "register" and bins < n:    # the route writes every bin
+        yr, yi = _fwd(xr, xi, n, n, stages)
+        return yr[..., :bins].contiguous(), yi[..., :bins].contiguous()
+    yr = xr.new_empty(xr.shape[:-1] + (bins,))
+    yi = xr.new_empty(xr.shape[:-1] + (bins,))
     if xr.numel() == 0:
         return yr, yi
     _call(_lib().af_fft_pow2_fwd, "fft_pow2 forward", xr, n, xr.data_ptr(),
           None if xi is None else xi.data_ptr(), yr.data_ptr(),
-          yi.data_ptr(), stages=stages)
-    fft_fwd.launches += 1
-    fft_fwd.register_launches += int(n in REGISTER_N)
-    fft_fwd.four_step_launches += int(n >= FOUR_STEP_MIN)
+          yi.data_ptr(), extra=(bins, stages),
+          four_step=way == "four_step")
+    _count(fft_fwd, way)
     return yr, yi
+
+
+def _count(fn, way):
+    fn.launches += 1
+    fn.register_launches += int(way == "register")
+    fn.real_launches += int(way == "real")
+    fn.four_step_launches += int(way == "four_step")
 
 
 def fft_inv_ref(yr: torch.Tensor, yi: torch.Tensor, out_imag: bool = True):
@@ -153,7 +218,9 @@ def fft_inv(yr: torch.Tensor, yi: torch.Tensor, out_imag: bool = True):
     output (use when the result is known to be real).
 
     A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
-    takes the plain version."""
+    takes the plain version.  From n = 8192 on, a real output takes the
+    real-row route: Re(ifft(Y)) of any Y (the Hermitian part of Y is
+    transformed), one complex transform of n/2 points a row."""
     n = _check_rows("fft_inv", yr=yr, yi=yi)
     if yr.device.type == "cpu":
         return fft_inv_ref(yr, yi, out_imag)
@@ -161,12 +228,11 @@ def fft_inv(yr: torch.Tensor, yi: torch.Tensor, out_imag: bool = True):
     xi = torch.empty_like(yr) if out_imag else None
     if yr.numel() == 0:
         return xr, xi
+    way = route(n, not out_imag)
     _call(_lib().af_fft_pow2_inv, "fft_pow2 inverse", yr, n, yr.data_ptr(),
           yi.data_ptr(), xr.data_ptr(), None if xi is None else xi.data_ptr(),
-          stages=3)
-    fft_inv.launches += 1
-    fft_inv.register_launches += int(n in REGISTER_N)
-    fft_inv.four_step_launches += int(n >= FOUR_STEP_MIN)
+          extra=(n, 3), four_step=way == "four_step")
+    _count(fft_inv, way)
     return xr, xi
 
 
@@ -192,7 +258,8 @@ def fft_autocorr(xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     if xr.numel() == 0:
         return out
     _call(_lib().af_fft_pow2_autocorr, "fft_pow2 autocorrelation", xr, n,
-          xr.data_ptr(), xi.data_ptr(), out.data_ptr())
+          xr.data_ptr(), xi.data_ptr(), out.data_ptr(),
+          four_step=n >= FOUR_STEP_MIN)
     fft_autocorr.launches += 1
     return out
 
@@ -265,7 +332,9 @@ fft_fwd.launches = 0
 fft_inv.launches = 0
 fft_fwd.register_launches = 0   # those at n = 2048, 4096 (the register route)
 fft_inv.register_launches = 0
-fft_fwd.four_step_launches = 0  # those at n = 32768 (the four-step route)
+fft_fwd.real_launches = 0       # real rows at n = 8192..32768 (real-row route)
+fft_inv.real_launches = 0
+fft_fwd.four_step_launches = 0  # complex rows at n = 32768 (four-step route)
 fft_inv.four_step_launches = 0
 fft_autocorr.launches = 0
 fft_autocorr_yin.launches = 0

@@ -42,9 +42,13 @@ def rfft(x: torch.Tensor, n=None, dim=-1, exact=False) -> torch.Tensor:
     if not _kernel_tier(ln, exact):
         return torch.fft.rfft(x, n=n, dim=dim)
     v = _prep(x, ln, dim).to(torch.float32).contiguous()
-    yr, yi = cuda_fft.fft_fwd(v)
     m = ln // 2 + 1
-    return torch.complex(yr[..., :m], yi[..., :m]).movedim(-1, dim)
+    if ln >= cuda_fft.REAL_MIN:     # the real-row route writes m bins only
+        yr, yi = cuda_fft.fft_fwd(v, bins=m)
+    else:                           # the register route writes all of them
+        yr, yi = cuda_fft.fft_fwd(v)
+        yr, yi = yr[..., :m], yi[..., :m]
+    return torch.complex(yr, yi).movedim(-1, dim)
 
 
 def fft(x: torch.Tensor, n=None, dim=-1, exact=False) -> torch.Tensor:
@@ -97,18 +101,22 @@ def ifft(x: torch.Tensor, n=None, dim=-1, exact=False) -> torch.Tensor:
     return torch.complex(outr, outi).movedim(-1, dim)
 
 
-def fft_parts(re: torch.Tensor, im: torch.Tensor | None = None):
+def fft_parts(re: torch.Tensor, im: torch.Tensor | None = None,
+              bins: int | None = None):
     """``fft(re + i im)`` over the last axis (``im=None``: real input) as
-    the two float32 parts of the spectrum.  The kernel tier writes the
-    parts as they are, so a caller that takes a large spectrum apart never
-    holds it as a complex tensor too (HPS's and PEF's 32768-point rows)."""
+    the two float32 parts of the spectrum, its first ``bins`` bins (None:
+    all; real input only).  The kernel tier writes the parts as they are,
+    so a caller that takes a large spectrum apart never holds it as a
+    complex tensor too (HPS's and PEF's 32768-point rows), and from 8192
+    on it writes only the bins asked for (HPS's 10,001 of 32,768)."""
     n = re.shape[-1]
     if not cuda_fft.supports(n):
+        cuda_fft._check_bins(n, bins, im)
         y = torch.fft.fft(re if im is None else torch.complex(re, im), dim=-1)
-        return y.real, y.imag
+        return y.real[..., :bins], y.imag[..., :bins]
     return cuda_fft.fft_fwd(
         re.to(torch.float32).contiguous(),
-        None if im is None else im.to(torch.float32).contiguous())
+        None if im is None else im.to(torch.float32).contiguous(), bins)
 
 
 def ifft_parts(re: torch.Tensor, im: torch.Tensor, real_only: bool = False):
@@ -117,7 +125,8 @@ def ifft_parts(re: torch.Tensor, im: torch.Tensor, real_only: bool = False):
     that builds a large spectrum part by part never holds it as a complex
     tensor too (ST's inverse over every bin row).  ``real_only=True``
     returns the real part alone (the kernel then writes no imaginary
-    part: PEF's cross-correlation)."""
+    part, and from 8192 on takes the real-row route: PEF's
+    cross-correlation, ``xcorr``)."""
     n = re.shape[-1]
     if not cuda_fft.supports(n):
         y = torch.fft.ifft(torch.complex(re, im), dim=-1)

@@ -16,7 +16,11 @@ Phases (any failure exits non-zero; no result line is printed then):
    and inverse FFT and the fused autocorrelation at every n in
    2048..32768, and the FFT's and the autocorrelation's register routes
    (n = 2048, 4096) on 1, 3 and 65 rows, real, complex and inverse, at an
-   offset of one float; YIN's autocorrelation entry on clips of odd
+   offset of one float; the FFT's real-row route (n = 8192, 16384, 32768)
+   on 1, 3 and 64 real rows, aligned and one float off, the forward at
+   bins 1, n/2 + 1, 10,001 and n, the inverse to real output of random and
+   Hermitian spectra, the round trip and a real spectrum through the C
+   entry, none of them on the four-step route; YIN's autocorrelation entry on clips of odd
    length, a view at an offset of one float, slides that put frames off
    16-byte alignment, one-frame clips and several lags; the
    fused mel+MFCC kernel over eight shape classes, unaligned views, a
@@ -40,10 +44,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    inverse rows (64 x 2048 rows of 4096, forward and inverse) and Deep's
    7,472 frames at 5e-5; and (2f) over slice 9's rows of config 5's 8 x
    30 s (7,472 frames): ``fft_autocorr`` at 8192 on NCF's and
-   HarmonicRatio's operands, ``fft_pow2`` at 32768 on HPS's real rows,
-   PEF's cross-correlation input and its product spectrum (complex),
-   ``fft_inv`` at 32768 on that product (the four-step route), and
-   ``fft_pow2`` at 8192 on PEF's frames, at 5e-5;
+   HarmonicRatio's operands, ``fft_pow2`` at 32768 on HPS's real rows
+   (the bins it keeps) and PEF's cross-correlation input (the real-row
+   route) and on its product spectrum (complex: the four-step route, on no
+   main path), ``fft_inv`` at 32768 on that product to real output (the
+   real-row route, PEF's call) and to complex output (four-step), and
+   ``fft_pow2`` at 8192 on PEF's frames (the bins its rfft keeps), at 5e-5;
 3. the main paths at full size, each with the launch counts set to 0 just
    before it and read just after (on the MIR path, before and after each
    user's call; the route counts show the FFT's register route and the
@@ -111,8 +117,9 @@ Phases (any failure exits non-zero; no result line is printed then):
       ``HPSSNMF`` on its first clip; ``nmf`` (k 16) on HPSSNMF's
       magnitude, an ``HMM(16, 64)`` trained on 16 steps and decoded, and
       ``viterbi`` (log domain) over 7,472 steps; NCF and HarmonicRatio
-      must launch ``fft_autocorr``, HPS, LHS and PEF the four-step route
-      (PEF its inverse too), TuneTrack ``fft_autocorr_yin``; each against
+      must launch ``fft_autocorr``, HPS, LHS and PEF the FFT's real-row
+      route (PEF its inverse too) and none the four-step route, TuneTrack
+      ``fft_autocorr_yin``; each against
       the port on the CPU (first and last clip): at most 2% of the frames
       off by more than one step of the engine's grid, HarmonicRatio by
       more than 1e-4, TimeStretch/PitchShift at 1e-3 of the peak,
@@ -153,19 +160,26 @@ Phases (any failure exits non-zero; no result line is printed then):
    calls; the extractor whole and each of its transforms, ``ST.st``, Deep,
    Cepstrogram and the DSP calls (4e), with ``fft_pow2`` and ``fft_inv``
    at slice 8's shapes (ST's 131,072 inverse rows both ways, Deep's
-   frames, Hilbert's and xcorr's rows) listed under ``shapes``; slice 9
-   (4f): audio-hours per second of each batched call, the host-clock ms
-   of the single-clip calls, NMF, HMM and viterbi (its microseconds a
-   step), the splits of NCF, PEF, FFP and HPSSNMF, and the FFT kernels at
-   slice 9's shapes under ``shapes`` of ``fft_pow2``, ``fft_inv`` and
-   ``fft_autocorr`` (whose row counts both entries' launches); slice 10
+   frames, Hilbert's rows, and xcorr's rows as ``xcorr`` calls them: a
+   real forward and an inverse to real output) listed under ``shapes``;
+   slice 9 (4f): audio-hours per second of each batched call, the
+   host-clock ms of the single-clip calls, NMF, HMM and viterbi (its
+   microseconds a step), the splits of NCF, PEF, FFP and HPSSNMF, and the
+   FFT kernels at slice 9's shapes as the engines call them (HPS's forward
+   at the bins it keeps, PEF's frames through rfft, PEF's inverse to real
+   output; the complex rows on the four-step route beside them) under
+   ``shapes`` of ``fft_pow2``, ``fft_inv`` and ``fft_autocorr`` (whose row
+   counts both entries' launches), with ``torch.fft.rfft``/``irfft``
+   beside the library call where they give the same values; slice 10
    (4g): audio-hours per second of the sharded calls beside the same
    calls unsharded on the same card, the halo bytes and the time of the
    split with its block copies, BatchRunner's files per second (host
    clock) with the loader's time apart, and the kernels at one shard's
    shapes under ``shapes``.
 
-The second-to-last line is the kernels JSON object; the last line is
+The FFT rows of the kernels line carry ``real_route_launches``, the
+real-row route's share of their main-path launches.  The second-to-last
+line is the kernels JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 ``--upto N`` stops after phase N (a development aid: no result lines).
 ``--s10-worker RANK PORT OUT`` is one process of phase 3g's two-process
@@ -506,7 +520,8 @@ def phase2_kernels(gen):
                 got = (torch.empty_like(xr), torch.empty_like(xr))
                 cuda_fft._call(cuda_fft._lib().af_fft_pow2_inv,
                                "fft_pow2 inverse", xr, n, xr.data_ptr(), None,
-                               got[0].data_ptr(), got[1].data_ptr(), stages=3)
+                               got[0].data_ptr(), got[1].data_ptr(),
+                               extra=(n, 3))
                 abs_err, peak = pair_err(
                     got, fft_inv_ref(xr, torch.zeros_like(xr)))
                 worst = max(worst, abs_err / peak)
@@ -522,6 +537,7 @@ def phase2_kernels(gen):
                 worst = max(worst, abs_err / peak)
             check(f"fft_autocorr register route n={n}, {batch} rows "
                   "(offsets 0 and 1 float)", worst, FFT_TOL)
+    real_route_kernels(gen)
     # YIN's entry, framing from the clips: clips whose length is no
     # multiple of the slide (every other clip off 16-byte alignment), a
     # 1-D view at an offset of one float, slides that put frames off
@@ -656,6 +672,56 @@ def phase2_kernels(gen):
         for what, a, b in (("mel", mel, mel_r), ("cc", cc, cc_r)):
             check(f"fused {label} {what}", rel_err(a, b), FP32_TOL)
     return errs
+
+
+def real_route_kernels(gen):
+    """The real-row route (n = 8192..32768) against the plain versions: 1,
+    3 and 64 real rows at a 16-byte aligned address and one float off; the
+    forward at bins 1, n/2 + 1, 10,001 (above 10,001) and n (errors over
+    the whole spectrum's peak); the inverse with real output of random
+    spectra and of Hermitian ones (a real row's spectrum), and the round
+    trip; the C entry's inverse of a real spectrum (a null imaginary
+    input) into an output one float off.  Every wrapper call must take the
+    real-row route, none the four-step route."""
+    for n in (8192, 16384, 32768):
+        bins_list = sorted({1, n // 2 + 1, min(10001, n), n})
+        for batch in (1, 3, 64):
+            buf = randn(2 * batch * n + 2, gen)
+            worst = 0.0
+            zero_counts()
+            for off in (0, 1):
+                xr = buf[off:off + batch * n].view(batch, n)
+                xi = buf[off + batch * n:off + 2 * batch * n].view(batch, n)
+                full = fft_fwd_ref(xr)
+                peak = pair_err(full, full)[1]
+                for bins in bins_list:
+                    e, _ = pair_err(fft_fwd(xr, bins=bins),
+                                    fft_fwd_ref(xr, None, bins))
+                    worst = max(worst, e / peak)
+                for yr, yi in ((xr, xi), full):
+                    worst = max(worst, pair_rel(
+                        fft_inv(yr, yi, out_imag=False),
+                        fft_inv_ref(yr, yi, out_imag=False)))
+                back, _ = fft_inv(*fft_fwd(xr), out_imag=False)
+                worst = max(worst, pair_rel((back,), (xr,)))
+                out = torch.empty(batch * n + 1, device="cuda")[1:].view(
+                    batch, n)
+                cuda_fft._call(cuda_fft._lib().af_fft_pow2_inv,
+                               "fft_pow2 inverse", xr, n, xr.data_ptr(), None,
+                               out.data_ptr(), None, extra=(n, 3))
+                worst = max(worst, pair_rel(
+                    (out,), fft_inv_ref(xr, torch.zeros_like(xr), False)))
+            torch.cuda.synchronize()
+            counts = read_counts()
+            for d in ("fft_pow2", "fft_inv"):
+                if (counts[f"{d} four-step route"]
+                        or counts[f"{d} real-row route"] != counts[d]):
+                    raise AssertionError(f"real rows at n={n} left the "
+                                         f"real-row route: {counts}")
+            check(f"fft_pow2 real-row route n={n}, {batch} rows (forward at "
+                  f"bins {bins_list}, inverse to real output of random and "
+                  "Hermitian spectra, round trip, a real spectrum through "
+                  "the C entry; offsets 0 and 1 float)", worst, FFT_TOL)
 
 
 def complex_err(got, ref):
@@ -855,8 +921,12 @@ def gate(label, dev_out, plan_cpu, x_cpu):
 
 COUNTERS = {"fft_pow2": (fft_fwd, "launches"),
             "fft_pow2 register route": (fft_fwd, "register_launches"),
+            "fft_pow2 real-row route": (fft_fwd, "real_launches"),
+            "fft_pow2 four-step route": (fft_fwd, "four_step_launches"),
             "fft_inv": (fft_inv, "launches"),
             "fft_inv register route": (fft_inv, "register_launches"),
+            "fft_inv real-row route": (fft_inv, "real_launches"),
+            "fft_inv four-step route": (fft_inv, "four_step_launches"),
             "fft_autocorr": (fft_autocorr, "launches"),
             "fft_autocorr_yin": (fft_autocorr_yin, "launches"),
             "median_filter": (median_filter_last_axis, "launches"),
@@ -2303,19 +2373,16 @@ def deep_rows(plan, x):
 
 
 def read_path_counts():
-    """Every counter a later slice's paths read: the phase-3 counters, the
-    wavelet kernel's and the FFT's four-step route."""
+    """Every counter a later slice's paths read: the phase-3 counters (the
+    FFT's routes among them) and the wavelet kernel's."""
     counts = read_counts()
     counts["cwt_ifft_bank"] = cwt_ifft_bank.launches
-    counts["fft_pow2 four-step route"] = fft_fwd.four_step_launches
-    counts["fft_inv four-step route"] = fft_inv.four_step_launches
     return counts
 
 
 def zero_path_counts():
     zero_counts()
     cwt_ifft_bank.launches = 0
-    fft_fwd.four_step_launches = fft_inv.four_step_launches = 0
 
 
 def count_call(label, fn, required, reckoned_gb, launches, forbidden=()):
@@ -2620,21 +2687,30 @@ def phase4_slice8_timing(d):
         print(f"  {name} alone, {FE_CLIPS} x {x.shape[-1]}: {ms:.3f} ms")
 
     def shape_row(name, fn, ref, lib, tensors, chunk, n_bytes, n_rows, n,
-                  what):
+                  what, lib_real=None):
         """One entry of the kernel's ``shapes``: its error against the
-        plain version over these rows, kernel, plain, library and bound."""
+        plain version over these rows, kernel, plain, library and bound;
+        ``lib_real`` (``torch.fft.rfft`` or ``irfft`` where it gives the
+        same values) is timed beside the library call.  A real-row route
+        row (``lib_real`` given) counts half a complex transform's
+        operations."""
         err = whole_batch(f"{name} {what} vs plain", fn, ref, tensors, chunk,
                           FFT_TOL)
         k_ms = cuda_ms(lambda: fn(*tensors), reps=10)
         p_ms = cuda_ms(chunked(ref, tensors, chunk), reps=3, warmup=1)
         l_ms = cuda_ms(lib, reps=5, warmup=1)
+        ops = n_rows * 5.0 * n * math.log2(n) / (1 if lib_real is None else 2)
         row = kernel_row(name, "fft_pow2", "audioflux_tpu/ops/pallas_fft.py:"
                          + ("346" if name == "fft_pow2" else "360"), 0, err,
-                         k_ms, p_ms, l_ms, n_bytes,
-                         n_rows * 5.0 * n * math.log2(n), what)
-        shapes.setdefault(name, []).append(dict(shape=what, **{
+                         k_ms, p_ms, l_ms, n_bytes, ops, what)
+        entry = dict(shape=what, **{
             k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms", "max_abs_err")}))
+                                "library_ms", "max_abs_err")})
+        if lib_real is not None:
+            entry["library_real_ms"] = cuda_ms(lib_real, reps=5, warmup=1)
+            print(f"    beside it: torch.fft.rfft/irfft "
+                  f"{entry['library_real_ms']:.3f} ms")
+        shapes.setdefault(name, []).append(entry)
 
     # --- the FFT kernels on ST's inverse rows, both directions ---------
     st = fe._objs["st"]
@@ -2673,15 +2749,20 @@ def phase4_slice8_timing(d):
     xp = torch.nn.functional.pad(xs, (0, C3_N))
     shape_row("fft_pow2", fft_fwd, fft_fwd_ref,
               lambda: torch.fft.fft(xp, dim=-1), (xp,), 250, 12 * xp.numel(),
-              C3_CLIPS, n2, f"forward {C3_CLIPS}x{n2} real, xcorr's")
+              C3_CLIPS, n2, f"forward {C3_CLIPS}x{n2} real, xcorr's "
+              "(real-row route)", lib_real=lambda: torch.fft.rfft(xp, dim=-1))
     P = torch.fft.fft(xp, dim=-1) * torch.fft.fft(
         torch.nn.functional.pad(ys, (0, C3_N)), dim=-1).conj()
     pr, pi = P.real.contiguous(), P.imag.contiguous()
-    shape_row("fft_inv", fft_inv, fft_inv_ref,
-              lambda: torch.fft.ifft(P, dim=-1), (pr, pi), 250,
-              16 * pr.numel(), C3_CLIPS, n2,
-              f"{C3_CLIPS}x{n2} complex, xcorr's inverse")
-    del F, hr, hi, xp, P, pr, pi
+    # xcorr's product is Hermitian (two real rows' spectra): irfft of its
+    # first n2/2 + 1 bins gives the same real output
+    Ph = P[..., :C3_N + 1].contiguous()
+    shape_row("fft_inv", real_inv, real_inv_ref,
+              lambda: torch.fft.ifft(P, dim=-1).real, (pr, pi), 250,
+              12 * pr.numel(), C3_CLIPS, n2,
+              f"{C3_CLIPS}x{n2} to real output, xcorr's inverse (real-row "
+              "route)", lib_real=lambda: torch.fft.irfft(Ph, n=n2, dim=-1))
+    del F, hr, hi, xp, P, Ph, pr, pi
 
     # --- the users' calls: audio-hours per second ------------------------
     h5 = x5.numel() / SR / 3600.0
@@ -2739,8 +2820,9 @@ def s9_plans(device):
 def s9_rows(p, x):
     """The rows the batched engines hand the FFT kernels, rebuilt as they
     build them: NCF's and HarmonicRatio's autocorrelation operands at 8192,
-    HPS's real rows at 32768, PEF's frames at 8192, its cross-correlation
-    input (real) and product spectrum (complex) at 32768."""
+    HPS's real rows at 32768 (and the bins it keeps), PEF's frames at 8192,
+    its cross-correlation input (real) and product spectrum (complex) at
+    32768."""
     pef = p["pef"]
     X = pef.xcorr_fft_length
     buf = pef._xcorr_rows(x)
@@ -2752,8 +2834,19 @@ def s9_rows(p, x):
         hr=autocorr_operands(hr_frames, hr.fft_length),
         hps=F.pad(p["hps"]._frames(x), (0, p["hps"].interp_fft_length
                                         - p["hps"].fft_length)).contiguous(),
+        hps_bins=min(int(p["hps"]._hidx.max()) + 1, X),
         pef8=F.pad(pef._frames(x), (0, pef.fft_length)).contiguous(),
         pef_buf=buf, pef_prod=(pr, pi), X=X)
+
+
+def real_inv(yr, yi):
+    """``fft_inv`` with real output (the real-row route from 8192 on), the
+    real part alone."""
+    return fft_inv(yr, yi, out_imag=False)[0]
+
+
+def real_inv_ref(yr, yi):
+    return fft_inv_ref(yr, yi, out_imag=False)[0]
 
 
 def phase2_slice9_kernels(gen):
@@ -2771,20 +2864,27 @@ def phase2_slice9_kernels(gen):
     errs["acf_hr"] = whole_batch(
         f"fft_autocorr 8192, HarmonicRatio's {what}", fft_autocorr,
         fft_autocorr_ref, r["hr"], 1, FFT_TOL)
+    K = r["hps_bins"]
     errs["hps"] = whole_batch(
-        f"fft_pow2 real 32768 (four-step), HPS's {what}", fft_fwd,
-        fft_fwd_ref, (r["hps"],), 1, FFT_TOL)
+        f"fft_pow2 real 32768 bins={K} (real-row route), HPS's {what}",
+        lambda v: fft_fwd(v, bins=K), lambda v: fft_fwd_ref(v, None, K),
+        (r["hps"],), 1, FFT_TOL)
     errs["pef_buf"] = whole_batch(
-        f"fft_pow2 real 32768 (four-step), PEF's cross-correlation {what}",
-        fft_fwd, fft_fwd_ref, (r["pef_buf"],), 1, FFT_TOL)
+        f"fft_pow2 real 32768 (real-row route), PEF's cross-correlation "
+        f"{what}", fft_fwd, fft_fwd_ref, (r["pef_buf"],), 1, FFT_TOL)
     errs["pef_fwd_c"] = whole_batch(
-        f"fft_pow2 complex 32768 (four-step), PEF's product {what}", fft_fwd,
-        fft_fwd_ref, r["pef_prod"], 1, FFT_TOL)
+        f"fft_pow2 complex 32768 (four-step; no main path), PEF's product "
+        f"{what}", fft_fwd, fft_fwd_ref, r["pef_prod"], 1, FFT_TOL)
+    errs["pef_inv_c"] = whole_batch(
+        f"fft_inv 32768 complex output (four-step; no main path), PEF's "
+        f"product {what}", fft_inv, fft_inv_ref, r["pef_prod"], 1, FFT_TOL)
     errs["pef_inv"] = whole_batch(
-        f"fft_inv 32768 (four-step), PEF's product {what}", fft_inv,
-        fft_inv_ref, r["pef_prod"], 1, FFT_TOL)
+        f"fft_inv 32768 real output (real-row route), PEF's product {what}",
+        real_inv, real_inv_ref, r["pef_prod"], 1, FFT_TOL)
+    b8 = r["pef8"].shape[-1] // 2 + 1
     errs["pef8"] = whole_batch(
-        f"fft_pow2 real 8192, PEF's frames, {what}", fft_fwd, fft_fwd_ref,
+        f"fft_pow2 real 8192 bins={b8} (rfft), PEF's frames, {what}",
+        lambda v: fft_fwd(v, bins=b8), lambda v: fft_fwd_ref(v, None, b8),
         (r["pef8"],), 1, FFT_TOL)
     return errs
 
@@ -2830,20 +2930,23 @@ def phase3_slice9_paths(gen):
     xc = x[ends].cpu()
     rows = MIR_SMALL * p["ncf"].cal_time_length(x.shape[-1])
     row_gb = rows * 4 / 1e9            # one fp32 value a frame
-    four = "fft_pow2 four-step route"
+    real_f, real_i = "fft_pow2 real-row route", "fft_inv real-row route"
+    four = ("fft_pow2 four-step route", "fft_inv four-step route")
     # --- the batched engines and HarmonicRatio on 8 x 30 s -------------
     # reckoned: NCF the two operands, the autocorrelation and its scaled
-    # copy (4 x 8192 a row); HPS/LHS the padded rows, the four-step
-    # buffer and the spectrum (5 x 32768), the kept bins (3 x 10001) and
-    # the gather; PEF the spectrum at 8192 (2 x 8192), the cross-
-    # correlation rows, its spectrum, the buffer, the product and the
-    # inverse (8 x 32768); CEP torch.fft's complex tiles (6 x 8192)
+    # copy (4 x 8192 a row); HPS/LHS the padded rows (32768), the kept
+    # bins' parts, their complex copy and magnitude (5 x 10001) and the
+    # gather; PEF the spectrum's kept bins at 8192 and their power (3 x
+    # 4097), the cross-correlation rows, its spectrum, the product and the
+    # inverse (6 x 32768); CEP torch.fft's complex tiles (6 x 8192).  HPS,
+    # LHS and PEF must take the real-row route and never the four-step
+    # route (its buffer is gone from their reckoning)
     batched = (("ncf", ("fft_autocorr",), (), 4 * 8192),
                ("cep", (), ("fft_pow2", "fft_inv", "fft_autocorr"), 6 * 8192),
-               ("hps", ("fft_pow2", four), (), 5 * 32768 + 4 * 10001),
-               ("lhs", ("fft_pow2", four), (), 5 * 32768 + 4 * 10001),
-               ("pef", ("fft_pow2", four, "fft_inv four-step route"), (),
-                8 * 32768 + 2 * 8192))
+               ("hps", ("fft_pow2", real_f), four, 32768 + 6 * 10001),
+               ("lhs", ("fft_pow2", real_f), four, 32768 + 6 * 10001),
+               ("pef", ("fft_pow2", real_f, "fft_inv", real_i), four,
+                6 * 32768 + 3 * 4097))
     out = {}
     for name, req, forbid, per_row in batched:
         plan = p[name]
@@ -3081,8 +3184,12 @@ def phase4_slice9_timing(d, errs):
     X = r["X"]
     nrows = r["hps"].numel() // X
 
-    def shape_row(name, fn, ref, lib, tensors, n_bytes, n_ops, what, err):
-        """One entry of a kernel's ``shapes`` at this slice's rows."""
+    def shape_row(name, fn, ref, lib, tensors, n_bytes, n_ops, what, err,
+                  lib_real=None):
+        """One entry of a kernel's ``shapes`` at this slice's rows;
+        ``lib_real`` calls ``torch.fft.rfft`` or ``irfft`` where they give
+        the same values (timed beside the library call, as
+        ``library_real_ms``)."""
         k_ms = cuda_ms(lambda: fn(*tensors), reps=10)
         p_ms = cuda_ms(chunked(ref, tensors, 1), reps=3, warmup=1)
         l_ms = cuda_ms(chunked(lib, tensors, 1), reps=3, warmup=1)
@@ -3090,9 +3197,14 @@ def phase4_slice9_timing(d, errs):
                          + {"fft_pow2": "346", "fft_inv": "360",
                             "fft_autocorr": "267"}[name], 0, err, k_ms, p_ms,
                          l_ms, n_bytes, n_ops, what)
-        shapes.setdefault(name, []).append(dict(shape=what, **{
+        entry = dict(shape=what, **{
             k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms", "max_abs_err")}))
+                                "library_ms", "max_abs_err")})
+        if lib_real is not None:
+            entry["library_real_ms"] = cuda_ms(lib_real, reps=3, warmup=1)
+            print(f"    beside it: torch.fft.rfft/irfft "
+                  f"{entry['library_real_ms']:.3f} ms")
+        shapes.setdefault(name, []).append(entry)
         return k_ms
 
     def acf_lib(a, b):
@@ -3104,6 +3216,9 @@ def phase4_slice9_timing(d, errs):
 
     def inv_lib(a, b):
         return torch.fft.ifft(torch.complex(a, b), dim=-1)
+
+    def rfft_lib(rows):
+        return chunked(lambda a: torch.fft.rfft(a, dim=-1), (rows,), 1)
     n8 = 8192
     acf_ops = nrows * (10.0 * n8 * math.log2(n8) + 6.0 * n8)
     k_ncf = shape_row("fft_autocorr", fft_autocorr, fft_autocorr_ref, acf_lib,
@@ -3112,27 +3227,75 @@ def phase4_slice9_timing(d, errs):
     shape_row("fft_autocorr", fft_autocorr, fft_autocorr_ref, acf_lib,
               r["hr"], 12 * r["hr"][0].numel(), acf_ops,
               f"{nrows}x{n8} rows (xr, xi), HarmonicRatio's", errs["acf_hr"])
+    # the real-row route: a real FFT of n points is about 2.5 n log2 n
+    # operations; its bytes are the real rows in and the bins written
     fops = nrows * 5.0 * X * math.log2(X)
-    shape_row("fft_pow2", fft_fwd, fft_fwd_ref, fwd_lib, (r["hps"],),
-              12 * r["hps"].numel(), fops,
-              f"forward {nrows}x{X} real, HPS's rows (four-step)", errs["hps"])
+    rops = fops / 2
+    K = r["hps_bins"]
+    shape_row("fft_pow2", lambda v: fft_fwd(v, bins=K),
+              lambda v: fft_fwd_ref(v, None, K), fwd_lib, (r["hps"],),
+              4 * r["hps"].numel() + 8 * nrows * K, rops,
+              f"forward {nrows}x{X} real, bins={K}, HPS's rows (real-row "
+              "route)", errs["hps"], lib_real=rfft_lib(r["hps"]))
     k_buf = shape_row("fft_pow2", fft_fwd, fft_fwd_ref, fwd_lib,
-                      (r["pef_buf"],), 12 * r["pef_buf"].numel(), fops,
+                      (r["pef_buf"],), 12 * r["pef_buf"].numel(), rops,
                       f"forward {nrows}x{X} real, PEF's cross-correlation "
-                      "rows (four-step)", errs["pef_buf"])
+                      "rows (real-row route)", errs["pef_buf"],
+                      lib_real=rfft_lib(r["pef_buf"]))
     shape_row("fft_pow2", fft_fwd, fft_fwd_ref, fwd_lib, r["pef_prod"],
               16 * r["pef_prod"][0].numel(), fops,
-              f"forward {nrows}x{X} complex, PEF's product rows (four-step)",
-              errs["pef_fwd_c"])
-    k_inv = shape_row("fft_inv", fft_inv, fft_inv_ref, inv_lib,
-                      r["pef_prod"], 16 * r["pef_prod"][0].numel(), fops,
-                      f"{nrows}x{X} complex, PEF's product rows (four-step)",
-                      errs["pef_inv"])
-    k_8 = shape_row("fft_pow2", fft_fwd, fft_fwd_ref, fwd_lib, (r["pef8"],),
-                    12 * r["pef8"].numel(), nrows * 5.0 * n8 * math.log2(n8),
-                    f"forward {nrows}x{n8} real, PEF's frames",
-                    errs["pef8"])
-    del r
+              f"forward {nrows}x{X} complex, PEF's product rows (four-step; "
+              "no main path)", errs["pef_fwd_c"])
+    pr, pi = r["pef_prod"]
+    # PEF's product is Hermitian (two real rows' spectra): irfft of its
+    # first X/2 + 1 bins gives the same real output
+    Ph = torch.complex(pr[..., :X // 2 + 1], pi[..., :X // 2 + 1])
+    k_inv = shape_row("fft_inv", real_inv, real_inv_ref,
+                      lambda a, b: inv_lib(a, b).real, r["pef_prod"],
+                      12 * pr.numel(), rops,
+                      f"{nrows}x{X} to real output, PEF's product rows "
+                      "(real-row route)", errs["pef_inv"],
+                      lib_real=chunked(lambda h: torch.fft.irfft(
+                          h, n=X, dim=-1), (Ph,), 1))
+    del Ph
+    shape_row("fft_inv", fft_inv, fft_inv_ref, inv_lib, r["pef_prod"],
+              16 * pr.numel(), fops,
+              f"{nrows}x{X} complex output, PEF's product rows (four-step; "
+              "no main path)", errs["pef_inv_c"])
+    b8 = r["pef8"].shape[-1] // 2 + 1
+    k_8 = shape_row("fft_pow2", lambda v: fft_fwd(v, bins=b8),
+                    lambda v: fft_fwd_ref(v, None, b8), fwd_lib, (r["pef8"],),
+                    4 * r["pef8"].numel() + 8 * nrows * b8,
+                    nrows * 2.5 * n8 * math.log2(n8),
+                    f"forward {nrows}x{n8} real, bins={b8} (rfft), PEF's "
+                    "frames (real-row route)", errs["pef8"],
+                    lib_real=rfft_lib(r["pef8"]))
+    # the real-row route cut after each stage (every cut stores as many
+    # values as the whole kernel): the differences split its time
+    for label, rows_, n_, b_ in (("HPS's forward", r["hps"], X, K),
+                                 ("PEF's cross-correlation forward",
+                                  r["pef_buf"], X, X),
+                                 ("PEF's frames' forward", r["pef8"], n8,
+                                  b8)):
+        cut = [cuda_ms(lambda s=s: cuda_fft._fwd(rows_, None, n_, b_,
+                                                 stages=s), reps=10)
+               for s in (1, 2, 3)]
+        print(f"  split (real-row route, {label}, n={n_}, bins={b_}): load "
+              f"+ store {cut[0]:.3f} ms, the {n_ // 2}-point transform "
+              f"{cut[1] - cut[0]:.3f}, the split {cut[2] - cut[1]:.3f} (whole "
+              f"{cut[2]:.3f})")
+    out = torch.empty_like(pr)
+
+    def inv_cut(stage):
+        return lambda: cuda_fft._call(
+            cuda_fft._lib().af_fft_pow2_inv, "fft_pow2 inverse", pr, X,
+            pr.data_ptr(), pi.data_ptr(), out.data_ptr(), None,
+            extra=(X, stage))
+    cut = [cuda_ms(inv_cut(s), reps=10) for s in (1, 3)]
+    print(f"  split (real-row route, PEF's inverse, n={X}): load + merge + "
+          f"store {cut[0]:.3f} ms, the {X // 2}-point transform "
+          f"{cut[1] - cut[0]:.3f} (whole {cut[1]:.3f})")
+    del out, r
     # --- the splits: kernels against PyTorch (and host) time ------------
     print(f"  split PitchNCF: fft_autocorr {k_ncf:.3f} ms of "
           f"{call_ms['PitchNCF']:.3f} (PyTorch {call_ms['PitchNCF'] - k_ncf:.3f})")
@@ -3216,7 +3379,9 @@ S10_MP = (4, 64)                 # the two-process batch: recordings, seconds
 S10_EQ_TOL = FP32_TOL
 S10_COUNTERS = {"fused_mel_mfcc": (fused_mel_mfcc, "launches"),
                 "fft_pow2": (fft_fwd, "launches"),
+                "fft_pow2 real-row route": (fft_fwd, "real_launches"),
                 "fft_inv": (fft_inv, "launches"),
+                "fft_inv real-row route": (fft_inv, "real_launches"),
                 "fft_autocorr": (fft_autocorr, "launches"),
                 "fft_autocorr_yin": (fft_autocorr_yin, "launches"),
                 "median_filter": (median_filter_last_axis, "launches"),
@@ -3913,6 +4078,18 @@ def merge_slice10(rows, launches, shapes):
     return rows
 
 
+def merge_real_route(rows, launch_dicts):
+    """The FFT rows gain ``real_route_launches``: the real-row route's
+    share of their main-path launches (slices 7-10 run it; the mel+MFCC,
+    MIR and wavelet paths transform at 2048 and 4096 only)."""
+    for row in rows:
+        if row["name"] in ("fft_pow2", "fft_inv"):
+            row["real_route_launches"] = sum(
+                d.get(f"{row['name']} real-row route", 0)
+                for d in launch_dicts)
+    return rows
+
+
 def main():
     if "--s10-worker" in sys.argv:     # one process of phase 3g h
         i = sys.argv.index("--s10-worker")
@@ -3957,21 +4134,26 @@ def main():
     slice7 = phase3_slice7_paths(gen, errs)
     shapes = phase4_slice7_timing(slice7, errs)
     rows = merge_slice7(rows, slice7["launches"], shapes)
+    later = [slice7["launches"]]
     del slice7
     torch.cuda.empty_cache()
     slice8 = phase3_slice8_paths(gen)
     rows = merge_slice8(rows, slice8["launches"], phase4_slice8_timing(slice8))
+    later.append(slice8["launches"])
     del slice8
     torch.cuda.empty_cache()
     slice9 = phase3_slice9_paths(gen)
     rows = merge_slice9(rows, slice9["launches"],
                         phase4_slice9_timing(slice9, errs9))
+    later.append(slice9["launches"])
     del slice9
     torch.cuda.empty_cache()
     slice10 = phase3_slice10_paths(gen)
     rows = merge_slice10(rows, slice10["launches"],
                          phase4_slice10_timing(slice10))
+    later.append(slice10["launches"])
     del slice10
+    rows = merge_real_route(rows, later)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

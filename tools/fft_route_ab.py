@@ -1,0 +1,128 @@
+"""Time the FFT calls that the pitch engines and ``xcorr`` make at 8192 and
+32768, as each tree's code makes them, on one CUDA card: an A/B of two
+checkouts of ``audioflux_torch`` in one process each.
+
+    python3 tools/fft_route_ab.py [--root DIR] [--label NAME]
+
+``--root`` is the checkout whose ``audioflux_torch`` is imported (default:
+this one); compare two commits by running the script once per checkout in
+one session on one card, in the order A, B, B, A.  Each run prints the
+card (``nvidia-smi`` name and power limit) and one JSON line of median
+CUDA-event times in ms: the engines' FFT calls on config 5's 8 clips of
+30 s (7,472 frames; HPS's forward and the bins it keeps, PEF's frames,
+cross-correlation forward and real-output inverse), ``xcorr``'s forward
+and inverse on 1000 clips of 4096, the complex forward at 32768 (code the
+two trees share), and the users' calls ``PitchHPS``/``PitchLHS``/
+``PitchPEF.pitch`` and ``xcorr``.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+
+def cuda_ms(fn, reps=10, warmup=2):
+    """Median of ``reps`` CUDA-event timings of ``fn()``, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    ap.add_argument("--label", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this script times the card")
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch.nn.functional as F
+    from audioflux_torch.dsp import xcorr
+    from audioflux_torch.mir import PitchHPS, PitchLHS, PitchPEF
+    from audioflux_torch.ops import cuda_fft
+    from audioflux_torch.ops import fft as afft
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    # what the two trees' code calls differs: before the real-row route,
+    # fft_fwd had no ``bins`` and xcorr inverted with ``ifft(...).real``
+    has_bins = "bins" in inspect.signature(cuda_fft.fft_fwd).parameters
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    sr, clips, seconds = 32000, 8, 30
+    t = torch.arange(seconds * sr, device="cuda") / sr
+    f0 = 220.0 * (1.0 + 0.02 * torch.sin(2 * torch.pi * 5.0 * t))
+    tone = 0.5 * torch.sin(2 * torch.pi * torch.cumsum(f0, 0) / sr)
+    x = (tone + 0.05 * torch.randn((clips, t.numel()), generator=gen,
+                                   device="cuda")).contiguous()
+    hps, lhs, pef = (c(samplate=sr, device="cuda")
+                     for c in (PitchHPS, PitchLHS, PitchPEF))
+    out = {"root": args.root, "label": args.label, "card": smi,
+           "bins_api": has_bins}
+
+    # HPS's forward: padded frames, the bins its gather reads
+    X = hps.interp_fft_length
+    rows = F.pad(hps._frames(x), (0, X - hps.fft_length)).contiguous()
+    K = min(int(hps._hidx.max()) + 1, X)
+    out["frames"] = rows.numel() // X
+    out["hps_fwd"] = cuda_ms(lambda: afft.fft_parts(rows, bins=K)
+                             if has_bins else afft.fft_parts(rows))
+    del rows
+    # PEF: its frames at 2N through the transform its code calls, the
+    # cross-correlation rows' forward, the product's real inverse
+    N = pef.fft_length
+    frames = pef._frames(x)
+    out["pef_frames_fwd"] = cuda_ms(
+        lambda: afft.rfft(frames, n=2 * N, dim=-1) if has_bins
+        else afft.fft(frames, n=2 * N, dim=-1)[..., :N + 1])
+    buf = pef._xcorr_rows(x)
+    out["pef_xcorr_fwd"] = cuda_ms(lambda: afft.fft_parts(buf))
+    pr, pi = pef._xcorr_spectrum(buf)
+    out["pef_inv_real"] = cuda_ms(
+        lambda: afft.ifft_parts(pr, pi, real_only=True))
+    # the complex forward at 32768 (the four-step route in both trees)
+    out["complex_fwd_32768"] = cuda_ms(lambda: cuda_fft.fft_fwd(pr, pi))
+    del frames, buf, pr, pi
+    # xcorr's transforms at 8192 on 1000 clips of 4096, as it calls them
+    xs = 0.2 * torch.randn((1000, 4096), generator=gen, device="cuda")
+    ys = xs.roll(1, dims=0)
+    F1 = afft.fft(xs, n=8192, dim=-1)
+    prod = F1 * torch.conj(afft.fft(ys, n=8192, dim=-1))
+    out["xcorr_fwd"] = cuda_ms(lambda: afft.fft(xs, n=8192, dim=-1))
+    xinv = "ifft_parts" in inspect.getsource(xcorr)
+    out["xcorr_inv"] = cuda_ms(
+        lambda: afft.ifft_parts(prod.real, prod.imag, real_only=True)
+        if xinv else afft.ifft(prod, dim=-1).real)
+    del F1, prod
+    # the users' calls
+    for name, fn in (("PitchHPS", lambda: hps.pitch(x)),
+                     ("PitchLHS", lambda: lhs.pitch(x)),
+                     ("PitchPEF", lambda: pef.pitch(x)),
+                     ("xcorr", lambda: xcorr(xs, ys))):
+        out[name] = cuda_ms(fn, reps=5, warmup=1)
+    print(smi)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()
