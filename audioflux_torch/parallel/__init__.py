@@ -1,8 +1,12 @@
 """The parallel family: a device mesh, sharded transforms, a pipeline, a
 batch runner and multi-process start-up, run by one controller that
-walks the mesh's shards (see ``parallel/sharded.py``)."""
+walks the mesh's shards (see ``parallel/sharded.py``).  A sharded
+function assembles its result on the mesh's first device, or, with
+``keep_sharded=True``, returns a :class:`ShardedTensor` whose parts stay
+on the devices that computed them."""
 
 from audioflux_torch.parallel.mesh import Mesh, make_mesh
+from audioflux_torch.parallel._shard import Shard, ShardedTensor
 from audioflux_torch.parallel.sharded import (
     sharded_spectrogram_fn, sharded_stft_fn, sharded_istft_fn,
 )

@@ -4,9 +4,11 @@ process-local feeding.
 Counterpart of ``audioflux_tpu/parallel/distributed.py``.  Scope: the
 ``data`` mesh axis may span processes; the time, band and pipe axes stay
 inside one process.  Each process builds the mesh of its own devices,
-feeds its own rows of the global batch (:func:`global_from_local`), runs
-the sharded functions on them, and :func:`process_allgather` joins the
-processes' results.
+feeds its own rows of the global batch (:func:`global_from_local`; with
+``keep_sharded=True`` a ``ShardedTensor`` placed by the spec, which any
+sharded function whose ``in_specs`` is that spec reads where it lies),
+runs the sharded functions on them, and :func:`process_allgather` joins
+the processes' results.
 
 Backends: NCCL when each process has a card of its own, gloo otherwise
 (the CPU, or two processes sharing one card).  The caller may name the
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from audioflux_torch.parallel._shard import place
+from audioflux_torch.parallel._shard import Shards, place, spec_layout
 from audioflux_torch.parallel.mesh import Mesh
 
 __all__ = ["initialize", "is_initialized", "global_from_local",
@@ -90,12 +92,20 @@ def process_barrier(name: str = "af_barrier", timeout_s: int = 120):
     dist.barrier()
 
 
-def global_from_local(local, mesh: Mesh, spec=("data", "time")):
+def global_from_local(local, mesh: Mesh, spec=("data", "time"),
+                      keep_sharded: bool = False):
     """This process's block of the global array, as float32 on the mesh's
     first device; the sharded functions place its pieces on the mesh's
-    devices.  ``spec`` names the mesh axis of each leading dimension (JAX's
-    ``PartitionSpec``); a sharded dimension must divide its axis, the
-    checks the JAX package's sharding makes."""
+    devices.  ``spec`` names the mesh axis (or a tuple of axes) of each
+    leading dimension (JAX's ``PartitionSpec``); a sharded dimension must
+    divide its axis, the checks the JAX package's sharding makes.
+
+    ``keep_sharded=True``: a ``ShardedTensor`` with ``spec`` (JAX's
+    ``device_put`` with a ``NamedSharding``), each block placed straight
+    from ``local`` on its mesh device; a block that the spec replicates
+    over an axis is placed once, on that axis's first device."""
+    if keep_sharded:
+        return _placed(local, mesh, spec)
     local = place(local, mesh.first)
     for dim, axis in enumerate(tuple(spec)):
         if axis is None:
@@ -108,6 +118,29 @@ def global_from_local(local, mesh: Mesh, spec=("data", "time")):
                              f"divide mesh axis {axis!r} "
                              f"({mesh.shape[axis]})")
     return local
+
+
+def _placed(local, mesh: Mesh, spec):
+    if not isinstance(local, torch.Tensor):
+        local = torch.from_numpy(np.ascontiguousarray(local, np.float32))
+    for dim, axis in enumerate(tuple(spec)):
+        if axis is None:
+            continue
+        axes = tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+        size = 1
+        for a in axes:
+            if a not in mesh.shape:
+                raise ValueError(f"spec names axis {a!r}, mesh has "
+                                 f"{mesh.axis_names}")
+            size *= mesh.shape[a]
+        if local.shape[dim] % size:
+            raise ValueError(f"dimension {dim} ({local.shape[dim]}) must "
+                             f"divide mesh axis {axis!r} ({size})")
+    out = Shards(mesh, spec)
+    for pos, index in spec_layout(mesh, spec, tuple(local.shape)):
+        out.put(place(local[index], mesh.devices[pos]), index,
+                tuple(local.shape), pos)
+    return out.out
 
 
 def process_allgather(x, tiled: bool = True):

@@ -11,14 +11,25 @@ the block's device (``Tensor.to``; on a device the mesh names twice it is
 the block itself, read and never written), runs the port's single-device
 code on ``block ‖ halo`` there, so that every kernel launches once per
 shard at the shard's shape, and assembles the global result on the mesh's
-first device.
+first device; with ``keep_sharded=True`` it returns a ``ShardedTensor``
+laid out by the JAX function's ``out_specs`` instead, each part on the
+device that computed it.  Each function also takes a ``ShardedTensor``
+laid out by its JAX ``in_specs``: a time shard then reads its own block
+where it lies and copies only the halo from its neighbour (JAX's
+``ppermute``), so the STFT feeds the ISTFT, and the spectrogram the
+spectral statistics (``parallel/features.py``), with no gather.
 
 Frame-count convention: each block of L samples (L a multiple of
 ``slide``) computes ``L // slide`` frame slots, and the functions return
 the trimmed global result, exactly ``valid_frames(n, fft, slide)`` frames,
 as the unsharded transform does.  The last shard's halo wraps to shard 0's
 head; its final ``fft // slide - 1`` slots are zero-masked before the
-trim, so that no intermediate holds wrap-around data.
+trim, so that no intermediate holds wrap-around data.  JAX's trim hands
+back a result replicated over ``time`` (``P(data)``, read from
+``out.sharding`` on an 8-device CPU mesh) rather than its ``out_specs``;
+a kept result follows the ``out_specs``, and its last time part holds
+only the valid frames (or samples, for the ISTFT: a part past the last
+one holds nothing and is left out).
 
 The ISTFT is the adjoint: the frames are zero-padded to a whole number of
 equal shards, padded slots are masked out of the overlap-add and of the
@@ -39,8 +50,9 @@ import torch
 
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.fused_mel import FusedMelPlan, fused_mel_mfcc
-from audioflux_torch.parallel._shard import (Assembler, check_2d, on, place,
-                                             replica)
+from audioflux_torch.parallel._shard import (ShardedTensor, check_2d, on,
+                                             place, position, replica,
+                                             row_source, sharded_input, sink)
 from audioflux_torch.parallel.mesh import Mesh
 from audioflux_torch.transforms.spectrogram import xxcc_from_spec
 from audioflux_torch.transforms.stft import _overlap_add, _stft_impl
@@ -75,7 +87,10 @@ def _time_blocks(x, mesh: Mesh, batch_axis: str, time_axis: str,
     ``shards`` yields ``(i, j, dev, block ‖ halo)``, data shard by data
     shard, each block on its device.  The block and its halo are copied
     into one buffer (the kernels read contiguous rows) when the shard's
-    turn comes, so one such buffer a device exists at a time."""
+    turn comes, so one such buffer a device exists at a time.  A
+    ``ShardedTensor`` input (``P(batch, time)``) gives each block where it
+    lies; the halo comes from the neighbour's part."""
+    x = sharded_input(x, mesh, (batch_axis, time_axis), what)
     grid = mesh.grid(batch_axis, time_axis)
     n_b, n_t = grid.shape
     B, n = check_2d(x, n_b, n_t, what)
@@ -89,13 +104,12 @@ def _time_blocks(x, mesh: Mesh, batch_axis: str, time_axis: str,
     if valid_frames(n, slide + halo, slide) < 1:
         raise ValueError(f"{what}: {n} samples hold no frame of "
                          f"{slide + halo}")
-    rows = torch.tensor_split(x, n_b, dim=0) if isinstance(
-        x, torch.Tensor) else np.split(np.asarray(x, np.float32), n_b)
+    rows_on = row_source(x, n_b)[1]
 
     def shards():
         for i in range(n_b):
-            blocks = [place(rows[i][:, j * n_loc:(j + 1) * n_loc],
-                            grid[i, j]) for j in range(n_t)]
+            blocks = [rows_on(i, grid[i, j], slice(j * n_loc, (j + 1) * n_loc))
+                      for j in range(n_t)]
             for j in range(n_t):
                 dev = grid[i, j]
                 right = blocks[(j + 1) % n_t][:, :halo].to(
@@ -104,10 +118,11 @@ def _time_blocks(x, mesh: Mesh, batch_axis: str, time_axis: str,
     return n, shards()
 
 
-def _put_frames(out: Assembler, part, i: int, n_b: int, start: int,
-                t_valid: int, dim: int):
-    """Copy data shard ``i``'s (of ``n_b``) frame slots below ``t_valid``
-    into the global result (frames along ``dim``, -1 or -2)."""
+def _put_frames(out, part, i: int, n_b: int, start: int, t_valid: int,
+                dim: int, pos=None):
+    """Hand data shard ``i``'s (of ``n_b``) frame slots below ``t_valid`` to
+    the sink ``out`` (frames along ``dim``, -1 or -2; ``pos`` the shard's
+    mesh position)."""
     keep = min(part.shape[dim], t_valid - start)
     if keep <= 0:
         return
@@ -120,13 +135,16 @@ def _put_frames(out: Assembler, part, i: int, n_b: int, start: int,
     index[dim] = slice(start, start + keep)
     src = [slice(None)] * part.ndim
     src[dim] = slice(0, keep)
-    out.put(part[tuple(src)], tuple(index), shape)
+    out.put(part[tuple(src)], tuple(index), shape, pos)
 
 
 def sharded_stft_fn(mesh: Mesh, fft_length: int, slide_length: int, window,
-                    batch_axis: str = "data", time_axis: str = "time"):
+                    batch_axis: str = "data", time_axis: str = "time",
+                    keep_sharded: bool = False):
     """A sharded STFT: (B, n) -> complex64 (B, T_valid, fft // 2 + 1),
-    time-major as the JAX function returns it, on the mesh's first device.
+    time-major as the JAX function returns it, on the mesh's first device
+    (``keep_sharded``: a ``ShardedTensor``, ``P(batch, time, None)``).
+    The input may be a ``ShardedTensor`` ``P(batch, time)``.
 
     Each shard runs the port's STFT (``ops.fft.rfft``: the FFT kernel at
     pow2 2048..32768 on the card) on its block and halo.  B must divide the
@@ -141,7 +159,7 @@ def sharded_stft_fn(mesh: Mesh, fft_length: int, slide_length: int, window,
                                  slide_length, halo, "sharded stft")
         tv = valid_frames(n, fft_length, slide_length)
         n_b = mesh.shape[batch_axis]
-        out = Assembler(mesh.first)
+        out = sink(mesh, (batch_axis, time_axis, None), keep_sharded)
         for i, j, dev, ext in shards:
             w = win.setdefault(str(dev), place(window, dev))
             with on(dev):
@@ -150,7 +168,8 @@ def sharded_stft_fn(mesh: Mesh, fft_length: int, slide_length: int, window,
                                position=0, mode=0).transpose(-1, -2)
                 t_loc = D.shape[-2]
                 D = _frame_mask(D, j * t_loc, tv, -2)
-            _put_frames(out, D, i, n_b, j * t_loc, tv, -2)
+            _put_frames(out, D, i, n_b, j * t_loc, tv, -2,
+                        position(mesh, **{batch_axis: i, time_axis: j}))
         return out.out
 
     return run
@@ -158,16 +177,22 @@ def sharded_stft_fn(mesh: Mesh, fft_length: int, slide_length: int, window,
 
 def sharded_istft_fn(mesh: Mesh, fft_length: int, slide_length: int, window,
                      method_type: int = 0,
-                     batch_axis: str = "data", time_axis: str = "time"):
+                     batch_axis: str = "data", time_axis: str = "time",
+                     keep_sharded: bool = False):
     """Inverse of :func:`sharded_stft_fn`: (B, T, fft // 2 + 1) complex ->
-    (B, (T - 1) * slide + fft) on the mesh's first device.
+    (B, (T - 1) * slide + fft) on the mesh's first device
+    (``keep_sharded``: a ``ShardedTensor``, ``P(batch, time)``, shard
+    ``j`` holding samples from ``j * T_loc * slide``).
 
     Any T: the frames are zero-padded to ``t_pad = ceil((T + ceil(halo /
     slide)) / n_time) * n_time`` (every shard equal, and the last frame's
     spill inside the padded length).  Each shard inverts its frames
     (``ops.fft.irfft``: the inverse FFT kernel on the card), masks the
     padded ones out of the overlap-add and the norm, and the tails go one
-    shard to the right."""
+    shard to the right.  A ``ShardedTensor`` input ``P(batch, time,
+    None)`` gives each shard its ``T_loc = t_pad / n_time`` frames where
+    they lie: :func:`sharded_stft_fn`'s kept output holds exactly those,
+    so only the tails cross devices."""
     halo = fft_length - slide_length
     e = 1.0 if method_type == 0 else 0.0
     window = np.asarray(window, np.float32)
@@ -194,6 +219,8 @@ def sharded_istft_fn(mesh: Mesh, fft_length: int, slide_length: int, window,
     def run(D):
         grid = mesh.grid(batch_axis, time_axis)
         n_b, n_t = grid.shape
+        D = sharded_input(D, mesh, (batch_axis, time_axis, None),
+                          "sharded istft")
         if D.ndim != 3:
             raise ValueError(f"sharded istft expects (B, T, fre), got "
                              f"{tuple(D.shape)}")
@@ -209,17 +236,34 @@ def sharded_istft_fn(mesh: Mesh, fft_length: int, slide_length: int, window,
                              f"{n_t} shards {T_loc}, whose "
                              f"{T_loc * slide_length} samples do not cover "
                              f"the halo fft - slide = {halo}")
-        if not isinstance(D, torch.Tensor):
-            D = torch.from_numpy(np.asarray(D, np.complex64))
-        D = torch.nn.functional.pad(D, (0, 0, 0, t_pad - t))
+        kept = isinstance(D, ShardedTensor)
+        if kept:
+            b_loc = B // n_b
+
+            def frames_of(i, j, dev):
+                lo = min(j * T_loc, t)
+                blk = D.take((slice(i * b_loc, (i + 1) * b_loc),
+                              slice(lo, min((j + 1) * T_loc, t))), dev,
+                             torch.complex64)
+                return torch.nn.functional.pad(
+                    blk, (0, 0, 0, T_loc - blk.shape[-2]))
+            row_parts = range(n_b)
+        else:
+            if not isinstance(D, torch.Tensor):
+                D = torch.from_numpy(np.asarray(D, np.complex64))
+            D = torch.nn.functional.pad(D, (0, 0, 0, t_pad - t))
+            row_parts = torch.tensor_split(D, n_b, dim=0)
+
+            def frames_of(rows, j, dev):
+                return rows[:, j * T_loc:(j + 1) * T_loc].to(
+                    device=dev, dtype=torch.complex64, non_blocking=True)
         n_out = (t - 1) * slide_length + fft_length
-        out = Assembler(mesh.first)
-        for i, rows in enumerate(torch.tensor_split(D, n_b, dim=0)):
+        out = sink(mesh, (batch_axis, time_axis), keep_sharded)
+        for i, rows in enumerate(row_parts):
             ys, norms = [], []
             for j in range(n_t):
                 dev = grid[i, j]
-                blk = rows[:, j * T_loc:(j + 1) * T_loc].to(
-                    device=dev, dtype=torch.complex64, non_blocking=True)
+                blk = frames_of(rows, j, dev)
                 with on(dev):
                     y, norm = local(blk, dev, j * T_loc, t)
                 ys.append(y)
@@ -239,7 +283,8 @@ def sharded_istft_fn(mesh: Mesh, fft_length: int, slide_length: int, window,
                                        norm)
                     y = y / norm
                 _put_frames(out, y, i, n_b, j * T_loc * slide_length,
-                            n_out, -1)
+                            n_out, -1,
+                            position(mesh, **{batch_axis: i, time_axis: j}))
         return out.out
 
     return run
@@ -249,12 +294,15 @@ def sharded_spectrogram_fn(plan, mesh: Mesh,
                            batch_axis: str = "data", time_axis: str = "time",
                            with_xxcc: int = 0, fused: bool = False,
                            fused_tile: int = 200,
-                           fused_interpret: bool = False):
+                           fused_interpret: bool = False,
+                           keep_sharded: bool = False):
     """A sharded filterbank spectrogram from a port plan: (B, n) ->
     (B, num, T_valid) on the mesh's first device, the unsharded
     ``plan.spectrogram``'s frame count.  With ``with_xxcc`` > 0 it returns
     (spec, xxcc) with that many coefficients (``plan.xxcc``'s log10 and
-    DCT).
+    DCT).  ``keep_sharded``: each output a ``ShardedTensor``, ``P(batch,
+    None, time)``.  The input may be a ``ShardedTensor`` ``P(batch,
+    time)``.
 
     ``fused=True`` runs each shard through the fused mel+MFCC kernel
     (``ops.fused_mel.fused_mel_mfcc``, ``fast=True``) on ``block ‖ halo``,
@@ -302,9 +350,11 @@ def sharded_spectrogram_fn(plan, mesh: Mesh,
                 t_loc = res[0].shape[-1]
                 res = [_frame_mask(r, j * t_loc, tv, -1) for r in res]
             if outs is None:
-                outs = [Assembler(mesh.first) for _ in res]
+                outs = [sink(mesh, (batch_axis, None, time_axis),
+                              keep_sharded) for _ in res]
+            pos = position(mesh, **{batch_axis: i, time_axis: j})
             for out, r in zip(outs, res):
-                _put_frames(out, r, i, n_b, j * t_loc, tv, -1)
+                _put_frames(out, r, i, n_b, j * t_loc, tv, -1, pos)
         res = [o.out for o in outs]
         return tuple(res) if len(res) > 1 else res[0]
 

@@ -266,14 +266,30 @@ class CQTBase:
         self._build_exec()
 
     # ------------------------------------------------------------------
-    def _octave_spec(self, x, slide, kernel):
+    def _octave_spec(self, x, slide, kernel, frames=None):
         """Padded rect-window STFT times the complex kernel ->
         (..., T', bpo).  Continue mode pads RIGHT instead of CENTER, like
-        the C cqtObj's internal stft (cqt_algorithm.c:1303-1320)."""
+        the C cqtObj's internal stft (cqt_algorithm.c:1303-1320).
+        ``frames=(t0, t1)``: only frames [t0, t1), those past the octave's
+        last frame zero, (..., t1 - t0, bpo)."""
         pos = (PaddingPositionType.RIGHT if self.is_continue
                else PaddingPositionType.CENTER)
         xp = pad_signal(x, self.fft_length, slide, pos,
                         PaddingModeType.CONSTANT)
+        if frames is not None:
+            t0, t1 = frames
+            hi = min(t1, (xp.shape[-1] - self.fft_length) // slide + 1)
+            if hi <= t0:
+                return torch.zeros(
+                    x.shape[:-1] + (t1 - t0, kernel[0].shape[0]),
+                    dtype=torch.complex64, device=x.device)
+            seg = xp[..., t0 * slide:(hi - 1) * slide + self.fft_length]
+            return F.pad(self._octave_spec_frames(seg, slide, kernel),
+                         (0, 0, 0, t1 - hi))
+        return self._octave_spec_frames(xp, slide, kernel)
+
+    def _octave_spec_frames(self, xp, slide, kernel):
+        """Every frame of the padded ``xp`` times the complex kernel."""
         S = afft.rfft(frame_signal(xp, self.fft_length, slide), dim=-1)
         kr, ki = kernel
         sr_, si_ = S.real, S.imag
@@ -321,6 +337,24 @@ class CQTBase:
                 x = self._resampler.resample(x)
                 slide //= 2
         out = torch.cat(blocks, dim=-1) * self._scale_t   # (..., T, num)
+        return out.transpose(-1, -2).contiguous()
+
+    def _cqt_frames(self, x, t0: int, t1: int):
+        """Output frames [t0, t1) of :meth:`cqt` (not in continue mode):
+        (..., num, t1 - t0).  The resample chain runs over the whole
+        signal; each octave frames and transforms only those frames (the
+        body of the frame-sharded ``parallel.sharded_cqt_fn``)."""
+        if self.is_continue:
+            raise ValueError("frame ranges need is_continue=False")
+        slide = self.slide_length
+        blocks = [None] * self.octave_num
+        for i in range(self.octave_num - 1, -1, -1):
+            blocks[i] = self._octave_spec(x, slide, self._kernels_t[i],
+                                          frames=(t0, t1))
+            if i > 0:
+                x = self._resampler.resample(x)
+                slide //= 2
+        out = torch.cat(blocks, dim=-1) * self._scale_t
         return out.transpose(-1, -2).contiguous()
 
     # -- postprocessing ------------------------------------------------------

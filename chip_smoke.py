@@ -146,6 +146,15 @@ Phases (any failure exits non-zero; no result line is printed then):
       with the differing cells counted (synsq and WSST by flips and mass;
       ST, NSGT, cst, CQT at tests/test_sharded_full.py's tolerances), the
       headline's first and last recordings against the CPU at 1e-4;
+      then (3g j, slice 12) every sharded function again with
+      ``keep_sharded=True`` on the same mesh and inputs: each part on its
+      mesh device and ``gather()`` ``torch.equal`` to the default call
+      (Synsq's and WSST's reduce-scatter among them); the chains STFT ->
+      ISTFT and spectrogram -> spectral stats on ShardedTensors with every
+      ``Assembler.put`` and ``gather`` counted (none may run), against the
+      gathered chains; ``global_from_local(keep_sharded=True)`` into the
+      STFT; the frame-sharded CQT (``mode="gspmd"``) on one 10-min clip
+      at 1e-5 of the peak of ``CQT.cqt``;
 4. timing with CUDA events: each kernel's entries, their plain versions
    and the library yardsticks at the main paths' shapes, the splits of
    ``PitchYIN.pitch`` and ``Synsq.synsq``, the fused kernel,
@@ -175,7 +184,10 @@ Phases (any failure exits non-zero; no result line is printed then):
    calls unsharded on the same card, the halo bytes and the time of the
    split with its block copies, BatchRunner's files per second (host
    clock) with the loader's time apart, and the kernels at one shard's
-   shapes under ``shapes``.
+   shapes under ``shapes``; slice 12 (4g j): each call default against
+   kept, the peak device memory of ccwt and cst in both modes, and the
+   CQT on one 10-min clip in the batch form, the frame form and
+   unsharded.
 
 The FFT rows of the kernels line carry ``real_route_launches``, the
 real-row route's share of their main-path launches.  The second-to-last
@@ -188,6 +200,7 @@ call (the script starts both itself).
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import math
@@ -229,6 +242,8 @@ from audioflux_torch.parallel import (  # noqa: E402
     sharded_cwt_fn, sharded_fst_fn, sharded_istft_fn, sharded_nsgt_fn,
     sharded_pwt_fn, sharded_spectral_stats_fn, sharded_spectrogram_fn,
     sharded_st_fn, sharded_stft_fn, sharded_synsq_fn, sharded_wsst_fn)
+from audioflux_torch.parallel import ShardedTensor, _shard  # noqa: E402
+from audioflux_torch.parallel import sharded_full as sharded_full_mod  # noqa: E402,E501
 from audioflux_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
 from audioflux_torch.parallel.sharded import _time_blocks  # noqa: E402
 from audioflux_torch.ops import _build  # noqa: E402
@@ -4048,6 +4063,317 @@ def phase4_slice10_timing(d):
     return shapes
 
 
+# --- slice 12: sharded results kept on their devices, sharded inputs that
+# chain, Synsq's reduce-scatter and the frame-sharded CQT ------------------
+#
+# On phase 3g's mesh and inputs.  Every sharded function runs kept
+# beside its default call: each part on its mesh device, gather()
+# torch.equal to the default result.  The chains (STFT -> ISTFT,
+# spectrogram -> spectral stats) run on ShardedTensors with every
+# Assembler.put and gather counted: none may run.  The frame-form CQT
+# (mode="gspmd") on one clip of S12_CQT_SECONDS at 32 kHz against the
+# unsharded cqt at S12_CQT_TOL of the peak.  The stats chain's plan slides
+# S12_STATS_SLIDE samples, so that the spectrogram's valid frames divide
+# the time axis as the default stats ask (4 * (slots - 1)).
+S12_CQT_SECONDS, S12_CQT_TOL, S12_STATS_SLIDE = 600, 1e-5, 448
+
+
+@contextlib.contextmanager
+def s12_copy_counts():
+    """Counts, inside the block, every copy into one assembled tensor:
+    ``Assembler.put``, the parallel modules' ``gather`` and
+    ``ShardedTensor.gather``."""
+    counts = {"Assembler.put": 0, "gather": 0, "ShardedTensor.gather": 0}
+
+    def counted(key, fn):
+        def wrapper(*a, **k):
+            counts[key] += 1
+            return fn(*a, **k)
+        return wrapper
+    saved = [(_shard.Assembler, "put", _shard.Assembler.put),
+             (ShardedTensor, "gather", ShardedTensor.gather)]
+    saved += [(mod, "gather", mod.gather) for mod in (_shard, sharded_full_mod)]
+    _shard.Assembler.put = counted("Assembler.put", _shard.Assembler.put)
+    ShardedTensor.gather = counted("ShardedTensor.gather",
+                                   ShardedTensor.gather)
+    for mod in (_shard, sharded_full_mod):
+        mod.gather = counted("gather", mod.gather)
+    try:
+        yield counts
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def s12_no_copies(label, counts):
+    print(f"  gate 3g j {label}: copies into one tensor {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"{label}: the chain assembled a result")
+
+
+def s12_kept(label, kept, default):
+    """Each part of the kept result on its mesh device; gather() equal to
+    the default call's result (``kept``/``default`` may be nests)."""
+    if isinstance(default, dict):
+        for k in default:
+            s12_kept(f"{label} [{k}]", kept[k], default[k])
+        return
+    if isinstance(default, (tuple, list)):
+        for k, (a, b) in enumerate(zip(kept, default)):
+            s12_kept(f"{label} [{k}]", a, b)
+        return
+    if not isinstance(kept, ShardedTensor):
+        raise AssertionError(f"{label}: {type(kept).__name__}, not a "
+                             "ShardedTensor")
+    for s in kept.shards:
+        if s.data.device != kept.mesh.devices[s.position]:
+            raise AssertionError(f"{label}: the part at {s.position} lies on "
+                                 f"{s.data.device}")
+    got = kept.gather()
+    if got.shape != default.shape or not torch.equal(got, default):
+        diff = int((got != default).sum()) if got.shape == default.shape \
+            else "shape"
+        raise AssertionError(f"{label}: gather() differs from the default "
+                             f"call ({diff} cells)")
+    print(f"  gate 3g j {label}: {len(kept.shards)} parts {kept.spec} on "
+          f"their mesh devices; gather() equal ({got.numel()} cells)")
+
+
+def phase3_slice12_paths(d, gen):
+    phase("phase 3g j: slice 12, sharded results kept on their devices")
+    mesh, launches = d["mesh"], d["launches"]
+    shards = S10_DATA * S10_TIME
+    s12 = {"pairs": []}
+
+    def call(label, fn, per_shard, gb):
+        return s10_call(label, fn, per_shard, gb, launches)[0]
+
+    def pair(label, default, kept, per_shard, gb, hours=None):
+        """The kept call through its counts, against the default call;
+        both kept for 4g's timing."""
+        got = call(f"3g j: {label}, kept", kept, per_shard, gb)
+        s12_kept(label, got, default())
+        s12["pairs"].append((label, default, kept, hours))
+        return got
+
+    # --- the halo-sharded family on 3g a's recordings ---------------------
+    x, plan = d["head_x"], d["head_plan"]
+    hours = x.numel() / SR / 3600.0
+    fused_k = sharded_spectrogram_fn(plan, mesh, with_xxcc=CC, fused=True,
+                                     keep_sharded=True)
+    out_gb = x.numel() * (NUM + CC) / SLIDE * 4 / 1e9
+    pair("sharded fused mel+MFCC", lambda: d["head_fused"](x),
+         lambda: fused_k(x), {"fused_mel_mfcc": shards}, 2 * out_gb, hours)
+    plain = sharded_spectrogram_fn(plan, mesh, with_xxcc=CC)
+    plain_k = sharded_spectrogram_fn(plan, mesh, with_xxcc=CC,
+                                     keep_sharded=True)
+    pair("sharded plain mel+MFCC", lambda: plain(x), lambda: plain_k(x),
+         {"fft_pow2": shards}, 4 * out_gb, hours)
+    # the chain spectrogram -> spectral stats, slide 448
+    blk = S10_TIME * S12_STATS_SLIDE
+    x4 = x[:, :x.shape[1] // blk * blk]
+    p448 = MelSpectrogram(num=NUM, samplate=SR, radix2_exp=R2E,
+                          slide_length=S12_STATS_SLIDE)
+    spec_k = sharded_spectrogram_fn(p448, mesh, keep_sharded=True)
+    stats_k = sharded_spectral_stats_fn(mesh, keep_sharded=True)
+    with s12_copy_counts() as counts:
+        st = call("3g j: chain spectrogram -> spectral stats on "
+                  "ShardedTensors", lambda: stats_k(spec_k(x4)),
+                  {"fft_pow2": shards}, 4 * out_gb)
+    s12_no_copies("chain spectrogram -> stats", counts)
+    spec_d = sharded_spectrogram_fn(p448, mesh)(x4)
+    ref = sharded_spectral_stats_fn(mesh)(spec_d)
+    sq_peak = float(((spec_d.double() ** 2).mean(-1)).max())
+    for k in ("sum", "mean", "max", "var"):
+        got = st[k].gather()
+        scale = sq_peak if k == "var" else float(ref[k].abs().max())
+        err = float((got.double() - ref[k].double()).abs().max()) / scale
+        print(f"  3g j chain stats {k}: {int((got != ref[k]).sum())} of "
+              f"{got.numel()} cells differ from the gathered chain")
+        check(f"gate 3g j chain stats {k} vs the gathered chain (of its "
+              "peak; var of E[S^2]'s)", err, S10_EQ_TOL)
+    del st, spec_d, ref
+    s12["pairs"].append(("chain spectrogram -> stats (slide 448)",
+                         lambda: sharded_spectral_stats_fn(mesh)(
+                             sharded_spectrogram_fn(p448, mesh)(x4)),
+                         lambda: stats_k(spec_k(x4)), hours))
+
+    # --- STFT -> ISTFT on 3g b's recordings ---------------------------------
+    xs, stp = d["stft_x"], d["stft"]
+    hours = xs.numel() / SR / 3600.0
+    fwd_k = sharded_stft_fn(mesh, stp.fft_length, SLIDE, stp.window,
+                            keep_sharded=True)
+    inv_k = sharded_istft_fn(mesh, stp.fft_length, SLIDE, stp.window,
+                             keep_sharded=True)
+    spec_gb = xs.numel() / SLIDE * (stp.fft_length // 2 + 1) * 8 / 1e9
+    with s12_copy_counts() as counts:
+        Dk = call("3g j: sharded STFT, kept", lambda: fwd_k(xs),
+                  {"fft_pow2": shards}, 2 * spec_gb)
+        yk = call("3g j: sharded ISTFT on the kept STFT", lambda: inv_k(Dk),
+                  {"fft_inv": shards}, 3 * spec_gb)
+    s12_no_copies("chain STFT -> ISTFT", counts)
+    D = d["stft_fwd"](xs)
+    s12_kept("sharded STFT", Dk, D)
+    y = d["stft_inv"](D)
+    s10_equal("gate 3g j chain STFT -> ISTFT vs the gathered chain",
+              yk.gather(), y)
+    del Dk, yk, D, y
+    s12["pairs"].append(("sharded STFT", lambda: d["stft_fwd"](xs),
+                         lambda: fwd_k(xs), hours))
+    s12["pairs"].append(("chain STFT -> ISTFT",
+                         lambda: d["stft_inv"](d["stft_fwd"](xs)),
+                         lambda: inv_k(fwd_k(xs)), hours))
+    xg = distributed.global_from_local(xs, mesh, ("data", "time"),
+                                       keep_sharded=True)
+    s12_kept("global_from_local (data, time)",
+             xg, distributed.global_from_local(xs, mesh, ("data", "time")))
+    pair("sharded STFT on global_from_local's ShardedTensor",
+         lambda: d["stft_fwd"](xs), lambda: fwd_k(xg), {"fft_pow2": shards},
+         2 * spec_gb, hours)
+
+    # --- the wavelet family on 3g c's clips --------------------------------
+    xw, cwt, sq = d["wav_x"], d["cwt"], d["sq"]
+    hours = xw.numel() / SR / 3600.0
+    wav_gb = xw.numel() * WAV_NUM * 8 / 1e9
+    ws = WSST(**WAV_KW, wavelet_type=WaveletContinueType.MORLET,
+              scale_type=OCTAVE)
+    pw = PWT(**WAV_KW)
+    bank = {"cwt_ifft_bank": shards}
+    for label, default, kept, per_shard in (
+            ("sharded CWT", d["f_cwt"],
+             sharded_cwt_fn(cwt, mesh, keep_sharded=True), bank),
+            ("sharded cwt_det", sharded_cwt_fn(cwt, mesh, det=True),
+             sharded_cwt_fn(cwt, mesh, det=True, keep_sharded=True), bank),
+            ("sharded PWT", sharded_pwt_fn(pw, mesh),
+             sharded_pwt_fn(pw, mesh, keep_sharded=True), bank),
+            ("sharded CWT -> synsq, reduce-scattered", d["f_sq"],
+             sharded_synsq_fn(cwt, sq, mesh, keep_sharded=True),
+             {"cwt_ifft_bank": shards, "synsq_bins": shards,
+              "columnar_scatter": shards}),
+            ("sharded WSST, reduce-scattered", sharded_wsst_fn(ws, mesh),
+             sharded_wsst_fn(ws, mesh, keep_sharded=True),
+             {"cwt_ifft_bank": 2 * shards, "columnar_scatter": shards})):
+        pair(label, lambda f=default: f(xw), lambda f=kept: f(xw), per_shard,
+             5 * wav_gb, hours)
+    Bc, nc = S10_CCWT
+    xl = randn((Bc, nc), gen, 0.2)
+    cc_gb = Bc * WAV_NUM * nc * 8 / 1e9
+    f_cc = sharded_ccwt_fn(cwt, mesh)
+    f_cck = sharded_ccwt_fn(cwt, mesh, keep_sharded=True)
+    pair(f"sharded ccwt, {Bc} x {nc}", lambda: f_cc(xl), lambda: f_cck(xl),
+         bank, 3 * cc_gb, xl.numel() / SR / 3600.0)
+
+    # --- the full-signal twins on slice 8's widths, CQT ---------------------
+    L = 1 << FE_R2E
+    xf = fe_signal(S10_FE_CLIPS, L, gen)
+    hours = xf.numel() / SR / 3600.0
+    objs = FeatureExtractor(["st", "fst", "nsgt"], radix2_exp=FE_R2E,
+                            samplate=SR)._objs
+    st_obj, fst_obj, ns = objs["st"], objs["fst"], objs["nsgt"]
+    st_gb = S10_FE_CLIPS * len(st_obj.bin_arr) * L * 8 / 1e9
+    for label, make, per_shard, gb in (
+            ("sharded ST", lambda k: sharded_st_fn(st_obj, mesh,
+                                                   keep_sharded=k),
+             {"fft_pow2": shards, "fft_inv": shards}, 4 * st_gb),
+            ("sharded FST", lambda k: sharded_fst_fn(fst_obj, mesh,
+                                                     keep_sharded=k),
+             {"fft_pow2": shards}, 2 * st_gb),
+            ("sharded NSGT", lambda k: sharded_nsgt_fn(ns, mesh,
+                                                       keep_sharded=k),
+             {"fft_pow2": shards}, 1.0)):
+        pair(label, lambda f=make(False): f(xf), lambda f=make(True): f(xf),
+             per_shard, gb, hours)
+    Bs, ns_ = S10_CST
+    xc = fe_signal(Bs, ns_, gen)
+    cst_gb = Bs * len(st_obj.bin_arr) * ns_ * 8 / 1e9
+    f_cs = sharded_cst_fn(st_obj, mesh)
+    f_csk = sharded_cst_fn(st_obj, mesh, keep_sharded=True)
+    pair(f"sharded cst, {Bs} x {ns_}", lambda: f_cs(xc), lambda: f_csk(xc),
+         {"fft_pow2": shards, "fft_inv": shards}, 4 * cst_gb,
+         xc.numel() / SR / 3600.0)
+    xq = fe_signal(S10_CQT_CLIPS, C3_N, gen)
+    cq = CQT(num=84, samplate=SR, slide_length=C3_SLIDE)
+    f_cq, f_cqk = sharded_cqt_fn(cq, mesh), sharded_cqt_fn(
+        cq, mesh, keep_sharded=True)
+    pair(f"sharded CQT, batch form over the {shards} shards",
+         lambda: f_cq(xq), lambda: f_cqk(xq), {}, 1.0,
+         xq.numel() / SR / 3600.0)
+    # the frame form on one long clip
+    x1 = mir_signal(1, S12_CQT_SECONDS * SR, gen)
+    f_fr = sharded_cqt_fn(cq, mesh, mode="gspmd")
+    f_frk = sharded_cqt_fn(cq, mesh, mode="gspmd", keep_sharded=True)
+    got = call(f"3g j: frame-sharded CQT (mode gspmd), one clip of "
+               f"{S12_CQT_SECONDS} s", lambda: f_fr(x1), {}, 1.0)
+    check("gate 3g j frame-sharded CQT vs CQT.cqt (of the peak)",
+          gate_err(got, cq.cqt(x1)), S12_CQT_TOL)
+    del got
+    hours = x1.numel() / SR / 3600.0
+    pair("frame-sharded CQT", lambda: f_fr(x1), lambda: f_frk(x1), {}, 1.0,
+         hours)
+    s12["cqt_b1"] = (lambda: f_cq(x1), lambda: f_fr(x1),
+                     lambda: cq.cqt(x1), hours)
+
+    # --- the batch maps on 3g e's clips --------------------------------------
+    xm, hp, yin = d["mir_x"], d["hp"], d["yin"]
+    hours = xm.numel() / SR / 3600.0
+    pair("HPSS.hpss through the batch map", lambda: d["f_hp"](xm),
+         lambda f=sharded_batch_map_fn(hp.hpss, mesh, keep_sharded=True):
+         f(xm), {"fft_pow2": S10_DATA, "fft_inv": S10_DATA,
+                 "median_filter": S10_DATA}, 20.0, hours)
+    pair("PitchYIN.pitch through the batch map", lambda: d["f_yin"](xm),
+         lambda f=sharded_batch_map_fn(yin.pitch, mesh, keep_sharded=True):
+         f(xm), {"fft_autocorr_yin": S10_DATA}, 4.0, hours)
+    s12.update(ccwt=(lambda: f_cc(xl), lambda: f_cck(xl)),
+               cst=(lambda: f_cs(xc), lambda: f_csk(xc)))
+    return s12
+
+
+def s12_peak(fn):
+    """(peak device memory, its part above what was held before) in GB of
+    one call of ``fn``, its result freed after."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    return peak / 1e9, (peak - held) / 1e9
+
+
+def phase4_slice12_timing(s12):
+    phase("phase 4g j: slice 12 timing, default against kept in turns "
+          "(default, kept, kept, default; CUDA events, median of 5 each)")
+
+    def turns(a, b):
+        a1 = cuda_ms(a, reps=5, warmup=1)
+        b1, b2 = cuda_ms(b, reps=5, warmup=1), cuda_ms(b, reps=5, warmup=1)
+        return (a1, cuda_ms(a, reps=5, warmup=1)), (b1, b2)
+    for label, default, kept, hours in s12["pairs"]:
+        (d1, d2), (k1, k2) = turns(default, kept)
+        d_ms, k_ms = (d1 + d2) / 2, (k1 + k2) / 2
+        rate = (f"; {hours / (d_ms / 1e3):.3f} and {hours / (k_ms / 1e3):.3f}"
+                " audio-hours/s" if hours else "")
+        print(f"  4g j {label}: default {d1:.3f}, {d2:.3f} ms; kept "
+              f"{k1:.3f}, {k2:.3f} ms; kept / default {k_ms / d_ms:.3f}{rate}")
+    for name in ("ccwt", "cst"):
+        default, kept = s12[name]
+        pd, ad = s12_peak(default)
+        pk, ak = s12_peak(kept)
+        print(f"  4g j {name} peak device memory: default {pd:.3f} GB "
+              f"({ad:.3f} above the held), kept {pk:.3f} GB ({ak:.3f} above "
+              f"the held); saved {pd - pk:.3f} GB")
+    batch, frames, unsharded, hours = s12["cqt_b1"]
+    (b1, b2), (f1, f2) = turns(batch, frames)
+    u_ms = cuda_ms(unsharded, reps=5, warmup=1)
+    f_ms = (f1 + f2) / 2
+    print(f"  4g j CQT on one clip of {S12_CQT_SECONDS} s: batch form (one "
+          f"shard works) {b1:.3f}, {b2:.3f} ms; frame form {f1:.3f}, "
+          f"{f2:.3f} ms; unsharded {u_ms:.3f} ms; frame / batch "
+          f"{2 * f_ms / (b1 + b2):.3f}; {hours / (f_ms / 1e3):.3f} "
+          "audio-hours/s in the frame form")
+
+
 def pair_rel(got, ref):
     """max error over the peak of (re, im) pairs (im may be None)."""
     e, pk = pair_err(got, ref)
@@ -4122,7 +4448,9 @@ def main():
         torch.cuda.empty_cache()
         phase3_slice9_paths(gen)
         torch.cuda.empty_cache()
-        shutil.rmtree(phase3_slice10_paths(gen)["tmp"], ignore_errors=True)
+        slice10 = phase3_slice10_paths(gen)
+        phase3_slice12_paths(slice10, gen)
+        shutil.rmtree(slice10["tmp"], ignore_errors=True)
         return
     rows = phase4_timing(plan, x, xs, mel_launches, errs)
     del plan, x, xs
@@ -4149,8 +4477,11 @@ def main():
     del slice9
     torch.cuda.empty_cache()
     slice10 = phase3_slice10_paths(gen)
-    rows = merge_slice10(rows, slice10["launches"],
-                         phase4_slice10_timing(slice10))
+    slice12 = phase3_slice12_paths(slice10, gen)
+    shapes10 = phase4_slice10_timing(slice10)
+    phase4_slice12_timing(slice12)
+    del slice12
+    rows = merge_slice10(rows, slice10["launches"], shapes10)
     later.append(slice10["launches"])
     del slice10
     rows = merge_real_route(rows, later)
