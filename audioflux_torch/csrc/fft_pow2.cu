@@ -39,30 +39,36 @@
 //     halves, and those bins go out as floats.
 //   * n = 8192..32768, a forward of real rows or an inverse with real
 //     output (HPS, LHS and PEF at 32768, PEF's frames and xcorr at 8192,
-//     every rfft from 8192 on): real_fwd_kernel / real_inv_kernel, one
-//     block per row, N / 16 threads, N = n / 2.  A real row of n points is
-//     one complex row of N points, z[m] = x[2m] + i x[2m+1], exactly as it
-//     lies in memory as float2; at n = 32768 that half row fills 139,296
-//     bytes of fft_smem.cuh's padded layout, one block an SM, so the row
-//     never leaves the chip, and the work is half a complex transform's.
-//     The forward loads z with cp.async (8-byte copies: the layout's gap
-//     every 16 points leaves every other 128-byte piece 8 bytes off a
-//     16-byte boundary; 4-byte copies where a row is not 8-byte aligned),
-//     runs the N-point transform with the N-point table (half the bytes of
-//     the n-point one for its twiddle gathers), and splits in
-//     place: the thread of k pairs Z[k] with Z[N - k], E = (Z[k] + conj
-//     Z[N - k]) / 2, O = (Z[k] - conj Z[N - k]) / 2i, X[k] = E + W^k O and
-//     X[N - k] = conj(E - W^k O); X[0] and X[N] are Re Z[0] +- Im Z[0], and
-//     X[N/2] = conj Z[N/2].  It writes only bins [0, bins) of the natural
-//     spectrum, the mirror half as conj X[n - k] (HPS keeps 10,001 of
-//     32,768).  The inverse returns Re(ifft(Y)) of any Y, through the
-//     Hermitian part H[k] = (Y[k] + conj Y[n - k]) / 2: the thread of k
-//     reads Y[k], Y[N - k], Y[N + k] and Y[n - k] (each value of the row
-//     once), forms E = H[k] + H[k + N] and O = (H[k] - H[k + N]) W^-k for
-//     both k and N - k (halves dropped: the store scales by 1 / 2n), runs
-//     the N-point inverse by the conjugation above and writes x[2m] =
-//     Re z[m], x[2m+1] = Im z[m] as float2.  No device buffer, no
-//     imaginary half, no mirror half beyond the bins asked for;
+//     every rfft and irfft from 8192 on): real_fwd_kernel /
+//     real_inv_kernel.  A real row of n points is one complex row of
+//     N = n / 2 points, z[m] = x[2m] + i x[2m+1], exactly as it lies in
+//     memory as float2, so the work is half a complex transform's.  The
+//     N-point transform runs in registers (fft_real_reg.cuh: 64 points a
+//     thread, N / 64 threads a row, one transpose through shared memory
+//     and, from N = 8192 on, a last factor of 2 or 4 across neighbouring
+//     lanes by __shfl_xor), in persistent blocks, one row a block, that
+//     stage the next row's input while this one is transformed: a 1-D TMA
+//     bulk copy completing on an mbarrier where every row is 16-byte
+//     aligned, cp.async elsewhere.  The forward reads only the live
+//     samples: row r is x[r, 0:live] at offset lo of n zeros (HPS's 4,096
+//     of 32,768, PEF's 8,192 at its pad, xcorr's n of 2n), zero-filled in
+//     registers.  Its split pairs Z[k] with Z[N - k]: the transform's
+//     output goes through the buffer once more (real, then imaginary
+//     parts), the thread of pair k reads Z[k] and Z[N - k], E = (Z[k] +
+//     conj Z[N - k]) / 2, O = (Z[k] - conj Z[N - k]) / 2i, X[k] = E + W^k O
+//     and X[N - k] = conj(E - W^k O); X[0] and X[N] are Re Z[0] +- Im Z[0],
+//     and X[N/2] = conj Z[N/2].  It writes only bins [0, bins) of the
+//     natural spectrum, the mirror half as conj X[n - k] (HPS keeps 10,001
+//     of 32,768).  The inverse returns Re(ifft(Y)) of a whole spectrum Y
+//     (through its Hermitian part H[k] = (Y[k] + conj Y[n - k]) / 2, read
+//     from device memory) or of a half spectrum, bins [0, n/2] with
+//     Y[n - k] = conj Y[k] as irfft takes it (staged like the forward's
+//     input; the imaginary parts of bins 0 and n/2 ignored): the thread of
+//     point j forms E = H[j] + H[j + N] and O = (H[j] - H[j + N]) W^-j,
+//     Z[j] = E + i O, runs the N-point inverse by the conjugation above
+//     and writes x[2m] = Re z[m], x[2m+1] = Im z[m] as float2 straight
+//     from registers.  No device buffer, no imaginary half, no mirror half
+//     beyond the bins asked for;
 //   * complex rows at n = 8192, 16384: fft_row_kernel, one block per row,
 //     n/16 threads; the row (at most 139 KB with padding) lives in dynamic
 //     shared memory for the radix-16 Stockham passes of fft_smem.cuh, so
@@ -108,6 +114,7 @@
 
 #include <cstdint>
 
+#include "fft_real_reg.cuh"
 #include "fft_reg.cuh"
 #include "fft_smem.cuh"
 
@@ -623,118 +630,288 @@ fft_row_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
-// The real-row route, forward (n = 8192..32768, see the note at the top):
-// one real row of x per block, N / 16 threads, N = n / 2; bins [0, bins)
-// of the spectrum into yr, yi, rows `bins` apart.  `stages` cuts it for
+// What the real-row route's forward reads and writes: row r of x holds
+// the `live` samples x[r, :] of an n-point row of zeros, at offset lo; bins
+// [0, bins) of its spectrum go to row r of yr and yi.  `stages` cuts it for
 // timing: 1 stores what it loaded, 2 the N-point transform, 3 is the whole
 // kernel; every cut stores as many values as the whole kernel.
-__global__ void __launch_bounds__(1024)
-real_fwd_kernel(const float* __restrict__ x, float* __restrict__ yr,
-                float* __restrict__ yi, const float2* __restrict__ tw,
-                int log2n, int bins, int stages) {
-  extern __shared__ float2 z[];
-  const int N = 1 << (log2n - 1), n = 2 * N;
-  const int T = blockDim.x;
-  const float* row = x + (static_cast<size_t>(blockIdx.x) << log2n);
-  // z[m] = (x[2m], x[2m+1]) into the padded layout
-  if ((reinterpret_cast<uintptr_t>(row) & 7) == 0) {
-    for (int m = threadIdx.x; m < N; m += T) {
-      __pipeline_memcpy_async(&z[pad(m)], row + 2 * m, 8);
+struct RealFwdArgs {
+  const float* x;
+  float* yr;
+  float* yi;
+  long long batch;
+  int lo, live, bins, stages;
+  int stage_floats;  // the staging buffer, floats (0: rows read directly)
+  bool bulk;  // every row 16-byte aligned, live % 4 == 0, lo even: TMA
+};
+
+// The real-row route, forward (see the note at the top): persistent blocks
+// of N / 64 threads, one row a block at a time.  The transpose buffer holds
+// complex values (one pass through it); it and the staged next row fit a
+// block's shared memory except for whole rows at n = 32768, which are read
+// from device memory as the first pass needs them.
+template <int C>
+__global__ void __launch_bounds__(64 * C)
+real_fwd_kernel(RealFwdArgs a, const float2* __restrict__ tw) {
+  using R = afx::RealRoute<C>;
+  constexpr int N = R::kN, T = R::kB, n = 2 * N;
+  constexpr int kPairs = N / 2 / T;  // pairs (k, N - k) a thread: 32
+  extern __shared__ float4 smem4[];
+  float* stage = reinterpret_cast<float*>(smem4);
+  float2* buf = reinterpret_cast<float2*>(stage + a.stage_floats);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(buf + R::kBuf);
+  const int t = threadIdx.x;
+  const int g = t / C, kb = bit_reverse(t % C, R::kLogC);
+  const bool staged = a.stage_floats > 0;
+
+  // x[r, i] lies at stage[s0 + i] with s0 = lo (mod 2), so that a point's
+  // two samples (x[2j], x[2j+1] of the padded row) are one float2 word;
+  // `wide`: the body can go as 16-byte copies (an odd lo with an even
+  // address, or the other way round, leaves 4-byte copies)
+  auto offset = [&](const float* src, bool& wide) -> int {
+    if (a.bulk) {
+      wide = true;
+      return 0;
     }
-  } else {
-    for (int m = threadIdx.x; m < N; m += T) {
-      __pipeline_memcpy_async(&z[pad(m)].x, row + 2 * m, 4);
-      __pipeline_memcpy_async(&z[pad(m)].y, row + 2 * m + 1, 4);
+    const int mis = afx::misalign4(src);
+    wide = ((mis - a.lo) & 1) == 0;
+    return wide ? mis : (a.lo & 1);
+  };
+  auto fetch = [&](long long r) {
+    const float* src = a.x + r * a.live;
+    if (a.bulk) {
+      if (t == 0) afx::bulk_fetch(stage, src, 4u * a.live, bar);
+    } else {
+      bool wide;
+      const int s0 = offset(src, wide);
+      afx::fetch_floats(stage, src, a.live, s0, wide, t, T);
+      __pipeline_commit();
     }
-  }
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
+  };
+  // a complex value of the pair buffer: bin k at slot(k), skewed a 4096 so
+  // that the transform's lanes write to distinct banks
+  auto slot = [](int k) { return k + (k >> 12) * R::kPad; };
+
+  if (staged && a.bulk && t == 0) afx::mbar_init(bar);
   __syncthreads();
-  if (stages > 1) fft_smem(z, log2n - 1, tw + (1 << log2n), log2n - 1);
-  // the split, in place: X[k] at z[pad(k)] for k < N, X[N] at z[pad(N)]
-  for (int k = threadIdx.x; stages > 2 && k < N / 2; k += T) {
-    if (k == 0) {
-      const float2 v = z[0];
-      const float2 h = z[pad(N / 2)];
-      z[0] = make_float2(v.x + v.y, 0.f);
-      z[pad(N)] = make_float2(v.x - v.y, 0.f);
-      z[pad(N / 2)] = make_float2(h.x, -h.y);
-      continue;
+  long long row = blockIdx.x;
+  uint32_t phase = 0;
+  if (staged && row < a.batch) fetch(row);
+  const unsigned live = static_cast<unsigned>(a.live);
+  for (; row < a.batch; row += gridDim.x) {
+    float2 v[64];
+    // point j = j1 T + t: samples p = 2j, 2j + 1, live where lo <= p <
+    // lo + live; zeros elsewhere
+    if (staged) {
+      if (a.bulk) {
+        afx::mbar_wait(bar, phase);
+        phase ^= 1u;
+      } else {
+        __pipeline_wait_prior(0);
+      }
+      __syncthreads();  // the row stands in the staging buffer
+      bool wide;
+      const int s0 = offset(a.x + row * a.live, wide);
+#pragma unroll
+      for (int j1 = 0; j1 < 64; ++j1) {
+        // a point with no live sample reads stage[0] and drops it
+        const int rel = 2 * (j1 * T + t) - a.lo;
+        const unsigned r0 = static_cast<unsigned>(rel);
+        const bool any = r0 + 1u < live + 1u;
+        const float2 w =
+            *reinterpret_cast<const float2*>(stage + (any ? s0 + rel : 0));
+        v[bit_reverse(j1, 6)] =
+            make_float2(r0 < live ? w.x : 0.f, r0 + 1u < live ? w.y : 0.f);
+      }
+      __syncthreads();  // the staging buffer is free: fetch the next row
+      if (row + gridDim.x < a.batch) fetch(row + gridDim.x);
+    } else {
+      const float* src = a.x + row * a.live;
+#pragma unroll
+      for (int j1 = 0; j1 < 64; ++j1) {
+        const int rel = 2 * (j1 * T + t) - a.lo;
+        const unsigned r0 = static_cast<unsigned>(rel);
+        v[bit_reverse(j1, 6)] =
+            make_float2(r0 < live ? __ldg(src + rel) : 0.f,
+                        r0 + 1u < live ? __ldg(src + rel + 1) : 0.f);
+      }
     }
-    const float2 a = z[pad(k)], b = z[pad(N - k)];
-    const float2 e = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
-    const float2 o = make_float2(0.5f * (a.y + b.y), 0.5f * (b.x - a.x));
-    const float2 wo = cmul(__ldg(&tw[k]), o);
-    z[pad(k)] = make_float2(e.x + wo.x, e.y + wo.y);
-    z[pad(N - k)] = make_float2(e.x - wo.x, wo.y - e.y);
-  }
-  __syncthreads();
-  const size_t off = static_cast<size_t>(blockIdx.x) * bins;
-  for (int k = threadIdx.x; k < bins; k += T) {
-    const bool low = k <= N;
-    const float2 v = z[pad(low ? k : n - k)];
-    yr[off + k] = v.x;
-    yi[off + k] = low ? v.y : -v.y;
+
+    // the pairs: the transform leaves Z in the buffer, and the thread of
+    // k = t + T i reads Z[k] and Z[N - k] (k = 0: Z[0] and Z[N/2])
+    afx::real_route_transform<C, true>(
+        v, buf, tw, t, a.stages > 1,
+        [&](int ka, float2 z) { buf[slot(g + 64 * ka + 4096 * kb)] = z; });
+    __syncthreads();
+    float2 za_[kPairs], zb_[kPairs];
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      const int k = t + T * i;
+      za_[i] = buf[slot(k)];
+      zb_[i] = buf[slot(k == 0 ? N / 2 : N - k)];
+    }
+    __syncthreads();  // the buffer is free for the next row
+    // the split and the stores: X[k] to bins k and n - k (conjugated),
+    // X[N - k] to bins N - k and N + k; the thread of k = 0 (t = 0 in
+    // round 0) writes X[0], X[N/2], its mirror and X[N] instead.
+    // W_n^k = W_n^t W_128^i (T i / n = i / 128)
+    float* const oyr = a.yr + row * a.bins;
+    float* const oyi = a.yi + row * a.bins;
+    auto put = [&](int b, float re, float im) {
+      if (b < a.bins) {
+        oyr[b] = re;
+        oyi[b] = im;
+      }
+    };
+    auto emit = [&](int i, float2 xa, float2 xb, float xn) {
+      const int k = t + T * i;
+      const bool k0 = i == 0 && t == 0;
+      put(k, xa.x, xa.y);
+      put(k0 ? N / 2 : N - k, xb.x, xb.y);
+      put(k0 ? n - N / 2 : n - k, k0 ? xb.x : xa.x, k0 ? -xb.y : -xa.y);
+      put(k0 ? N : N + k, k0 ? xn : xb.x, k0 ? 0.f : -xb.y);
+    };
+    // the cuts (stages < 3) store the pairs as they are, through the same
+    // code
+    const bool split = a.stages > 2;
+    const float2 wt = __ldg(afx::per_row(tw) + t);
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      const float2 za = za_[i], zb = zb_[i];
+      const float2 e = make_float2(0.5f * (za.x + zb.x), 0.5f * (za.y - zb.y));
+      const float2 o = make_float2(0.5f * (za.y + zb.y), 0.5f * (zb.x - za.x));
+      const float2 wo = cmul(cmul(wt, afx::w256(2 * i)), o);
+      float2 xa = make_float2(e.x + wo.x, e.y + wo.y);
+      float2 xb = make_float2(e.x - wo.x, wo.y - e.y);
+      if (i == 0 && t == 0) {  // X[0], X[N/2] = conj Z[N/2]
+        xa = make_float2(za.x + za.y, 0.f);
+        xb = make_float2(zb.x, -zb.y);
+      }
+      emit(i, split ? xa : za, split ? xb : zb, split ? za.x - za.y : za.x);
+    }
   }
 }
 
-// The real-row route, inverse: x = Re(ifft(yr + i yi)) of one row per
-// block (yi may be null: zeros), N / 16 threads, N = n / 2.  `stages` 1
-// cuts it before the transform (it stores the merged halves), for timing.
-__global__ void __launch_bounds__(1024)
-real_inv_kernel(const float* __restrict__ yr, const float* __restrict__ yi,
-                float* __restrict__ x, const float2* __restrict__ tw,
-                int log2n, int stages) {
-  extern __shared__ float2 z[];
-  const int N = 1 << (log2n - 1), n = 2 * N;
-  const int T = blockDim.x;
-  const size_t off = static_cast<size_t>(blockIdx.x) << log2n;
-  const float* ar = yr + off;
-  const float* ai = yi == nullptr ? nullptr : yi + off;
-  auto load = [&](int k) {
-    return make_float2(__ldg(ar + k), ai == nullptr ? 0.f : __ldg(ai + k));
-  };
-  // A = Y[k] + conj Y[n - k], B = Y[N + k] + conj Y[N - k] (twice H[k] and
-  // H[k + N]); E = A + B, O = (A - B) W^-k; Z[k] = E + i O and Z[N - k] =
-  // conj E + i conj O; the inverse's conjugation stores conj Z
-  for (int k = threadIdx.x; k < N / 2; k += T) {
-    if (k == 0) {
-      // Z[0] = (A + B) + i (A - B) with A, B real; k = N/2 pairs with
-      // itself: B = conj A, W^-(N/2) = i, so Z = 2 conj A
-      const float a = 2.f * __ldg(ar), b = 2.f * __ldg(ar + N);
-      const float2 p = load(N / 2), q = load(N + N / 2);
-      z[0] = make_float2(a + b, b - a);
-      z[pad(N / 2)] = make_float2(2.f * (p.x + q.x), 2.f * (p.y - q.y));
-      continue;
+// What the real-row route's inverse reads and writes: rows of yr, yi (yi
+// may be null: zeros) of in_bins values, a whole spectrum (n) or a half
+// spectrum (n / 2 + 1); the real rows of x.  `stages` 1 cuts it before the
+// transform (it stores the merged points), for timing.
+struct RealInvArgs {
+  const float* yr;
+  const float* yi;
+  float* x;
+  long long batch;
+  int in_bins, stages;
+  int stage_floats;  // the staging buffer (half spectra), floats
+};
+
+// The real-row route, inverse (see the note at the top): persistent blocks
+// of N / 64 threads, one row a block at a time; kHalf: the rows are half
+// spectra (one instantiation a kind of input).  A half spectrum is staged
+// (real parts at stage[0..], imaginary parts at stage[N + 8..], each at its
+// address's offset within a 16-byte word), the next row's while this one
+// is transformed; a whole spectrum is read from device memory, each value
+// twice (by the points j and N - j), the second time from the cache.
+template <int C, bool kHalf>
+__global__ void __launch_bounds__(64 * C)
+real_inv_kernel(RealInvArgs a, const float2* __restrict__ tw) {
+  using R = afx::RealRoute<C>;
+  constexpr int N = R::kN, T = R::kB, n = 2 * N;
+  constexpr int kImag = N + 8;  // the staged imaginary parts start here
+  extern __shared__ float4 smem4[];
+  float* stage = reinterpret_cast<float*>(smem4);
+  float* buf = stage + a.stage_floats;
+  const int t = threadIdx.x;
+  const int g = t / C, kb = bit_reverse(t % C, R::kLogC);
+  auto fetch = [&](long long r) {
+    const float* re = a.yr + r * a.in_bins;
+    afx::fetch_floats(stage, re, N + 1, afx::misalign4(re), true, t, T);
+    if (a.yi != nullptr) {
+      const float* im = a.yi + r * a.in_bins;
+      afx::fetch_floats(stage + kImag, im, N + 1, afx::misalign4(im), true, t,
+                        T);
     }
-    const float2 yk = load(k), ynk = load(n - k);
-    const float2 yNk = load(N + k), yNmk = load(N - k);
-    const float2 A = make_float2(yk.x + ynk.x, yk.y - ynk.y);
-    const float2 B = make_float2(yNk.x + yNmk.x, yNk.y - yNmk.y);
+    __pipeline_commit();
+  };
+  // E = A + B, O = (A - B) W^-j, Z[j] = E + i O; the transform takes
+  // conj Z (the inverse by conjugation).  W_n^j = W_n^t W_128^j1 for
+  // j = j1 T + t (T / n = 1 / 128)
+  float2 wt;
+  auto merge = [&](float2 A, float2 B, int j1) {
+    const float2 w = cmul(wt, afx::w256(2 * j1));
     const float2 e = make_float2(A.x + B.x, A.y + B.y);
-    const float2 w = __ldg(&tw[k]);
     const float2 o = cmul(make_float2(A.x - B.x, A.y - B.y),
                           make_float2(w.x, -w.y));
-    z[pad(k)] = make_float2(e.x - o.y, -e.y - o.x);
-    z[pad(N - k)] = make_float2(e.x + o.y, e.y - o.x);
-  }
-  __syncthreads();
-  if (stages > 1) fft_smem(z, log2n - 1, tw + (1 << log2n), log2n - 1);
-  // z = conj(F) / N of the halves' Z, that is conj(F) / 2n here
-  const float s = 0.5f / static_cast<float>(n);
-  float* out = x + off;
-  if ((reinterpret_cast<uintptr_t>(out) & 7) == 0) {
-    float2* out2 = reinterpret_cast<float2*>(out);
-    for (int m = threadIdx.x; m < N; m += T) {
-      const float2 v = z[pad(m)];
-      out2[m] = make_float2(s * v.x, -s * v.y);
+    return make_float2(e.x - o.y, -e.y - o.x);
+  };
+  // x = conj(F) / N of the halves' Z; A and B are H (half spectra) or 2 H
+  const float s = (kHalf ? 1.f : 0.5f) / static_cast<float>(n);
+  const bool pairs_ok = (reinterpret_cast<uintptr_t>(a.x) & 7) == 0;
+  long long row = blockIdx.x;
+  if (kHalf && row < a.batch) fetch(row);
+  for (; row < a.batch; row += gridDim.x) {
+    float2 v[64];
+    wt = __ldg(afx::per_row(tw) + t);
+    if constexpr (kHalf) {
+      // A = H[j] = Y[j], B = H[j + N] = conj Y[N - j]; at j = 0 the real
+      // parts of Y[0] and Y[N] alone, as irfft takes them
+      __pipeline_wait_prior(0);
+      __syncthreads();  // the row stands in the staging buffer
+      const float* re = stage + afx::misalign4(a.yr + row * a.in_bins);
+      const float* im =
+          a.yi == nullptr
+              ? nullptr
+              : stage + kImag + afx::misalign4(a.yi + row * a.in_bins);
+#pragma unroll
+      for (int j1 = 0; j1 < 64; ++j1) {
+        const int j = j1 * T + t;
+        float2 A, B;
+        if (j == 0) {
+          A = make_float2(re[0], 0.f);
+          B = make_float2(re[N], 0.f);
+        } else {
+          A = make_float2(re[j], im == nullptr ? 0.f : im[j]);
+          B = make_float2(re[N - j], im == nullptr ? 0.f : -im[N - j]);
+        }
+        v[bit_reverse(j1, 6)] = merge(A, B, j1);
+        // keep the loads of a later point from being hoisted this far: the
+        // point's registers are the transform's, and no more are free
+        if ((j1 & 7) == 7) asm volatile("" ::: "memory");
+      }
+      __syncthreads();  // the staging buffer is free: fetch the next row
+      if (row + gridDim.x < a.batch) fetch(row + gridDim.x);
+    } else {
+      // A = Y[j] + conj Y[n - j], B = Y[N + j] + conj Y[N - j] (twice H[j]
+      // and H[j + N])
+      const float* yr = a.yr + row * n;
+      const float* yi = a.yi == nullptr ? nullptr : a.yi + row * n;
+      auto load = [&](int k) {
+        return make_float2(__ldg(yr + k), yi == nullptr ? 0.f : __ldg(yi + k));
+      };
+#pragma unroll
+      for (int j1 = 0; j1 < 64; ++j1) {
+        const int j = j1 * T + t;
+        const float2 y0 = load(j), y1 = load((n - j) & (n - 1));
+        const float2 y2 = load(N + j), y3 = load(N - j);
+        v[bit_reverse(j1, 6)] =
+            merge(make_float2(y0.x + y1.x, y0.y - y1.y),
+                  make_float2(y2.x + y3.x, y2.y - y3.y), j1);
+        if ((j1 & 7) == 7) asm volatile("" ::: "memory");
+      }
     }
-  } else {
-    for (int m = threadIdx.x; m < N; m += T) {
-      const float2 v = z[pad(m)];
-      out[2 * m] = s * v.x;
-      out[2 * m + 1] = -s * v.y;
-    }
+    // the thread ends with F[m], m = g + 64 ka + 4096 kb: x[2m], x[2m+1]
+    float* out = a.x + row * n;
+    afx::real_route_transform<C, false>(
+        v, buf, tw, t, a.stages > 1, [&](int ka, float2 f) {
+          const int m = g + 64 * ka + 4096 * kb;
+          const float2 val = make_float2(s * f.x, -s * f.y);
+          if (pairs_ok) {
+            reinterpret_cast<float2*>(out)[m] = val;
+          } else {
+            out[2 * m] = val.x;
+            out[2 * m + 1] = val.y;
+          }
+        });
   }
 }
 
@@ -906,25 +1083,48 @@ cudaError_t allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// The grid of a persistent kernel of kRegThreads threads and `smem` bytes
+// The grid of a persistent kernel of `threads` threads and `smem` bytes
 // of shared memory: enough blocks for `items` at `groups` items a block,
 // at most what the card holds at once.
+// The queries behind it are made once for each (device, kernel, threads,
+// shared memory) and remembered: they cost a launch's worth of host time.
 template <typename K>
 cudaError_t persistent_grid(K kernel, int smem, long long items, int groups,
-                            unsigned* grid) {
-  cudaError_t e = allow_smem(kernel, smem);
+                            unsigned* grid, int threads = kRegThreads) {
+  struct Seen {
+    const void* kernel;
+    int dev, threads, smem, resident;
+  };
+  static Seen seen[64];
+  static int n_seen = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0, per_sm = 0;
-  e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                    kRegThreads, smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  int resident = 0;
+  for (int i = 0; i < n_seen; ++i) {
+    const Seen& s = seen[i];
+    if (s.kernel == key && s.dev == dev && s.threads == threads &&
+        s.smem == smem) {
+      resident = s.resident;
+    }
+  }
+  if (resident == 0) {
+    // the kernel's limit once and for all: the most a block may have
+    // (lowering it for a smaller call would refuse a later larger one)
+    e = allow_smem(kernel, 232448);
+    if (e != cudaSuccess) return e;
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+    resident = sms * per_sm;
+    if (n_seen < 64) seen[n_seen++] = Seen{key, dev, threads, smem, resident};
+  }
   const long long want = (items + groups - 1) / groups;
-  const long long resident = static_cast<long long>(sms) * per_sm;
   *grid = static_cast<unsigned>(want < resident ? want : resident);
   return cudaSuccess;
 }
@@ -958,33 +1158,71 @@ int launch_acf(const AcfArgs& a, const float2* tw, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The real-row route (n >= 2^kRealMinLog2): a forward of the real rows in
-// (ir) into bins [0, bins) of (or, oi), or the inverse of (ir, ii) into the
-// real rows of or.
-int launch_real(const float* ir, const float* ii, float* or_, float* oi,
-                const float2* tw, long long batch, int log2n, int bins,
-                bool forward, int stages, cudaStream_t st) {
-  const int half = 1 << (log2n - 1);
-  const int smem = static_cast<int>(sizeof(float2)) * seq_stride(half);
-  const unsigned grid = static_cast<unsigned>(batch);
-  cudaError_t e = forward ? allow_smem(real_fwd_kernel, smem)
-                          : allow_smem(real_inv_kernel, smem);
+// The real-row route at N = 4096 C: persistent blocks of 64 C threads,
+// each with its staging buffer, the transpose buffer and an mbarrier.
+template <int C>
+int launch_real_fwd(RealFwdArgs a, const float2* tw, cudaStream_t st) {
+  using R = afx::RealRoute<C>;
+  constexpr int kFixed = 8 * R::kBuf + 16;  // the complex buffer, mbarrier
+  a.stage_floats = (a.live + 8 + 3) & ~3;
+  if (4 * a.stage_floats + kFixed > 232448) a.stage_floats = 0;
+  a.bulk = (reinterpret_cast<uintptr_t>(a.x) & 15) == 0 && a.live % 4 == 0 &&
+           a.lo % 2 == 0;
+  const int smem = 4 * a.stage_floats + kFixed;
+  auto kernel = real_fwd_kernel<C>;
+  unsigned grid = 0;
+  cudaError_t e = persistent_grid(kernel, smem, a.batch, 1, &grid, R::kB);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (forward) {
-    real_fwd_kernel<<<grid, half / 16, smem, st>>>(ir, or_, oi, tw, log2n,
-                                                   bins, stages);
-  } else {
-    real_inv_kernel<<<grid, half / 16, smem, st>>>(ir, ii, or_, tw, log2n,
-                                                   stages);
-  }
+  kernel<<<grid, R::kB, smem, st>>>(a, tw);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int C, bool kHalf>
+int launch_real_inv(RealInvArgs a, const float2* tw, cudaStream_t st) {
+  using R = afx::RealRoute<C>;
+  a.stage_floats = kHalf ? 2 * (R::kN + 8) : 0;
+  const int smem = 4 * (a.stage_floats + R::kBuf);
+  auto kernel = real_inv_kernel<C, kHalf>;
+  unsigned grid = 0;
+  cudaError_t e = persistent_grid(kernel, smem, a.batch, 1, &grid, R::kB);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, R::kB, smem, st>>>(a, tw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The real-row route (n >= 2^kRealMinLog2): a forward of the real rows in
+// (ir; `live` samples a row at offset lo) into bins [0, bins) of (or, oi),
+// or the inverse of (ir, ii; rows of in_bins = live) into the real rows of
+// or.
+int launch_real(const float* ir, const float* ii, float* or_, float* oi,
+                const float2* tw, long long batch, int log2n, int bins,
+                int lo, int live, bool forward, int stages, cudaStream_t st) {
+  const int c = log2n - kRealMinLog2;  // C = 1, 2, 4
+  if (forward) {
+    const RealFwdArgs a{ir, or_, oi, batch, lo, live, bins, stages, 0, false};
+    return c == 0   ? launch_real_fwd<1>(a, tw, st)
+           : c == 1 ? launch_real_fwd<2>(a, tw, st)
+                    : launch_real_fwd<4>(a, tw, st);
+  }
+  const RealInvArgs a{ir, ii, or_, batch, live, stages, 0};
+  if (live != 1 << log2n) {
+    return c == 0   ? launch_real_inv<1, true>(a, tw, st)
+           : c == 1 ? launch_real_inv<2, true>(a, tw, st)
+                    : launch_real_inv<4, true>(a, tw, st);
+  }
+  return c == 0   ? launch_real_inv<1, false>(a, tw, st)
+         : c == 1 ? launch_real_inv<2, false>(a, tw, st)
+                  : launch_real_inv<4, false>(a, tw, st);
+}
+
 // bins: the forward's count of leading natural-order bins, n except on the
-// real-row route; the inverse ignores it.
+// real-row route.  lo, live: the forward's input rows are `live` samples
+// at offset lo of n-point rows of zeros (lo = 0, live = n except on the
+// real-row route); the inverse's rows are `live` bins, n or (on the
+// real-row route) the n / 2 + 1 of a half spectrum, and its lo is 0.
 int transform(const float* xr, const float* xi, float* yr, float* yi,
               void* scratch, const void* tw, long long batch, int log2n,
-              Dir d, int bins, int stages, void* stream) {
+              Dir d, int bins, int lo, int live, int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float2* twf = static_cast<const float2*>(tw);
   const bool forward = d.sign > 0.f;
@@ -997,7 +1235,12 @@ int transform(const float* xr, const float* xi, float* yr, float* yi,
   }
   const int n = 1 << log2n;
   if (!forward) bins = n;
-  if (bins < 1 || bins > n || (bins != n && !real_route)) {
+  const bool whole = lo == 0 && live == n;
+  const bool span_ok =
+      forward ? lo >= 0 && live >= 1 && live <= n - lo
+              : lo == 0 && (live == n || live == n / 2 + 1);
+  if (bins < 1 || bins > n || !span_ok ||
+      ((bins != n || !whole) && !real_route)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (log2n == 11) {
@@ -1007,8 +1250,8 @@ int transform(const float* xr, const float* xi, float* yr, float* yi,
     return launch_reg<64, 64>(xr, xi, yr, yi, twf, batch, d, stages, st);
   }
   if (real_route) {
-    return launch_real(xr, xi, yr, yi, twf, batch, log2n, bins, forward,
-                       stages, st);
+    return launch_real(xr, xi, yr, yi, twf, batch, log2n, bins, lo, live,
+                       forward, stages, st);
   }
   if (log2n <= kMaxSinglePassLog2) {
     const int smem = static_cast<int>(sizeof(float2)) * seq_stride(1 << log2n);
@@ -1035,36 +1278,40 @@ int transform(const float* xr, const float* xi, float* yr, float* yi,
 
 }  // namespace
 
-// xr, xi: (batch, n) fp32 rows (xi may be null: real input).
-// yr, yi: (batch, bins) fp32, the first bins of the natural-order spectrum;
-// bins < n only for real input at n >= 8192 (else bins = n).  scratch:
-// batch * n float2, used only by complex rows at n = 32768 (null
-// elsewhere).  tw: 3n/2 float2, exp(-2 pi i k / n) for k < n, then
-// exp(-2 pi i k / (n/2)) for k < n/2 (the real-row route's transform
-// reads the second table).  stages: 3 (the whole
+// xr, xi: (batch, live) fp32 rows (xi may be null: real input), row r
+// the samples [lo, lo + live) of an n-point row that is zero elsewhere
+// (lo = 0 and live = n except for real input at n >= 8192).  yr, yi:
+// (batch, bins) fp32, the first bins of the natural-order spectrum; bins
+// < n only for real input at n >= 8192 (else bins = n).  scratch: batch *
+// n float2, used only by complex rows at n = 32768 (null elsewhere).  tw:
+// n + n/8 float2, exp(-2 pi i k / n) for k < n, then the real-row route's
+// pass-1 factors W_N^(t r) at [n + r B + t] and W_N^(8 t q) at [n + 8 B +
+// q B + t] (N = n/2, B = N/64, r, q < 8, t < B).  stages: 3 (the whole
 // transform), or at n = 2048 and 4096 and on the real-row route 1 or 2 to
 // cut the kernel for timing (the output is then not the spectrum).
 // Returns the CUDA error code of the launches (0 on success).
 extern "C" int af_fft_pow2_fwd(const float* xr, const float* xi, float* yr,
                                float* yi, void* scratch, const void* tw,
-                               long long batch, int log2n, int bins,
-                               int stages, void* stream) {
+                               long long batch, int log2n, int bins, int lo,
+                               int live, int stages, void* stream) {
   return transform(xr, xi, yr, yi, scratch, tw, batch, log2n, Dir{1.f, 1.f},
-                   bins, stages, stream);
+                   bins, lo, live, stages, stream);
 }
 
-// The inverse, 1/n included: yr, yi (batch, n) natural-order spectrum ->
-// xr, xi (batch, n) signal.  yi may be null (a spectrum with no imaginary
-// part); xi may be null: the imaginary output is then not written (from
-// n = 8192 on the real-row route; scratch is then unused).  bins is
-// ignored; scratch, tw and stages as above.
+// The inverse, 1/n included: yr, yi (batch, in_bins) natural-order
+// spectrum -> xr, xi (batch, n) signal.  yi may be null (a spectrum with
+// no imaginary part); xi may be null: the imaginary output is then not
+// written (from n = 8192 on the real-row route; scratch is then unused).
+// in_bins: n, or on the real-row route n / 2 + 1, a half spectrum (bin
+// n - k is conj Y[k]; the imaginary parts of bins 0 and n/2 are ignored,
+// as irfft does).  scratch, tw and stages as above.
 extern "C" int af_fft_pow2_inv(const float* yr, const float* yi, float* xr,
                                float* xi, void* scratch, const void* tw,
-                               long long batch, int log2n, int bins,
+                               long long batch, int log2n, int in_bins,
                                int stages, void* stream) {
   return transform(yr, yi, xr, xi, scratch, tw, batch, log2n,
-                   Dir{-1.f, 1.f / static_cast<float>(1 << log2n)}, bins,
-                   stages, stream);
+                   Dir{-1.f, 1.f / static_cast<float>(1 << log2n)}, 1 << log2n,
+                   0, in_bins, stages, stream);
 }
 
 // out = 0.5 * Im(ifft(fft(xr + i xi)^2)), all (batch, n) fp32.  scratch and

@@ -4,7 +4,10 @@ Counterpart of ``audioflux_tpu/dsp/xcorr.py`` (reference
 ``src/dsp/xcorr_algorithm.c``): full correlation over lags -(n-1)..(n-1),
 optional coefficient normalization by sqrt(sum(x^2)*sum(y^2)).  The
 transforms at ceil_pow2(2n) go through ``ops.fft`` (the FFT kernels on the
-card at lengths 2048..32768); the inverse writes its real part only.
+card at lengths 2048..32768): the forwards read the n live samples and
+write the half spectrum, the product of two real rows' spectra is
+Hermitian and formed on that half, and the inverse takes it as irfft
+does.
 """
 
 from __future__ import annotations
@@ -35,17 +38,16 @@ def xcorr(v1, v2=None, norm_type: XcorrNormalType = XcorrNormalType.COEFF,
     x = as_tensor(v1, dev)
     n = x.shape[-1]
     L = _ceil_pow2(2 * n)
-    F1 = afft.fft(x, n=L, dim=-1)
+    ar, ai = afft.fft_parts(x, n=L, bins=L // 2 + 1)
     if v2 is None:
-        prod = F1.abs() ** 2
+        pr, pi = ar * ar + ai * ai, torch.zeros_like(ar)
         e2 = None
     else:
         y = as_tensor(v2, dev)
-        prod = F1 * torch.conj(afft.fft(y, n=L, dim=-1))
+        br, bi = afft.fft_parts(y, n=L, bins=L // 2 + 1)
+        pr, pi = ar * br + ai * bi, ai * br - ar * bi
         e2 = torch.sum(y * y, dim=-1, keepdim=True)
-    pr, pi = ((prod.real, prod.imag) if prod.is_complex()
-              else (prod, torch.zeros_like(prod)))
-    r = afft.ifft_parts(pr, pi, real_only=True)
+    r = afft.ifft_parts(pr, pi, n=L)
     out = torch.cat([r[..., L - (n - 1):], r[..., :n]], dim=-1)
     if XcorrNormalType(norm_type) == XcorrNormalType.COEFF:
         e1 = torch.sum(x * x, dim=-1, keepdim=True)

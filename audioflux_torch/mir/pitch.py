@@ -173,11 +173,11 @@ class _HarmonicGrid(_PitchBase):
     def _harmonics(self, data_arr, fn):
         """``fn(|F|)`` of the frames' interp_fft_length-point spectrum at
         the harmonic gather, (..., T, max_index + 1, harmonics).  The
-        transform writes only the bins the gather reads."""
+        transform reads the frames as they are (the zeros of the padded
+        row are never written) and writes only the bins the gather reads."""
         X = self.interp_fft_length
         K = min(int(self._hidx.max()) + 1, X)
-        yr, yi = afft.fft_parts(F.pad(self._frames(data_arr),
-                                      (0, X - self.fft_length)), bins=K)
+        yr, yi = afft.fft_parts(self._frames(data_arr), n=X, bins=K)
         mag = fn(torch.complex(yr, yi).abs())
         del yr, yi
         g = mag[..., self._hidx_t]
@@ -320,10 +320,9 @@ class PitchPEF(_PitchBase):
         self.gamma = float(gamma)
         self._cal_filter()
 
-    def _xcorr_rows(self, data_arr):
-        """The frames' log-grid power, placed in (..., T,
-        xcorr_fft_length) zero rows at ``pad_num``: the cross-correlation's
-        input."""
+    def _log_power(self, data_arr):
+        """The frames' power spectrum resampled onto the log grid, (...,
+        T, 2 fft_length): the cross-correlation's live samples."""
         N = self.fft_length
         frames = self._frames(data_arr)
         Fs = afft.rfft(frames, n=2 * N, dim=-1)
@@ -331,22 +330,38 @@ class PitchPEF(_PitchBase):
         del Fs
         p1 = power[..., self._pos_t]
         p2 = power[..., self._pos_t + 1]
-        interp = (p1 + self._w_t * (p2 - p1)) * self._band_width_t
-        X = self.xcorr_fft_length
-        return F.pad(interp, (self._pad_num,
-                              X - self._pad_num - 2 * N)).contiguous()
+        return (p1 + self._w_t * (p2 - p1)) * self._band_width_t
 
-    def _xcorr_spectrum(self, buf):
-        """``fft(buf) * conj(Ff)`` as (re, im) parts."""
-        br, bi = afft.fft_parts(buf)
-        fr, fi = self._ff_re, self._ff_im_neg
+    def _xcorr_rows(self, data_arr):
+        """The cross-correlation's input as the reference builds it: the
+        log-grid power placed in (..., T, xcorr_fft_length) zero rows at
+        ``pad_num``."""
+        X = self.xcorr_fft_length
+        return F.pad(self._log_power(data_arr),
+                     (self._pad_num,
+                      X - self._pad_num - 2 * self.fft_length)).contiguous()
+
+    def _xcorr_spectrum(self, rows):
+        """``fft(buf) * conj(Ff)`` as (re, im) parts.  ``rows`` is the
+        padded buffer of :meth:`_xcorr_rows` (all xcorr_fft_length bins),
+        or the log-grid power of :meth:`_log_power`, which the transform
+        places at ``pad_num`` itself; the product is then Hermitian and
+        only its first xcorr_fft_length // 2 + 1 bins are formed."""
+        X = self.xcorr_fft_length
+        if rows.shape[-1] == X:
+            br, bi = afft.fft_parts(rows)
+        else:
+            br, bi = afft.fft_parts(rows, n=X, lo=self._pad_num,
+                                    bins=X // 2 + 1)
+        m = br.shape[-1]
+        fr, fi = self._ff_re[:m], self._ff_im_neg[:m]
         return ((br * fr - bi * fi).contiguous(),
                 (br * fi + bi * fr).contiguous())
 
     def pitch(self, data_arr):
         """(..., n) -> (..., time) fundamental frequency."""
-        pr, pi = self._xcorr_spectrum(self._xcorr_rows(data_arr))
-        xc = afft.ifft_parts(pr, pi, real_only=True)
+        pr, pi = self._xcorr_spectrum(self._log_power(data_arr))
+        xc = afft.ifft_parts(pr, pi, n=self.xcorr_fft_length)
         del pr, pi
         # lag pick (dealResult, len=maxIndex+1): the winning index IS the
         # lag, mapped through the log grid

@@ -15,8 +15,10 @@ Which route takes a call (:func:`route`):
   is a copy of its first bins;
 * n = 8192..32768, a forward of real rows or an inverse with real output
   (:data:`REAL_MIN`): the real-row route, one complex transform of n/2
-  points a row in shared memory; a forward writes only its first ``bins``
-  natural-order bins;
+  points a row in registers; a forward reads only the live span of its
+  rows (``n`` and ``lo``: each row placed at ``lo`` in n zeros) and
+  writes only its first ``bins`` natural-order bins, and an inverse takes
+  a whole spectrum or the half that ``irfft`` takes (``n``);
 * complex rows at 8192, 16384 (forward, or an inverse with an imaginary
   output): one row a block in shared memory;
 * complex rows at 32768 (:data:`FOUR_STEP_MIN`), and ``fft_autocorr`` at
@@ -72,23 +74,37 @@ def twiddle_table(n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(tw).to(device)
 
 
+def _pass1_factors(n: int) -> np.ndarray:
+    """The real-row route's pass-1 twiddles W_N^(t k1), N = n/2, as two
+    exact factors (``csrc/fft_real_reg.cuh``): W_N^(t r) at [r B + t], then
+    W_N^(8 t q) at [8 B + q B + t], r, q < 8, t < B = N/64; (16 B, 2)
+    fp32, built in float64."""
+    N = n // 2
+    t = np.arange(N // 64)
+    e = np.concatenate([np.outer(np.arange(8), t),
+                        np.outer(8 * np.arange(8), t)]).reshape(-1)
+    ang = -2.0 * np.pi * e / N
+    return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_table(n: int, device: torch.device) -> torch.Tensor:
-    """The table the row kernels take: :func:`twiddle_table` of n, then
-    that of n/2 (the real-row route's n/2-point transform reads the
-    shorter table)."""
-    return torch.cat([twiddle_table(n, device), twiddle_table(n // 2, device)])
+    """The table the row kernels take: :func:`twiddle_table` of n, then the
+    real-row route's pass-1 factors (:func:`_pass1_factors`)."""
+    return torch.cat([twiddle_table(n, device),
+                      torch.from_numpy(_pass1_factors(n)).to(device)])
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("fft_pow2")
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    rows = [p, p, p, p, p, p, ll, i, i, i, p]
+    fwd = [p, p, p, p, p, p, ll, i, i, i, i, i, p]
+    inv = [p, p, p, p, p, p, ll, i, i, i, p]
     auto = [p, p, p, p, p, ll, i, p]
     yin = [p, p, p, ll, ll, i, i, i, i, p]
-    for fn, argtypes in ((lib.af_fft_pow2_fwd, rows),
-                         (lib.af_fft_pow2_inv, rows),
+    for fn, argtypes in ((lib.af_fft_pow2_fwd, fwd),
+                         (lib.af_fft_pow2_inv, inv),
                          (lib.af_fft_pow2_autocorr, auto),
                          (lib.af_fft_pow2_autocorr_yin, yin)):
         fn.argtypes = argtypes
@@ -96,11 +112,12 @@ def _lib():
     return lib
 
 
-def _check_rows(who: str, **tensors) -> int:
-    """The checks every wrapper makes: pow2 n in the kernels' domain,
-    float32, contiguous, one shape and one device.  Returns n."""
+def _check_rows(who: str, n=None, **tensors) -> int:
+    """The checks every wrapper makes: pow2 n in the kernels' domain (the
+    rows' length unless given), float32, contiguous, one shape and one
+    device.  Returns n."""
     first = next(t for t in tensors.values() if t is not None)
-    n = first.shape[-1]
+    n = first.shape[-1] if n is None else int(n)
     if not supports(n):
         raise ValueError(f"{who} needs pow2 n in [2048, 32768], got {n}")
     for name, t in tensors.items():
@@ -118,20 +135,31 @@ def _check_rows(who: str, **tensors) -> int:
     return n
 
 
+@functools.lru_cache(maxsize=None)
+def _sm90(index: int) -> None:
+    """:func:`require_sm90` once a card."""
+    require_sm90(torch.device("cuda", index))
+
+
 def _call(fn, who: str, x: torch.Tensor, n: int, *ptrs, extra=(),
           four_step=False):
     """Launch ``fn(*ptrs, scratch, tw, batch, log2n, *extra, stream)`` on
-    ``x``'s device and stream; raise on a CUDA error.  ``scratch`` is the
-    four-step split's device buffer, allocated only where ``four_step``."""
-    require_sm90(x.device)
-    batch, log2n = x.numel() // n, n.bit_length() - 1
+    ``x``'s device and stream, a row of ``x`` an item; raise on a CUDA
+    error.  ``scratch`` is the four-step split's device buffer, allocated
+    only where ``four_step``."""
+    dev = x.device
+    _sm90(dev.index)
+    batch, log2n = x.numel() // x.shape[-1], n.bit_length() - 1
     scratch = (torch.empty((batch, n, 2), dtype=torch.float32,
-                           device=x.device) if four_step else None)
-    tw = _kernel_table(n, x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*ptrs, None if scratch is None else scratch.data_ptr(),
-                 tw.data_ptr(), batch, log2n, *extra, stream)
+                           device=dev) if four_step else None)
+    tw = _kernel_table(n, dev)
+    args = (*ptrs, None if scratch is None else scratch.data_ptr(),
+            tw.data_ptr(), batch, log2n, *extra)
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{who} launch failed: CUDA error {err}")
 
@@ -147,20 +175,48 @@ def _check_bins(n: int, bins, xi) -> int:
     return int(bins)
 
 
+def _check_span(live: int, n, lo: int, xi) -> int:
+    """The transform length of a forward whose rows are ``live`` samples
+    placed at ``lo`` in ``n`` zeros (None: n = live).  Returns n."""
+    n = live if n is None else int(n)
+    if (n, lo) != (live, 0):
+        if xi is not None:
+            raise ValueError("n and lo need real input (xi=None)")
+        if live < 1 or lo < 0 or lo + live > n:
+            raise ValueError(f"rows of {live} at offset {lo} do not fit "
+                             f"in n = {n}")
+    return n
+
+
+def _padded(x: torch.Tensor, n: int, lo: int) -> torch.Tensor:
+    """Rows ``x`` placed at ``lo`` in rows of ``n`` zeros."""
+    live = x.shape[-1]
+    if (n, lo) == (live, 0):
+        return x
+    return F.pad(x, (lo, n - lo - live))
+
+
 def fft_fwd_ref(xr: torch.Tensor, xi: torch.Tensor | None = None,
-                bins: int | None = None):
-    """Plain version: ``torch.fft.fft`` of ``xr + i xi`` -> (re, im), its
-    first ``bins`` bins (None: all)."""
-    z = xr if xi is None else torch.complex(xr, xi)
+                bins: int | None = None, n: int | None = None, lo: int = 0):
+    """Plain version: ``torch.fft.fft`` of ``xr + i xi`` (real rows
+    placed at ``lo`` in ``n`` zeros) -> (re, im), its first ``bins`` bins
+    (None: all)."""
+    z = _padded(xr, xr.shape[-1] if n is None else n, lo)
+    if xi is not None:
+        z = torch.complex(z, xi)
     y = torch.fft.fft(z, dim=-1)[..., :bins]
     return y.real.contiguous(), y.imag.contiguous()
 
 
 def fft_fwd(xr: torch.Tensor, xi: torch.Tensor | None = None,
-            bins: int | None = None):
+            bins: int | None = None, n: int | None = None, lo: int = 0):
     """Forward FFT of (..., n) fp32 rows (``xi=None``: real input) ->
     (re, im), each (..., bins), natural bin order: the first ``bins`` bins
     of the spectrum (None: all n; 1 <= bins <= n, real input only).
+    Real rows may be shorter than the transform: with ``n`` given, each
+    row of ``live = xr.shape[-1]`` samples stands at offset ``lo`` of an
+    n-point row of zeros (``lo + live <= n``), and the kernel reads only
+    the live samples.
 
     A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
     takes the plain version.  ~1e-6 of the peak (the TPU kernel's contract
@@ -168,20 +224,25 @@ def fft_fwd(xr: torch.Tensor, xi: torch.Tensor | None = None,
     (one packed complex transform, separated in the kernel); from 8192 on
     each real row is one complex transform of n/2 points, and only the
     bins asked for are written."""
-    n = _check_rows("fft_fwd", xr=xr, xi=xi)
+    n = _check_span(xr.shape[-1], n, lo, xi)
+    _check_rows("fft_fwd", n, xr=xr, xi=xi)
     bins = _check_bins(n, bins, xi)
     if xr.device.type == "cpu":
-        return fft_fwd_ref(xr, xi, bins)
-    return _fwd(xr, xi, n, bins)
+        return fft_fwd_ref(xr, xi, bins, n, lo)
+    return _fwd(xr, xi, n, bins, lo=lo)
 
 
-def _fwd(xr, xi, n, bins=None, stages=3):
+def _fwd(xr, xi, n, bins=None, stages=3, lo=0):
     """Launch the forward kernel; ``stages`` 1 and 2 cut it, for
     measurements (the output is then not the spectrum): at n = 2048 and
     4096 after its first or second pass, on the real-row route after the
     load or after the n/2-point transform."""
     bins = n if bins is None else bins
+    live = xr.shape[-1]
     way = route(n, xi is None)
+    if way != "real" and (n, lo) != (live, 0):   # the kernel reads whole rows
+        xr = _padded(xr, n, lo).contiguous()
+        live, lo = n, 0
     if way == "register" and bins < n:    # the route writes every bin
         yr, yi = _fwd(xr, xi, n, n, stages)
         return yr[..., :bins].contiguous(), yi[..., :bins].contiguous()
@@ -191,9 +252,10 @@ def _fwd(xr, xi, n, bins=None, stages=3):
         return yr, yi
     _call(_lib().af_fft_pow2_fwd, "fft_pow2 forward", xr, n, xr.data_ptr(),
           None if xi is None else xi.data_ptr(), yr.data_ptr(),
-          yi.data_ptr(), extra=(bins, stages),
+          yi.data_ptr(), extra=(bins, lo, live, stages),
           four_step=way == "four_step")
     _count(fft_fwd, way)
+    fft_fwd.live_launches += int(live < n)
     return yr, yi
 
 
@@ -204,35 +266,73 @@ def _count(fn, way):
     fn.four_step_launches += int(way == "four_step")
 
 
-def fft_inv_ref(yr: torch.Tensor, yi: torch.Tensor, out_imag: bool = True):
+def _half_n(rows: int, n) -> int:
+    """The length of a half spectrum's signal: ``rows == n // 2 + 1``."""
+    if rows != int(n) // 2 + 1:
+        raise ValueError(f"a half spectrum of n = {n} has {int(n) // 2 + 1} "
+                         f"bins, got {rows}")
+    return int(n)
+
+
+def _hermitian(yr: torch.Tensor, yi: torch.Tensor, n: int):
+    """The whole spectrum (re, im) of the half spectrum ``yr + i yi`` (n/2
+    + 1 bins): bin n - k is conj Y[k], and the imaginary parts of bins 0
+    and n/2 are dropped, as irfft drops them."""
+    vi = yi.clone()
+    vi[..., 0] = 0
+    vi[..., n // 2] = 0
+    return (torch.cat([yr, yr[..., 1:n // 2].flip(-1)], dim=-1),
+            torch.cat([vi, -vi[..., 1:n // 2].flip(-1)], dim=-1))
+
+
+def fft_inv_ref(yr: torch.Tensor, yi: torch.Tensor, out_imag: bool = True,
+                n: int | None = None):
     """Plain version: ``torch.fft.ifft`` of ``yr + i yi`` -> (re, im or
-    None)."""
+    None); with ``n``, the real part of the inverse of the half spectrum's
+    Hermitian extension -> (re, None) (the values ``ifft`` of the whole
+    spectrum gives, to the last bit, where its upper half mirrors the
+    lower)."""
+    if n is not None:
+        yr, yi = _hermitian(yr, yi, n)
+        out_imag = False
     x = torch.fft.ifft(torch.complex(yr, yi), dim=-1)
     return x.real.contiguous(), (x.imag.contiguous() if out_imag else None)
 
 
-def fft_inv(yr: torch.Tensor, yi: torch.Tensor, out_imag: bool = True):
+def fft_inv(yr: torch.Tensor, yi: torch.Tensor, out_imag: bool = True,
+            n: int | None = None):
     """Inverse FFT of a natural-order (..., n) fp32 spectrum pair -> (re,
     im), each (..., n), 1/n included: the exact inverse of :func:`fft_fwd`.
     ``out_imag=False`` returns ``(re, None)`` and writes no imaginary
-    output (use when the result is known to be real).
+    output (use when the result is known to be real).  With ``n`` given,
+    the rows are the n/2 + 1 bins of a half spectrum, as ``irfft`` takes
+    them (bin n - k is conj Y[k]; the imaginary parts of bins 0 and n/2
+    are ignored), and the result is ``(re, None)``, real rows of n.
 
     A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
     takes the plain version.  From n = 8192 on, a real output takes the
     real-row route: Re(ifft(Y)) of any Y (the Hermitian part of Y is
-    transformed), one complex transform of n/2 points a row."""
-    n = _check_rows("fft_inv", yr=yr, yi=yi)
+    transformed), or of a half spectrum, one complex transform of n/2
+    points a row."""
+    half = n is not None
+    if half:
+        n = _half_n(yr.shape[-1], n)
+        out_imag = False
+    n = _check_rows("fft_inv", n, yr=yr, yi=yi)
     if yr.device.type == "cpu":
-        return fft_inv_ref(yr, yi, out_imag)
-    xr = torch.empty_like(yr)
-    xi = torch.empty_like(yr) if out_imag else None
+        return fft_inv_ref(yr, yi, out_imag, n if half else None)
+    way = route(n, not out_imag)
+    if half and way != "real":     # the register route takes whole spectra
+        yr, yi = _hermitian(yr, yi, n)
+    xr = yr.new_empty(yr.shape[:-1] + (n,))
+    xi = torch.empty_like(xr) if out_imag else None
     if yr.numel() == 0:
         return xr, xi
-    way = route(n, not out_imag)
     _call(_lib().af_fft_pow2_inv, "fft_pow2 inverse", yr, n, yr.data_ptr(),
           yi.data_ptr(), xr.data_ptr(), None if xi is None else xi.data_ptr(),
-          extra=(n, 3), four_step=way == "four_step")
+          extra=(yr.shape[-1], 3), four_step=way == "four_step")
     _count(fft_inv, way)
+    fft_inv.half_launches += int(yr.shape[-1] < n)
     return xr, xi
 
 
@@ -336,5 +436,7 @@ fft_fwd.real_launches = 0       # real rows at n = 8192..32768 (real-row route)
 fft_inv.real_launches = 0
 fft_fwd.four_step_launches = 0  # complex rows at n = 32768 (four-step route)
 fft_inv.four_step_launches = 0
+fft_fwd.live_launches = 0       # real-row route, rows shorter than n
+fft_inv.half_launches = 0       # real-row route, half spectra
 fft_autocorr.launches = 0
 fft_autocorr_yin.launches = 0

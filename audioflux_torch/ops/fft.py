@@ -41,13 +41,10 @@ def rfft(x: torch.Tensor, n=None, dim=-1, exact=False) -> torch.Tensor:
     ln = n if n is not None else x.shape[dim]
     if not _kernel_tier(ln, exact):
         return torch.fft.rfft(x, n=n, dim=dim)
-    v = _prep(x, ln, dim).to(torch.float32).contiguous()
-    m = ln // 2 + 1
-    if ln >= cuda_fft.REAL_MIN:     # the real-row route writes m bins only
-        yr, yi = cuda_fft.fft_fwd(v, bins=m)
-    else:                           # the register route writes all of them
-        yr, yi = cuda_fft.fft_fwd(v)
-        yr, yi = yr[..., :m], yi[..., :m]
+    # rows shorter than n are not padded: the kernel reads the live
+    # samples alone
+    v = _prep(x, min(ln, x.shape[dim]), dim).to(torch.float32).contiguous()
+    yr, yi = cuda_fft.fft_fwd(v, bins=ln // 2 + 1, n=ln)
     return torch.complex(yr, yi).movedim(-1, dim)
 
 
@@ -55,12 +52,13 @@ def fft(x: torch.Tensor, n=None, dim=-1, exact=False) -> torch.Tensor:
     ln = n if n is not None else x.shape[dim]
     if not _kernel_tier(ln, exact):
         return torch.fft.fft(x, n=n, dim=dim)
-    v = _prep(x, ln, dim)
-    if v.is_complex():
+    if x.is_complex():
+        v = _prep(x, ln, dim)
         yr, yi = cuda_fft.fft_fwd(v.real.to(torch.float32).contiguous(),
                                   v.imag.to(torch.float32).contiguous())
-    else:
-        yr, yi = cuda_fft.fft_fwd(v.to(torch.float32).contiguous())
+    else:               # real rows shorter than n: only the live samples
+        v = _prep(x, min(ln, x.shape[dim]), dim)
+        yr, yi = cuda_fft.fft_fwd(v.to(torch.float32).contiguous(), n=ln)
     return torch.complex(yr, yi).movedim(-1, dim)
 
 
@@ -68,21 +66,14 @@ def irfft(x: torch.Tensor, n=None, dim=-1, exact=False) -> torch.Tensor:
     ln = n if n is not None else 2 * (x.shape[dim] - 1)
     if not _kernel_tier(ln, exact):
         return torch.fft.irfft(x, n=n, dim=dim)
-    v = _prep(x, ln // 2 + 1, dim)
-    # hermitian extension, then the inverse kernel; the imaginary parts of
-    # the DC and Nyquist bins are dropped, torch.fft.irfft's convention on
+    # the half spectrum as it is: the kernel ignores the imaginary parts of
+    # the DC and Nyquist bins, torch.fft.irfft's convention on
     # hermitian-inconsistent input
-    if v.is_complex():
-        vr = v.real.to(torch.float32)
-        vi = v.imag.to(torch.float32).clone()
-        vi[..., 0] = 0
-        vi[..., -1] = 0
-    else:
-        vr = v.to(torch.float32)
-        vi = torch.zeros_like(vr)
-    yr = torch.cat([vr, vr[..., 1:ln // 2].flip(-1)], dim=-1)
-    yi = torch.cat([vi, -vi[..., 1:ln // 2].flip(-1)], dim=-1)
-    out, _ = cuda_fft.fft_inv(yr, yi, out_imag=False)
+    v = _prep(x, ln // 2 + 1, dim)
+    vr = (v.real if v.is_complex() else v).to(torch.float32).contiguous()
+    vi = (v.imag.to(torch.float32).contiguous() if v.is_complex()
+          else torch.zeros_like(vr))
+    out, _ = cuda_fft.fft_inv(vr, vi, n=ln)
     return out.movedim(-1, dim)
 
 
@@ -102,33 +93,46 @@ def ifft(x: torch.Tensor, n=None, dim=-1, exact=False) -> torch.Tensor:
 
 
 def fft_parts(re: torch.Tensor, im: torch.Tensor | None = None,
-              bins: int | None = None):
+              bins: int | None = None, n: int | None = None, lo: int = 0):
     """``fft(re + i im)`` over the last axis (``im=None``: real input) as
     the two float32 parts of the spectrum, its first ``bins`` bins (None:
-    all; real input only).  The kernel tier writes the parts as they are,
-    so a caller that takes a large spectrum apart never holds it as a
-    complex tensor too (HPS's and PEF's 32768-point rows), and from 8192
-    on it writes only the bins asked for (HPS's 10,001 of 32,768)."""
-    n = re.shape[-1]
+    all; real input only).  Real rows shorter than the transform stand at
+    offset ``lo`` of ``n``-point rows of zeros (None: n is the rows'
+    length).  The kernel tier writes the parts as they are, so a caller
+    that takes a large spectrum apart never holds it as a complex tensor
+    too (HPS's and PEF's 32768-point rows); from 8192 on it reads only the
+    live samples and writes only the bins asked for (HPS's 4,096 samples
+    of 32,768, its 10,001 bins)."""
+    n = cuda_fft._check_span(re.shape[-1], n, lo, im)
     if not cuda_fft.supports(n):
         cuda_fft._check_bins(n, bins, im)
-        y = torch.fft.fft(re if im is None else torch.complex(re, im), dim=-1)
+        z = cuda_fft._padded(re, n, lo)
+        y = torch.fft.fft(z if im is None else torch.complex(z, im), dim=-1)
         return y.real[..., :bins], y.imag[..., :bins]
     return cuda_fft.fft_fwd(
         re.to(torch.float32).contiguous(),
-        None if im is None else im.to(torch.float32).contiguous(), bins)
+        None if im is None else im.to(torch.float32).contiguous(), bins, n,
+        lo)
 
 
-def ifft_parts(re: torch.Tensor, im: torch.Tensor, real_only: bool = False):
+def ifft_parts(re: torch.Tensor, im: torch.Tensor, real_only: bool = False,
+               n: int | None = None):
     """``ifft(re + i im)`` over the last axis, from the two float32 parts of
     the spectrum.  The kernel tier reads the parts as they are, so a caller
     that builds a large spectrum part by part never holds it as a complex
     tensor too (ST's inverse over every bin row).  ``real_only=True``
     returns the real part alone (the kernel then writes no imaginary
-    part, and from 8192 on takes the real-row route: PEF's
-    cross-correlation, ``xcorr``)."""
-    n = re.shape[-1]
-    if not cuda_fft.supports(n):
+    part, and from 8192 on takes the real-row route).  With ``n`` given
+    the parts are the n // 2 + 1 bins of a half spectrum and the result is
+    ``irfft``'s real rows of n (PEF's cross-correlation, ``xcorr``: their
+    products are Hermitian)."""
+    if n is not None:
+        if not cuda_fft.supports(n):
+            return cuda_fft.fft_inv_ref(re, im, n=n)[0]
+        return cuda_fft.fft_inv(re.to(torch.float32).contiguous(),
+                                im.to(torch.float32).contiguous(), n=n)[0]
+    m = re.shape[-1]
+    if not cuda_fft.supports(m):
         y = torch.fft.ifft(torch.complex(re, im), dim=-1)
         return y.real if real_only else y
     outr, outi = cuda_fft.fft_inv(re.to(torch.float32).contiguous(),

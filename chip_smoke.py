@@ -8,8 +8,9 @@ Phases (any failure exits non-zero; no result line is printed then):
    versions; sm_90 required; fp32 matmuls must not use TF32);
 1. build every kernel from ``audioflux_torch/csrc`` with nvcc (one process
    per source, started together) and print ptxas' register, stack and
-   spill lines (the register-resident autocorrelation and the unwrap's
-   run-per-thread kernels must have neither stack nor spill), and the
+   spill lines (the register-resident autocorrelation, the unwrap's
+   run-per-thread kernels and the FFT's real-row kernels must have neither
+   stack nor spill), and the
    FMNMX instructions of each median network kernel beside the network's
    own count;
 2. each kernel against its plain PyTorch version on the card: the forward
@@ -17,10 +18,13 @@ Phases (any failure exits non-zero; no result line is printed then):
    2048..32768, and the FFT's and the autocorrelation's register routes
    (n = 2048, 4096) on 1, 3 and 65 rows, real, complex and inverse, at an
    offset of one float; the FFT's real-row route (n = 8192, 16384, 32768)
-   on 1, 3 and 64 real rows, aligned and one float off, the forward at
-   bins 1, n/2 + 1, 10,001 and n, the inverse to real output of random and
-   Hermitian spectra, the round trip and a real spectrum through the C
-   entry, none of them on the four-step route; YIN's autocorrelation entry on clips of odd
+   on 1, 3, 64, 1000, 2113 and 7,472 real rows, aligned and one float off,
+   the forward of whole rows and of live spans at an offset (n/8 at 0,
+   n/4 at 932, an odd offset and length, five samples at the end) at bins
+   1, n/2 + 1, 10,001 and n, the inverse to real output of whole and half
+   spectra, of Hermitian spectra, the round trip and a real spectrum
+   through the C entry, none of them on the four-step route; YIN's
+   autocorrelation entry on clips of odd
    length, a view at an offset of one float, slides that put frames off
    16-byte alignment, one-frame clips and several lags; the
    fused mel+MFCC kernel over eight shape classes, unaligned views, a
@@ -44,12 +48,17 @@ Phases (any failure exits non-zero; no result line is printed then):
    inverse rows (64 x 2048 rows of 4096, forward and inverse) and Deep's
    7,472 frames at 5e-5; and (2f) over slice 9's rows of config 5's 8 x
    30 s (7,472 frames): ``fft_autocorr`` at 8192 on NCF's and
-   HarmonicRatio's operands, ``fft_pow2`` at 32768 on HPS's real rows
-   (the bins it keeps) and PEF's cross-correlation input (the real-row
-   route) and on its product spectrum (complex: the four-step route, on no
-   main path), ``fft_inv`` at 32768 on that product to real output (the
-   real-row route, PEF's call) and to complex output (four-step), and
-   ``fft_pow2`` at 8192 on PEF's frames (the bins its rfft keeps), at 5e-5;
+   HarmonicRatio's operands, ``fft_pow2`` at 32768 on HPS's frames (4,096
+   live samples, the bins it keeps) and PEF's log-grid power (8,192 live at
+   its pad, the half spectrum: the real-row route) and on its whole
+   product spectrum (complex: the four-step route, on no main path),
+   ``fft_inv`` at 32768 on the half product (the real-row route, PEF's
+   call), on the whole product to real output and to complex output
+   (four-step), and ``fft_pow2`` at 8192 on PEF's frames (4,096 live, the
+   bins its rfft keeps), at 5e-5; then ``PitchHPS``, ``PitchLHS``,
+   ``PitchPEF`` and ``xcorr`` must launch the real-row route with a live
+   span (PEF and xcorr the half-spectrum inverse too) and never the
+   four-step route;
 3. the main paths at full size, each with the launch counts set to 0 just
    before it and read just after (on the MIR path, before and after each
    user's call; the route counts show the FFT's register route and the
@@ -118,7 +127,8 @@ Phases (any failure exits non-zero; no result line is printed then):
       magnitude, an ``HMM(16, 64)`` trained on 16 steps and decoded, and
       ``viterbi`` (log domain) over 7,472 steps; NCF and HarmonicRatio
       must launch ``fft_autocorr``, HPS, LHS and PEF the FFT's real-row
-      route (PEF its inverse too) and none the four-step route, TuneTrack
+      route with a live span (PEF its half-spectrum inverse too) and none
+      the four-step route, TuneTrack
       ``fft_autocorr_yin``; each against
       the port on the CPU (first and last clip): at most 2% of the frames
       off by more than one step of the engine's grid, HarmonicRatio by
@@ -170,13 +180,17 @@ Phases (any failure exits non-zero; no result line is printed then):
    Cepstrogram and the DSP calls (4e), with ``fft_pow2`` and ``fft_inv``
    at slice 8's shapes (ST's 131,072 inverse rows both ways, Deep's
    frames, Hilbert's rows, and xcorr's rows as ``xcorr`` calls them: a
-   real forward and an inverse to real output) listed under ``shapes``;
+   real forward of the live samples to the half spectrum and the inverse
+   of the half product) listed under ``shapes``;
    slice 9 (4f): audio-hours per second of each batched call, the
    host-clock ms of the single-clip calls, NMF, HMM and viterbi (its
    microseconds a step), the splits of NCF, PEF, FFP and HPSSNMF, and the
    FFT kernels at slice 9's shapes as the engines call them (HPS's forward
-   at the bins it keeps, PEF's frames through rfft, PEF's inverse to real
-   output; the complex rows on the four-step route beside them) under
+   of its live frames at the bins it keeps, PEF's frames through rfft,
+   PEF's live log-grid power to the half spectrum and the inverse of its
+   half product, each with its cuts under ``cuts_ms``; the whole product's
+   real and complex inverses and the complex rows on the four-step route
+   beside them) under
    ``shapes`` of ``fft_pow2``, ``fft_inv`` and ``fft_autocorr`` (whose row
    counts both entries' launches), with ``torch.fft.rfft``/``irfft``
    beside the library call where they give the same values; slice 10
@@ -420,7 +434,8 @@ def phase0_identity():
 
 # kernels that must compile with no stack frame and no spill (their
 # register arrays must stay in registers)
-NO_SPILL = ("autocorr_reg_kernel", "unwrap_rows_kernel")
+NO_SPILL = ("autocorr_reg_kernel", "unwrap_rows_kernel", "real_fwd_kernel",
+            "real_inv_kernel")
 
 
 def phase1_build():
@@ -690,42 +705,77 @@ def phase2_kernels(gen):
 
 
 def real_route_kernels(gen):
-    """The real-row route (n = 8192..32768) against the plain versions: 1,
-    3 and 64 real rows at a 16-byte aligned address and one float off; the
-    forward at bins 1, n/2 + 1, 10,001 (above 10,001) and n (errors over
-    the whole spectrum's peak); the inverse with real output of random
-    spectra and of Hermitian ones (a real row's spectrum), and the round
-    trip; the C entry's inverse of a real spectrum (a null imaginary
-    input) into an output one float off.  Every wrapper call must take the
+    """The real-row route (n = 8192..32768) against the plain versions, at
+    5e-5 of the whole spectrum's peak: 1, 3, 64, 1000, 2113 (odd, and more
+    than two rows a resident block at every n) and 7,472 rows, at a 16-byte
+    aligned address and one float off (the rows whose every address is
+    16-byte aligned take the TMA bulk copy, the others cp.async; whole rows
+    at 32768 are read without staging); the forward of whole rows and of
+    live spans at offset lo (HPS's n/8 at 0, PEF's n/4 at 932, an odd
+    offset with a length no multiple of 16, five samples at the end) at
+    bins 1, n/2 + 1, 10,001 and n (n/2 + 1 and n from 1000 rows on); the
+    inverse to real output of random whole spectra and of half spectra;
+    below 1000 rows also of Hermitian spectra (a real row's), the round
+    trip, and the C entry's inverse of a real spectrum (a null imaginary
+    input) into an output one float off.  Every call must take the
     real-row route, none the four-step route."""
+    # the inputs of 1, 3 and 64 rows come from the shared generator, as
+    # before this route had live spans and half spectra (the later phases'
+    # inputs follow from its state); every other input from one of this
+    # phase's own
+    own = torch.Generator(device="cuda")
+    own.manual_seed(13)
     for n in (8192, 16384, 32768):
-        bins_list = sorted({1, n // 2 + 1, min(10001, n), n})
-        for batch in (1, 3, 64):
-            buf = randn(2 * batch * n + 2, gen)
+        N = n // 2
+        spans = ((0, n), (0, n // 8), (932, n // 4), (931, n // 4 - 5),
+                 (n - 5, 5))
+        for batch in (1, 3, 64, 1000, 2113, 7472):
+            big = batch >= 1000
+            bins_list = ((N + 1, n) if big
+                         else sorted({1, N + 1, min(10001, n), n}))
             worst = 0.0
             zero_counts()
+            yb = randn(2 * batch * n + 2, own if big else gen)
             for off in (0, 1):
-                xr = buf[off:off + batch * n].view(batch, n)
-                xi = buf[off + batch * n:off + 2 * batch * n].view(batch, n)
-                full = fft_fwd_ref(xr)
-                peak = pair_err(full, full)[1]
-                for bins in bins_list:
-                    e, _ = pair_err(fft_fwd(xr, bins=bins),
-                                    fft_fwd_ref(xr, None, bins))
-                    worst = max(worst, e / peak)
-                for yr, yi in ((xr, xi), full):
-                    worst = max(worst, pair_rel(
-                        fft_inv(yr, yi, out_imag=False),
-                        fft_inv_ref(yr, yi, out_imag=False)))
-                back, _ = fft_inv(*fft_fwd(xr), out_imag=False)
-                worst = max(worst, pair_rel((back,), (xr,)))
-                out = torch.empty(batch * n + 1, device="cuda")[1:].view(
-                    batch, n)
-                cuda_fft._call(cuda_fft._lib().af_fft_pow2_inv,
-                               "fft_pow2 inverse", xr, n, xr.data_ptr(), None,
-                               out.data_ptr(), None, extra=(n, 3))
+                for lo, live in spans:
+                    buf = (yb if live == n and not big
+                           else randn(batch * live + 2, own))
+                    x = buf[off:off + batch * live].view(batch, live)
+                    full = fft_fwd_ref(x, None, n, n, lo)
+                    peak = pair_err(full, full)[1]
+                    del full
+                    for bins in bins_list:
+                        e, _ = pair_err(fft_fwd(x, bins=bins, n=n, lo=lo),
+                                        fft_fwd_ref(x, None, bins, n, lo))
+                        worst = max(worst, e / peak)
+                    del buf, x
+                yr = yb[off:off + batch * n].view(batch, n)
+                yi = yb[off + batch * n:off + 2 * batch * n].view(batch, n)
                 worst = max(worst, pair_rel(
-                    (out,), fft_inv_ref(xr, torch.zeros_like(xr), False)))
+                    fft_inv(yr, yi, out_imag=False),
+                    fft_inv_ref(yr, yi, out_imag=False)))
+                m = N + 1
+                hr = yb[off:off + batch * m].view(batch, m)
+                hi = yb[off + batch * m:off + 2 * batch * m].view(batch, m)
+                worst = max(worst, pair_rel(fft_inv(hr, hi, n=n),
+                                            fft_inv_ref(hr, hi, n=n)))
+                if not big:
+                    xr = yr
+                    full = fft_fwd_ref(xr)
+                    worst = max(worst, pair_rel(
+                        fft_inv(*full, out_imag=False),
+                        fft_inv_ref(*full, out_imag=False)))
+                    back, _ = fft_inv(*fft_fwd(xr), out_imag=False)
+                    worst = max(worst, pair_rel((back,), (xr,)))
+                    out = torch.empty(batch * n + 1, device="cuda")[1:].view(
+                        batch, n)
+                    cuda_fft._call(cuda_fft._lib().af_fft_pow2_inv,
+                                   "fft_pow2 inverse", xr, n, xr.data_ptr(),
+                                   None, out.data_ptr(), None, extra=(n, 3))
+                    worst = max(worst, pair_rel(
+                        (out,), fft_inv_ref(xr, torch.zeros_like(xr), False)))
+                del yr, yi, hr, hi
+            del yb
             torch.cuda.synchronize()
             counts = read_counts()
             for d in ("fft_pow2", "fft_inv"):
@@ -733,10 +783,17 @@ def real_route_kernels(gen):
                         or counts[f"{d} real-row route"] != counts[d]):
                     raise AssertionError(f"real rows at n={n} left the "
                                          f"real-row route: {counts}")
-            check(f"fft_pow2 real-row route n={n}, {batch} rows (forward at "
-                  f"bins {bins_list}, inverse to real output of random and "
-                  "Hermitian spectra, round trip, a real spectrum through "
-                  "the C entry; offsets 0 and 1 float)", worst, FFT_TOL)
+            if not counts["fft_pow2 live span"] or not counts[
+                    "fft_inv half spectrum"]:
+                raise AssertionError(f"n={n}: no live-span forward or half "
+                                     f"spectrum inverse: {counts}")
+            check(f"fft_pow2 real-row route n={n}, {batch} rows (forward of "
+                  f"whole rows and {len(spans) - 1} live spans at bins "
+                  f"{list(bins_list)}, inverse to real output of whole and "
+                  "half spectra" + ("" if big else ", Hermitian spectra, "
+                                    "round trip, a real spectrum through "
+                                    "the C entry") + "; offsets 0 and 1 "
+                  "float)", worst, FFT_TOL)
 
 
 def complex_err(got, ref):
@@ -942,6 +999,8 @@ COUNTERS = {"fft_pow2": (fft_fwd, "launches"),
             "fft_inv register route": (fft_inv, "register_launches"),
             "fft_inv real-row route": (fft_inv, "real_launches"),
             "fft_inv four-step route": (fft_inv, "four_step_launches"),
+            "fft_pow2 live span": (fft_fwd, "live_launches"),
+            "fft_inv half spectrum": (fft_inv, "half_launches"),
             "fft_autocorr": (fft_autocorr, "launches"),
             "fft_autocorr_yin": (fft_autocorr_yin, "launches"),
             "median_filter": (median_filter_last_axis, "launches"),
@@ -2658,10 +2717,13 @@ def phase3_slice8_paths(gen):
                xs[e3].cpu(), 0.1, 0.3, **cpu)))
     for name, fn, ref_fn in dsp:
         # about ten complex (clips, 8192) rows: the two spectra, their
-        # product, the inverse's parts and the result
-        out, _ = counted(f"{name}, {C3_CLIPS} x {C3_N}", fn,
-                         ("fft_pow2", "fft_inv"), C3_CLIPS * 2 * C3_N * 80
-                         / 1e9)
+        # product, the inverse's parts and the result; xcorr's forwards
+        # read the live span and its inverse takes the half spectrum
+        need = ("fft_pow2", "fft_inv") + (
+            ("fft_pow2 live span", "fft_inv half spectrum")
+            if name == "xcorr" else ())
+        out, _ = counted(f"{name}, {C3_CLIPS} x {C3_N}", fn, need,
+                         C3_CLIPS * 2 * C3_N * 80 / 1e9)
         finite(f"3e {name}", out)
         check(f"gate 3e {name} (first and last clip) vs CPU",
               gate_err(out[e3], ref_fn()), GATE_TOL)
@@ -2760,23 +2822,28 @@ def phase4_slice8_timing(d):
               lambda: torch.fft.ifft(F, dim=-1), (hr, hi), 250,
               16 * hr.numel(), C3_CLIPS, C3_N,
               f"{C3_CLIPS}x{C3_N} complex, Hilbert's inverse")
+    # xcorr's forwards read the clip's n live samples of its 2n-point row
+    # and write the half spectrum; its inverse takes the half product
     n2 = 2 * C3_N
+    h2 = C3_N + 1
     xp = torch.nn.functional.pad(xs, (0, C3_N))
-    shape_row("fft_pow2", fft_fwd, fft_fwd_ref,
-              lambda: torch.fft.fft(xp, dim=-1), (xp,), 250, 12 * xp.numel(),
-              C3_CLIPS, n2, f"forward {C3_CLIPS}x{n2} real, xcorr's "
-              "(real-row route)", lib_real=lambda: torch.fft.rfft(xp, dim=-1))
-    P = torch.fft.fft(xp, dim=-1) * torch.fft.fft(
-        torch.nn.functional.pad(ys, (0, C3_N)), dim=-1).conj()
-    pr, pi = P.real.contiguous(), P.imag.contiguous()
-    # xcorr's product is Hermitian (two real rows' spectra): irfft of its
-    # first n2/2 + 1 bins gives the same real output
-    Ph = P[..., :C3_N + 1].contiguous()
-    shape_row("fft_inv", real_inv, real_inv_ref,
-              lambda: torch.fft.ifft(P, dim=-1).real, (pr, pi), 250,
-              12 * pr.numel(), C3_CLIPS, n2,
-              f"{C3_CLIPS}x{n2} to real output, xcorr's inverse (real-row "
-              "route)", lib_real=lambda: torch.fft.irfft(Ph, n=n2, dim=-1))
+    shape_row("fft_pow2", lambda v: fft_fwd(v, bins=h2, n=n2),
+              lambda v: fft_fwd_ref(v, None, h2, n2),
+              lambda: torch.fft.fft(xp, dim=-1), (xs,), 250,
+              4 * xs.numel() + 8 * C3_CLIPS * h2, C3_CLIPS, n2,
+              f"forward {C3_CLIPS}x{n2} real, {C3_N} live, bins={h2}, "
+              "xcorr's (real-row route)",
+              lib_real=lambda: torch.fft.rfft(xs, n=n2, dim=-1))
+    A = torch.fft.rfft(xs, n=n2, dim=-1)
+    Ph = A * torch.fft.rfft(ys, n=n2, dim=-1).conj()
+    pr, pi = Ph.real.contiguous(), Ph.imag.contiguous()
+    P = torch.cat([Ph, Ph[..., 1:C3_N].flip(-1).conj()], dim=-1)
+    shape_row("fft_inv", *half_inv(n2), lambda: torch.fft.ifft(P, dim=-1).real,
+              (pr, pi), 250, 8 * pr.numel() + 4 * C3_CLIPS * n2, C3_CLIPS,
+              n2, f"{C3_CLIPS}x{n2} to real output from the half product "
+              f"({h2} bins), xcorr's (real-row route)",
+              lib_real=lambda: torch.fft.irfft(Ph, n=n2, dim=-1))
+    hr = hi = None
     del F, hr, hi, xp, P, Ph, pr, pi
 
     # --- the users' calls: audio-hours per second ------------------------
@@ -2835,23 +2902,27 @@ def s9_plans(device):
 def s9_rows(p, x):
     """The rows the batched engines hand the FFT kernels, rebuilt as they
     build them: NCF's and HarmonicRatio's autocorrelation operands at 8192,
-    HPS's real rows at 32768 (and the bins it keeps), PEF's frames at 8192,
-    its cross-correlation input (real) and product spectrum (complex) at
-    32768."""
+    HPS's frames (4,096 live samples of 32768 rows, and the bins it keeps),
+    PEF's frames (4,096 of 8192), its log-grid power (8,192 live samples at
+    pad_num of 32768) and the half spectrum of its product; and the whole
+    product spectrum of PEF's padded rows (the complex rows at 32768, on no
+    main path)."""
     pef = p["pef"]
     X = pef.xcorr_fft_length
-    buf = pef._xcorr_rows(x)
-    pr, pi = pef._xcorr_spectrum(buf)
+    power = pef._log_power(x)
+    pr, pi = pef._xcorr_spectrum(power)
+    fr, fi = pef._xcorr_spectrum(pef._xcorr_rows(x))
     hr = p["hr"]
     hr_frames = x.unfold(-1, hr.window_length, hr.slide_length) * hr._window_t
     return dict(
         ncf=autocorr_operands(p["ncf"]._frames(x), 2 * p["ncf"].fft_length),
         hr=autocorr_operands(hr_frames, hr.fft_length),
-        hps=F.pad(p["hps"]._frames(x), (0, p["hps"].interp_fft_length
-                                        - p["hps"].fft_length)).contiguous(),
+        hps=p["hps"]._frames(x).contiguous(),
+        hps_n=p["hps"].interp_fft_length,
         hps_bins=min(int(p["hps"]._hidx.max()) + 1, X),
-        pef8=F.pad(pef._frames(x), (0, pef.fft_length)).contiguous(),
-        pef_buf=buf, pef_prod=(pr, pi), X=X)
+        pef8=pef._frames(x).contiguous(), pef8_n=2 * pef.fft_length,
+        pef_buf=power.contiguous(), pef_lo=pef._pad_num,
+        pef_half=(pr, pi), pef_prod=(fr, fi), X=X)
 
 
 def real_inv(yr, yi):
@@ -2864,13 +2935,28 @@ def real_inv_ref(yr, yi):
     return fft_inv_ref(yr, yi, out_imag=False)[0]
 
 
+def half_inv(n):
+    """``fft_inv`` of half spectra of n and its plain version."""
+    return (lambda a, b: fft_inv(a, b, n=n)[0],
+            lambda a, b: fft_inv_ref(a, b, n=n)[0])
+
+
+def live_fwd(n, bins, lo=0):
+    """``fft_fwd`` of live spans (rows at lo in n zeros) and its plain
+    version."""
+    return (lambda v: fft_fwd(v, bins=bins, n=n, lo=lo),
+            lambda v: fft_fwd_ref(v, None, bins, n, lo))
+
+
 def phase2_slice9_kernels(gen):
     phase("phase 2f: the FFT kernels at slice 9's shapes against their "
-          "plain versions, over the whole batch (config 5's 8 x 30 s)")
+          "plain versions, over the whole batch (config 5's 8 x 30 s), and "
+          "the users' calls on the real-row route with a live span")
     p = s9_plans("cuda")
     x = mir_signal(MIR_SMALL, MIR_SECONDS * SR, gen)
     r = s9_rows(p, x)
-    rows = r["hps"].numel() // r["X"]
+    X = r["X"]
+    rows = r["hps"].numel() // r["hps"].shape[-1]
     errs = {}
     what = f"{rows} rows"
     errs["acf_ncf"] = whole_batch(
@@ -2881,26 +2967,52 @@ def phase2_slice9_kernels(gen):
         fft_autocorr_ref, r["hr"], 1, FFT_TOL)
     K = r["hps_bins"]
     errs["hps"] = whole_batch(
-        f"fft_pow2 real 32768 bins={K} (real-row route), HPS's {what}",
-        lambda v: fft_fwd(v, bins=K), lambda v: fft_fwd_ref(v, None, K),
-        (r["hps"],), 1, FFT_TOL)
+        f"fft_pow2 real {r['hps_n']} bins={K}, 4096 live (real-row route), "
+        f"HPS's {what}", *live_fwd(r["hps_n"], K), (r["hps"],), 1, FFT_TOL)
     errs["pef_buf"] = whole_batch(
-        f"fft_pow2 real 32768 (real-row route), PEF's cross-correlation "
-        f"{what}", fft_fwd, fft_fwd_ref, (r["pef_buf"],), 1, FFT_TOL)
+        f"fft_pow2 real {X} bins={X // 2 + 1}, {r['pef_buf'].shape[-1]} live "
+        f"at {r['pef_lo']} (real-row route), PEF's cross-correlation {what}",
+        *live_fwd(X, X // 2 + 1, r["pef_lo"]), (r["pef_buf"],), 1, FFT_TOL)
     errs["pef_fwd_c"] = whole_batch(
-        f"fft_pow2 complex 32768 (four-step; no main path), PEF's product "
-        f"{what}", fft_fwd, fft_fwd_ref, r["pef_prod"], 1, FFT_TOL)
+        f"fft_pow2 complex {X} (four-step; no main path), PEF's whole "
+        f"product {what}", fft_fwd, fft_fwd_ref, r["pef_prod"], 1, FFT_TOL)
     errs["pef_inv_c"] = whole_batch(
-        f"fft_inv 32768 complex output (four-step; no main path), PEF's "
+        f"fft_inv {X} complex output (four-step; no main path), PEF's whole "
         f"product {what}", fft_inv, fft_inv_ref, r["pef_prod"], 1, FFT_TOL)
+    errs["pef_inv_whole"] = whole_batch(
+        f"fft_inv {X} real output of the whole product (real-row route; no "
+        f"main path since the half spectrum), {what}", real_inv,
+        real_inv_ref, r["pef_prod"], 1, FFT_TOL)
     errs["pef_inv"] = whole_batch(
-        f"fft_inv 32768 real output (real-row route), PEF's product {what}",
-        real_inv, real_inv_ref, r["pef_prod"], 1, FFT_TOL)
-    b8 = r["pef8"].shape[-1] // 2 + 1
+        f"fft_inv {X} from the half product (real-row route), PEF's {what}",
+        *half_inv(X), r["pef_half"], 1, FFT_TOL)
+    n8 = r["pef8_n"]
+    b8 = n8 // 2 + 1
     errs["pef8"] = whole_batch(
-        f"fft_pow2 real 8192 bins={b8} (rfft), PEF's frames, {what}",
-        lambda v: fft_fwd(v, bins=b8), lambda v: fft_fwd_ref(v, None, b8),
-        (r["pef8"],), 1, FFT_TOL)
+        f"fft_pow2 real {n8} bins={b8} (rfft), 4096 live, PEF's frames, "
+        f"{what}", *live_fwd(n8, b8), (r["pef8"],), 1, FFT_TOL)
+    del r
+    # the users' calls: HPS, LHS, PEF and xcorr launch the real-row route
+    # with a live span (PEF and xcorr its half-spectrum inverse too) and
+    # never the four-step route
+    own = torch.Generator(device="cuda")
+    own.manual_seed(13)
+    xs = randn((C3_CLIPS, C3_N), own, 0.2)
+    for label, fn, need in (
+            ("PitchHPS.pitch", lambda: p["hps"].pitch(x), ()),
+            ("PitchLHS.pitch", lambda: p["lhs"].pitch(x), ()),
+            ("PitchPEF.pitch", lambda: p["pef"].pitch(x),
+             ("fft_inv half spectrum",)),
+            (f"xcorr, {C3_CLIPS} x {C3_N}", lambda: xcorr(xs, xs.roll(1, 0)),
+             ("fft_inv half spectrum",))):
+        zero_counts()
+        fn()
+        torch.cuda.synchronize()
+        c = read_counts()
+        require_launched(label, {k: c[k] for k in (
+            "fft_pow2 real-row route", "fft_pow2 live span", *need)})
+        if c["fft_pow2 four-step route"] or c["fft_inv four-step route"]:
+            raise AssertionError(f"{label} took the four-step route: {c}")
     return errs
 
 
@@ -2949,19 +3061,21 @@ def phase3_slice9_paths(gen):
     four = ("fft_pow2 four-step route", "fft_inv four-step route")
     # --- the batched engines and HarmonicRatio on 8 x 30 s -------------
     # reckoned: NCF the two operands, the autocorrelation and its scaled
-    # copy (4 x 8192 a row); HPS/LHS the padded rows (32768), the kept
-    # bins' parts, their complex copy and magnitude (5 x 10001) and the
-    # gather; PEF the spectrum's kept bins at 8192 and their power (3 x
-    # 4097), the cross-correlation rows, its spectrum, the product and the
-    # inverse (6 x 32768); CEP torch.fft's complex tiles (6 x 8192).  HPS,
-    # LHS and PEF must take the real-row route and never the four-step
-    # route (its buffer is gone from their reckoning)
+    # copy (4 x 8192 a row); HPS/LHS the frames (4096; the transform reads
+    # them as they are), the kept bins' parts, their complex copy and
+    # magnitude (5 x 10001) and the gather; PEF the spectrum's kept bins at
+    # 8192 and their power (3 x 4097), the log-grid power (8192), the half
+    # spectrum's and the product's parts (4 x 16385) and the inverse
+    # (32768); CEP torch.fft's complex tiles (6 x 8192).  HPS, LHS and PEF
+    # must take the real-row route with a live span (PEF's inverse from the
+    # half spectrum) and never the four-step route
+    live, half = "fft_pow2 live span", "fft_inv half spectrum"
     batched = (("ncf", ("fft_autocorr",), (), 4 * 8192),
                ("cep", (), ("fft_pow2", "fft_inv", "fft_autocorr"), 6 * 8192),
-               ("hps", ("fft_pow2", real_f), four, 32768 + 6 * 10001),
-               ("lhs", ("fft_pow2", real_f), four, 32768 + 6 * 10001),
-               ("pef", ("fft_pow2", real_f, "fft_inv", real_i), four,
-                6 * 32768 + 3 * 4097))
+               ("hps", ("fft_pow2", real_f, live), four, 4096 + 6 * 10001),
+               ("lhs", ("fft_pow2", real_f, live), four, 4096 + 6 * 10001),
+               ("pef", ("fft_pow2", real_f, live, "fft_inv", real_i, half),
+                four, 8192 + 4 * 16385 + 32768 + 3 * 4097))
     out = {}
     for name, req, forbid, per_row in batched:
         plan = p[name]
@@ -3197,17 +3311,19 @@ def phase4_slice9_timing(d, errs):
 
     r = s9_rows(p, x)
     X = r["X"]
-    nrows = r["hps"].numel() // X
+    nrows = r["hps"].numel() // r["hps"].shape[-1]
 
     def shape_row(name, fn, ref, lib, tensors, n_bytes, n_ops, what, err,
-                  lib_real=None):
+                  lib_real=None, lib_tensors=None):
         """One entry of a kernel's ``shapes`` at this slice's rows;
         ``lib_real`` calls ``torch.fft.rfft`` or ``irfft`` where they give
         the same values (timed beside the library call, as
-        ``library_real_ms``)."""
+        ``library_real_ms``); ``lib_tensors``: the library call's inputs
+        where they are not the kernel's (whole rows for live spans)."""
         k_ms = cuda_ms(lambda: fn(*tensors), reps=10)
         p_ms = cuda_ms(chunked(ref, tensors, 1), reps=3, warmup=1)
-        l_ms = cuda_ms(chunked(lib, tensors, 1), reps=3, warmup=1)
+        l_ms = cuda_ms(chunked(lib, lib_tensors or tensors, 1), reps=3,
+                       warmup=1)
         row = kernel_row(name, "fft_pow2", "audioflux_tpu/ops/pallas_fft.py:"
                          + {"fft_pow2": "346", "fft_inv": "360",
                             "fft_autocorr": "267"}[name], 0, err, k_ms, p_ms,
@@ -3220,7 +3336,7 @@ def phase4_slice9_timing(d, errs):
             print(f"    beside it: torch.fft.rfft/irfft "
                   f"{entry['library_real_ms']:.3f} ms")
         shapes.setdefault(name, []).append(entry)
-        return k_ms
+        return entry
 
     def acf_lib(a, b):
         s = torch.fft.fft(torch.complex(a, b), dim=-1)
@@ -3232,85 +3348,99 @@ def phase4_slice9_timing(d, errs):
     def inv_lib(a, b):
         return torch.fft.ifft(torch.complex(a, b), dim=-1)
 
-    def rfft_lib(rows):
-        return chunked(lambda a: torch.fft.rfft(a, dim=-1), (rows,), 1)
-    n8 = 8192
+    def padded(rows_, n_, lo_):
+        """The live rows placed at lo_ in rows of n_ zeros, made once (the
+        library calls take whole rows)."""
+        return torch.nn.functional.pad(
+            rows_, (lo_, n_ - lo_ - rows_.shape[-1])).contiguous()
+
+    def rfft_lib(rows_):
+        return chunked(lambda a: torch.fft.rfft(a, dim=-1), (rows_,), 1)
+    n8 = r["pef8_n"]
     acf_ops = nrows * (10.0 * n8 * math.log2(n8) + 6.0 * n8)
     k_ncf = shape_row("fft_autocorr", fft_autocorr, fft_autocorr_ref, acf_lib,
                       r["ncf"], 12 * r["ncf"][0].numel(), acf_ops,
                       f"{nrows}x{n8} rows (xr, xi), NCF's", errs["acf_ncf"])
+    k_ncf = k_ncf["ms"]
     shape_row("fft_autocorr", fft_autocorr, fft_autocorr_ref, acf_lib,
               r["hr"], 12 * r["hr"][0].numel(), acf_ops,
               f"{nrows}x{n8} rows (xr, xi), HarmonicRatio's", errs["acf_hr"])
     # the real-row route: a real FFT of n points is about 2.5 n log2 n
-    # operations; its bytes are the real rows in and the bins written
+    # operations; its bytes are the live samples in and the bins written
     fops = nrows * 5.0 * X * math.log2(X)
     rops = fops / 2
+    # (label, rows, n, lo, bins, the error key): each as its engine calls it
     K = r["hps_bins"]
-    shape_row("fft_pow2", lambda v: fft_fwd(v, bins=K),
-              lambda v: fft_fwd_ref(v, None, K), fwd_lib, (r["hps"],),
-              4 * r["hps"].numel() + 8 * nrows * K, rops,
-              f"forward {nrows}x{X} real, bins={K}, HPS's rows (real-row "
-              "route)", errs["hps"], lib_real=rfft_lib(r["hps"]))
-    k_buf = shape_row("fft_pow2", fft_fwd, fft_fwd_ref, fwd_lib,
-                      (r["pef_buf"],), 12 * r["pef_buf"].numel(), rops,
-                      f"forward {nrows}x{X} real, PEF's cross-correlation "
-                      "rows (real-row route)", errs["pef_buf"],
-                      lib_real=rfft_lib(r["pef_buf"]))
-    shape_row("fft_pow2", fft_fwd, fft_fwd_ref, fwd_lib, r["pef_prod"],
-              16 * r["pef_prod"][0].numel(), fops,
-              f"forward {nrows}x{X} complex, PEF's product rows (four-step; "
-              "no main path)", errs["pef_fwd_c"])
-    pr, pi = r["pef_prod"]
-    # PEF's product is Hermitian (two real rows' spectra): irfft of its
-    # first X/2 + 1 bins gives the same real output
-    Ph = torch.complex(pr[..., :X // 2 + 1], pi[..., :X // 2 + 1])
-    k_inv = shape_row("fft_inv", real_inv, real_inv_ref,
-                      lambda a, b: inv_lib(a, b).real, r["pef_prod"],
-                      12 * pr.numel(), rops,
-                      f"{nrows}x{X} to real output, PEF's product rows "
-                      "(real-row route)", errs["pef_inv"],
-                      lib_real=chunked(lambda h: torch.fft.irfft(
-                          h, n=X, dim=-1), (Ph,), 1))
-    del Ph
-    shape_row("fft_inv", fft_inv, fft_inv_ref, inv_lib, r["pef_prod"],
-              16 * pr.numel(), fops,
-              f"{nrows}x{X} complex output, PEF's product rows (four-step; "
-              "no main path)", errs["pef_inv_c"])
-    b8 = r["pef8"].shape[-1] // 2 + 1
-    k_8 = shape_row("fft_pow2", lambda v: fft_fwd(v, bins=b8),
-                    lambda v: fft_fwd_ref(v, None, b8), fwd_lib, (r["pef8"],),
-                    4 * r["pef8"].numel() + 8 * nrows * b8,
-                    nrows * 2.5 * n8 * math.log2(n8),
-                    f"forward {nrows}x{n8} real, bins={b8} (rfft), PEF's "
-                    "frames (real-row route)", errs["pef8"],
-                    lib_real=rfft_lib(r["pef8"]))
-    # the real-row route cut after each stage (every cut stores as many
-    # values as the whole kernel): the differences split its time
-    for label, rows_, n_, b_ in (("HPS's forward", r["hps"], X, K),
-                                 ("PEF's cross-correlation forward",
-                                  r["pef_buf"], X, X),
-                                 ("PEF's frames' forward", r["pef8"], n8,
-                                  b8)):
-        cut = [cuda_ms(lambda s=s: cuda_fft._fwd(rows_, None, n_, b_,
-                                                 stages=s), reps=10)
-               for s in (1, 2, 3)]
+    calls = (("HPS's frames", r["hps"], r["hps_n"], 0, K, "hps"),
+             ("PEF's log-grid power", r["pef_buf"], X, r["pef_lo"],
+              X // 2 + 1, "pef_buf"),
+             ("PEF's frames (rfft)", r["pef8"], n8, 0, n8 // 2 + 1, "pef8"))
+    k_fwd = {}
+    for label, rows_, n_, lo_, b_, key in calls:
+        live_ = rows_.shape[-1]
+        pad_ = padded(rows_, n_, lo_)
+        e = shape_row(
+            "fft_pow2", lambda v: fft_fwd(v, bins=b_, n=n_, lo=lo_),
+            lambda v: fft_fwd_ref(v, None, b_, n_, lo_), fwd_lib, (rows_,),
+            4 * rows_.numel() + 8 * nrows * b_,
+            nrows * 2.5 * n_ * math.log2(n_),
+            f"forward {nrows}x{n_} real, {live_} live at {lo_}, bins={b_}, "
+            f"{label} (real-row route)", errs[key], lib_real=rfft_lib(pad_),
+            lib_tensors=(pad_,))
+        # the cuts (every cut stores as many values as the whole kernel):
+        # load + store, + the n/2-point transform, + the split
+        cut = [cuda_ms(lambda s=s_: cuda_fft._fwd(rows_, None, n_, b_,
+                                                  stages=s, lo=lo_), reps=10)
+               for s_ in (1, 2, 3)]
+        e["cuts_ms"] = {"load_store": cut[0], "transform": cut[1] - cut[0],
+                        "split": cut[2] - cut[1]}
         print(f"  split (real-row route, {label}, n={n_}, bins={b_}): load "
               f"+ store {cut[0]:.3f} ms, the {n_ // 2}-point transform "
               f"{cut[1] - cut[0]:.3f}, the split {cut[2] - cut[1]:.3f} (whole "
               f"{cut[2]:.3f})")
-    out = torch.empty_like(pr)
+        k_fwd[key] = e["ms"]
+        del pad_
+    k_8, k_buf = k_fwd["pef8"], k_fwd["pef_buf"]
+    shape_row("fft_pow2", fft_fwd, fft_fwd_ref, fwd_lib, r["pef_prod"],
+              16 * r["pef_prod"][0].numel(), fops,
+              f"forward {nrows}x{X} complex, PEF's whole product (four-step; "
+              "no main path)", errs["pef_fwd_c"])
+    pr, pi = r["pef_half"]
+    h = X // 2 + 1
+    Ph = torch.complex(pr, pi)
+    e = shape_row("fft_inv", *half_inv(X),
+                  lambda a, b: torch.fft.irfft(torch.complex(a, b), n=X,
+                                               dim=-1),
+                  r["pef_half"], 8 * nrows * h + 4 * nrows * X, rops,
+                  f"{nrows}x{X} to real output from the half product "
+                  f"({h} bins), PEF's (real-row route)", errs["pef_inv"],
+                  lib_real=chunked(lambda a: torch.fft.irfft(a, n=X, dim=-1),
+                                   (Ph,), 1))
+    k_inv = e["ms"]
+    del Ph
+    out = torch.empty(pr.shape[:-1] + (X,), device="cuda")
 
     def inv_cut(stage):
         return lambda: cuda_fft._call(
             cuda_fft._lib().af_fft_pow2_inv, "fft_pow2 inverse", pr, X,
             pr.data_ptr(), pi.data_ptr(), out.data_ptr(), None,
-            extra=(X, stage))
-    cut = [cuda_ms(inv_cut(s), reps=10) for s in (1, 3)]
+            extra=(h, stage))
+    cut = [cuda_ms(inv_cut(s_), reps=10) for s_ in (1, 3)]
+    e["cuts_ms"] = {"load_merge_store": cut[0], "transform": cut[1] - cut[0]}
     print(f"  split (real-row route, PEF's inverse, n={X}): load + merge + "
           f"store {cut[0]:.3f} ms, the {X // 2}-point transform "
           f"{cut[1] - cut[0]:.3f} (whole {cut[1]:.3f})")
-    del out, r
+    fr, fi = r["pef_prod"]
+    shape_row("fft_inv", real_inv, real_inv_ref,
+              lambda a, b: inv_lib(a, b).real, r["pef_prod"],
+              12 * fr.numel(), rops,
+              f"{nrows}x{X} to real output of the whole product (real-row "
+              "route; no main path)", errs["pef_inv_whole"])
+    shape_row("fft_inv", fft_inv, fft_inv_ref, inv_lib, r["pef_prod"],
+              16 * fr.numel(), fops,
+              f"{nrows}x{X} complex output, PEF's whole product (four-step; "
+              "no main path)", errs["pef_inv_c"])
+    del out, r, pr, pi, fr, fi
     # --- the splits: kernels against PyTorch (and host) time ------------
     print(f"  split PitchNCF: fft_autocorr {k_ncf:.3f} ms of "
           f"{call_ms['PitchNCF']:.3f} (PyTorch {call_ms['PitchNCF'] - k_ncf:.3f})")

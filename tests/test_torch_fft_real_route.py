@@ -6,13 +6,17 @@ interpret mode (``fft4_fwd`` with real input, ``fft4_inv`` with
 ``bins`` on the CPU (the plain versions), with ``ops.fft.rfft`` and
 ``fft_parts(bins=)`` against ``jnp.fft``.
 
-The model stands in for the kernel thread by thread: the pack z[m] =
-x[2m] + i x[2m+1], the N-point transform (numpy's, N = n / 2), the split
-of the pair (k, N - k) that thread k % T takes on its (k // T)-th round
-(T = N / 16 threads), k = 0 with DC and Nyquist and k = N/2 paired with
-itself, the stores of bins [0, bins) with the mirror half (NaN fill: each
-bin written exactly once), and the inverse's four reads a pair (each
-value of the row read exactly once) into the Hermitian part's halves."""
+The model stands in for the kernel thread by thread around its N-point
+transform (numpy's here, N = n / 2; the register transform's own model is
+``tests/test_torch_fft_real_regs.py``): the pack z[m] = x[2m] + i x[2m+1],
+read from the live span alone; the split of the pair (k, N - k) that
+thread k % T takes on its (k // T)-th round (T = N / 64 threads, 32
+rounds; its twiddle W_n^k the table's W_n^(k % T) times the literal
+W_128^(k // T)), k = 0 with DC, Nyquist and N/2; its four stores, bins k, n - k,
+N - k and N + k (NaN fill: each bin written exactly once); and the
+inverse's merge of point j (j = j1 T + t, thread t's j1-th point) from
+Y[j], Y[n - j], Y[N + j], Y[N - j] of a whole spectrum (each value read
+twice, by the points j and N - j) or Y[j], Y[N - j] of a half one."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -26,7 +30,7 @@ from audioflux_torch.ops import fft as tfft
 REAL_N = (8192, 16384, 32768)
 TOL = 5e-5          # the TPU kernel's contract, of the peak
 # the model's own error against float64: it uses the kernel's fp32
-# twiddle table (each entry within 6e-8 of exact)
+# twiddles (a table entry times a literal, each within 2e-7 of exact)
 MODEL_TOL = 2e-7
 
 
@@ -40,80 +44,104 @@ def _tw(n):
     return t[:, 0].astype(np.float64) + 1j * t[:, 1]
 
 
+def _w128():
+    """The kernel's literals W_128^q, q < 64, as fp32."""
+    q = np.arange(64)
+    return (np.cos(2 * np.pi * q / 128).astype(np.float32).astype(np.float64)
+            - 1j * np.sin(2 * np.pi * q / 128).astype(np.float32))
+
+
+def _split_tw(n, t, i):
+    """The split's and the merge's twiddle W_n^(t + T i), T = n / 128: the
+    table's exact W_n^t times the literal W_128^i, rounded to fp32."""
+    w = _tw(n)[t] * _w128()[i]
+    return w.real.astype(np.float32) + 1j * w.imag.astype(np.float32)
+
+
 def _rounds(N):
     """The ks of each round of the split loop: k = t + r T, t < T."""
-    T = N // 16
+    T = N // 64
     return [np.arange(T) + r * T for r in range(N // 2 // T)]
 
 
-def _real_fwd_model(x, bins):
-    """real_fwd_kernel on the rows of x (batch, n) -> (batch, bins)."""
-    batch, n = x.shape
+def _pack(x, n, lo):
+    """z[j] = x[2j] + i x[2j+1] of the row x placed at lo in n zeros, as
+    the kernel reads it: only the samples in [lo, lo + len(x))."""
+    p = np.arange(n)
+    rel = p - lo
+    live = (rel >= 0) & (rel < x.size)
+    row = np.where(live, x[np.clip(rel, 0, x.size - 1)], 0.0)
+    return row[0::2] + 1j * row[1::2]
+
+
+def _real_fwd_model(x, bins, n=None, lo=0):
+    """real_fwd_kernel on the rows of x (batch, live) -> (batch, bins)."""
+    batch, live = x.shape
+    n = live if n is None else n
     N = n // 2
-    tw = _tw(n)
+    T = N // 64
     y = np.full((batch, bins), np.nan, dtype=complex)
     for row in range(batch):
-        z = x[row, 0::2] + 1j * x[row, 1::2]      # the float2 view of the row
-        Z = np.fft.fft(z)
-        slot = np.full(N + 1, np.nan, dtype=complex)   # z[pad(k)], k <= N
+        Z = np.fft.fft(_pack(x[row], n, lo))
+        out = y[row]
+
+        def put(b, v):
+            ok = b < bins
+            assert np.isnan(out[b[ok]]).all(), "bin written twice"
+            out[b[ok]] = v[ok]
         for ks in _rounds(N):
-            k0 = ks[ks == 0]
-            if k0.size:                  # thread 0: DC, Nyquist and N/2
-                assert np.isnan(slot[[0, N, N // 2]]).all()
-                slot[0] = Z[0].real + Z[0].imag
-                slot[N] = Z[0].real - Z[0].imag
-                slot[N // 2] = np.conj(Z[N // 2])
-            k = ks[ks != 0]
-            a, b = Z[k], Z[N - k]
+            a = Z[ks]
+            b = Z[np.where(ks == 0, N // 2, N - ks)]
             e = (a + np.conj(b)) / 2
             o = (a - np.conj(b)) / 2j
-            wo = tw[k] * o
-            assert np.isnan(slot[k]).all() and np.isnan(slot[N - k]).all()
-            slot[k] = e + wo
-            slot[N - k] = np.conj(e - wo)
-        assert not np.isnan(slot).any()
-        T = N // 16
-        for t in range(T):
-            k = np.arange(t, bins, T)
-            v = np.where(k <= N, slot[np.minimum(k, N)],
-                         np.conj(slot[np.minimum(n - k, N)]))
-            assert np.isnan(y[row, k]).all(), "bin written twice"
-            y[row, k] = v
+            wo = _split_tw(n, ks % T, ks // T) * o
+            xa = np.where(ks == 0, a.real + a.imag, e + wo)
+            xb = np.where(ks == 0, np.conj(b), np.conj(e - wo))
+            z0 = ks == 0
+            put(ks, xa)
+            put(np.where(z0, N // 2, N - ks), xb)
+            put(np.where(z0, n - N // 2, n - ks), np.conj(np.where(
+                z0, xb, xa)))
+            put(np.where(z0, N, N + ks), np.where(
+                z0, a.real - a.imag, np.conj(xb)))
     assert not np.isnan(y).any(), "bin never written"
     return y
 
 
-def _real_inv_model(Y):
-    """real_inv_kernel on the spectra Y (batch, n) -> Re(ifft(Y))."""
-    batch, n = Y.shape
+def _real_inv_model(Y, half=False):
+    """real_inv_kernel on the spectra Y (batch, n), or on half spectra
+    (batch, n/2 + 1) with ``half``, -> Re(ifft(Y)) (batch, n)."""
+    batch, m = Y.shape
+    n = 2 * (m - 1) if half else m
     N = n // 2
-    tw = _tw(n)
+    T = N // 64
     out = np.empty((batch, n))
     for row in range(batch):
-        reads = np.zeros(n, dtype=int)
+        reads = np.zeros(m, dtype=int)
 
         def load(k):
             np.add.at(reads, k, 1)
             return Y[row, k]
-        slot = np.full(N, np.nan, dtype=complex)   # conj Z at z[pad(k)]
-        for ks in _rounds(N):
-            if (ks == 0).any():
-                a, b = 2 * load(0).real, 2 * load(N).real
-                p, q = load(N // 2), load(N + N // 2)
-                slot[0] = np.conj((a + b) + 1j * (a - b))
-                slot[N // 2] = 2 * (p + np.conj(q))
-            k = ks[ks != 0]
-            A = load(k) + np.conj(load(n - k))
-            B = load(N + k) + np.conj(load(N - k))
+        z = np.empty(N, dtype=complex)
+        for j1 in range(64):
+            j = j1 * T + np.arange(T)           # thread t's j1-th point
+            if half:
+                A, B = load(j), np.conj(load(N - j))
+                A[j == 0] = A[j == 0].real       # Y[0], Y[N]: real parts
+                B[j == 0] = B[j == 0].real
+            else:
+                A = load(j) + np.conj(load((n - j) % n))
+                B = load(N + j) + np.conj(load(N - j))
             e = A + B
-            o = (A - B) * np.conj(tw[k])
-            assert np.isnan(slot[k]).all() and np.isnan(slot[N - k]).all()
-            slot[k] = np.conj(e + 1j * o)
-            slot[N - k] = np.conj(np.conj(e) + 1j * np.conj(o))
-        assert (reads == 1).all(), "a value read twice or never"
-        F = np.fft.fft(slot)
-        z = np.conj(F) * (0.5 / n)
-        out[row, 0::2], out[row, 1::2] = z.real, z.imag
+            o = (A - B) * np.conj(_split_tw(n, j % T, j1))
+            z[j] = np.conj(e + 1j * o)
+        want = np.full(m, 2)
+        if half:
+            want[[0, N]] = 1
+        assert (reads == want).all(), "a value read too often or too seldom"
+        F = np.fft.fft(z)
+        v = np.conj(F) * ((1.0 if half else 0.5) / n)
+        out[row, 0::2], out[row, 1::2] = v.real, v.imag
     return out
 
 
@@ -174,11 +202,19 @@ def test_real_forward_model_bins(n, which):
 
 
 @pytest.mark.parametrize("n", REAL_N)
-@pytest.mark.parametrize("kind", ["random", "hermitian"])
+@pytest.mark.parametrize("kind", ["random", "hermitian", "half"])
 def test_real_inverse_model_and_round_trip(n, kind):
     """Re(ifft(Y)) of a random spectrum and of a real row's spectrum, and
-    the round trip of the two models."""
+    the round trip of the two models; irfft of a random half spectrum
+    (the imaginary parts of bins 0 and n/2 ignored)."""
     rng = np.random.default_rng(n + len(kind))
+    if kind == "half":
+        H = (rng.standard_normal((1, n // 2 + 1))
+             + 1j * rng.standard_normal((1, n // 2 + 1)))
+        got = _real_inv_model(H, half=True)
+        ref = np.fft.irfft(H, n)
+        assert np.max(np.abs(got - ref)) <= MODEL_TOL * np.abs(ref).max()
+        return
     if kind == "random":
         Y = rng.standard_normal((1, n)) + 1j * rng.standard_normal((1, n))
     else:
@@ -224,15 +260,21 @@ def test_fft_fwd_bins_checks():
 
 def test_kernel_table():
     """The table the row kernels take: the n-point twiddles, then the
-    n/2-point ones that the real-row route's transform reads (each within
-    an fp32 rounding of every other entry of the first)."""
-    n = 8192
-    tab = cuda_fft._kernel_table(n, torch.device("cpu"))
-    full = cuda_fft.twiddle_table(n, torch.device("cpu"))
-    half = cuda_fft.twiddle_table(n // 2, torch.device("cpu"))
-    assert tab.shape == (n + n // 2, 2)
-    assert torch.equal(tab[:n], full) and torch.equal(tab[n:], half)
-    assert float((half - full[::2]).abs().max()) <= 6e-8
+    real-row route's pass-1 factors W_N^(t r) and W_N^(8 t q) (N = n/2,
+    t < N/64, r, q < 8), each within an fp32 rounding of the n-point
+    entry of the same angle."""
+    for n in REAL_N:
+        tab = cuda_fft._kernel_table(n, torch.device("cpu"))
+        full = cuda_fft.twiddle_table(n, torch.device("cpu"))
+        B = n // 128
+        assert tab.shape == (n + 16 * B, 2)
+        assert torch.equal(tab[:n], full)
+        t = torch.arange(B)
+        r = torch.arange(8)[:, None]
+        assert float((tab[n:n + 8 * B] - full[(2 * r * t).reshape(-1)])
+                     .abs().max()) <= 6e-8
+        assert float((tab[n + 8 * B:] - full[(16 * r * t).reshape(-1)])
+                     .abs().max()) <= 6e-8
 
 
 def test_route_table():

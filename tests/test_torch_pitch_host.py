@@ -175,9 +175,9 @@ def test_host_engines_run_their_fft_through_the_wrappers(notes, monkeypatch):
     seen = []
     real = cuda_fft.fft_fwd
 
-    def spy(xr, xi=None):
+    def spy(xr, xi=None, *args, **kwargs):
         seen.append(xr.shape[-1])
-        return real(xr, xi)
+        return real(xr, xi, *args, **kwargs)
     monkeypatch.setattr(cuda_fft, "fft_fwd", spy)
     aft.PitchSTFT(**CPU).pitch(notes)
     aft.Harmonic(**CPU).exec(notes)
