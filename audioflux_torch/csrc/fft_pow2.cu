@@ -73,12 +73,18 @@
 //     n/16 threads; the row (at most 139 KB with padding) lives in dynamic
 //     shared memory for the radix-16 Stockham passes of fft_smem.cuh, so
 //     device memory sees one read and one write per point;
-//   * complex rows at n = 32768 (256 KB, more than a block's 227 KB of
-//     shared memory), and the autocorrelation there: four-step split
-//     n = n1 * n2 (n1 = 128) through a device scratch buffer: column FFTs
-//     of length n1 with the twiddle W_n^(t2 k1) applied on the way out,
-//     then row FFTs of length n2 that write bin k1 + n1 k2 in natural
-//     order.  No main path launches it.
+//   * complex rows at n = 32768 (256 KB, more than one SM's shared memory
+//     or registers hold), and the autocorrelation there: cluster_kernel,
+//     one launch of persistent clusters of two blocks, a row a cluster.
+//     Each block stages its half of the row (TMA or cp.async), and after a
+//     cluster barrier its threads read their points of both halves, the
+//     partner's through distributed shared memory, for the one radix-2
+//     step of decimation in frequency that splits the row: block 0
+//     transforms a[j] = x[j] + x[j + n/2], block 1 b[j] = (x[j] -
+//     x[j + n/2]) W_n^j, each n/2 points in registers as the real-row
+//     route does (fft_real_reg.cuh, 256 threads), and they write X[2k] and
+//     X[2k + 1].  Each point is read from device memory once and written
+//     once; there is no device buffer.
 //
 // The autocorrelation (YIN's, 59,776 rows of 4096 a call) reads its two
 // operands once and writes one real row: 12 bytes a point against two
@@ -104,11 +110,26 @@
 //     forms z[j] = frame[j] + i frame[lag - j] (j <= lag, else 0) from the
 //     staged frame, and writes only lags >= auto_length, the part YIN
 //     keeps: 4 bytes a point in, 2 out, so its operations bound it;
-//   * n = 8192, 16384: the forward passes, the square and the inverse
-//     passes on the row in shared memory (fft_smem.cuh) in one launch; at
-//     n = 32768 the square is fused into the middle of the split (column
-//     FFTs, then per k1 a row FFT, the square and the first inverse row FFT
-//     in place in the scratch buffer, then the inverse column FFTs).
+//   * n = 8192, 16384: acf_reg_kernel, the real-row route's register
+//     transform of n points (fft_real_reg.cuh, 64 points a thread, C = 2
+//     or 4), persistent blocks that stage the next row's operands (TMA
+//     bulk copies on an mbarrier where the rows are 16-byte aligned,
+//     cp.async elsewhere).  The forward leaves bin g + 64 ka + 4096 kb
+//     with the thread's v[ka]; the square is taken there, and
+//     route_transform_back runs the passes in the opposite order (the
+//     lanes' C-point DFT, the 64-point DFT over ka, the transpose back,
+//     the 64-point DFT over k1), which leaves output t + B m1 with the
+//     thread that loaded point t + B m1: one transpose each way and no
+//     bit reversal.  Its frames entry (af_fft_pow2_autocorr_frames, NCF's
+//     and HarmonicRatio's rows, also at n = 4096) stages the frame's L <=
+//     n/2 samples alone, forms z[j] = f[j] + i f[(-j) mod n] in registers
+//     and writes only the lags asked for;
+//   * n = 32768: in cluster_kernel, each block squares its half of the
+//     bins and runs the inverse passes in the opposite order, which gives
+//     the transforms E and O of the even and odd bins; F[m] = E[m] +
+//     W_n^m O[m], F[m + n/2] = E[m] - W_n^m O[m], and of F only the
+//     imaginary part is kept, so each block hands the other one float a
+//     point through the transpose buffer.
 
 #include <cuda_pipeline.h>
 
@@ -130,9 +151,8 @@ namespace {
 
 constexpr int kMaxSinglePassLog2 = 14;
 constexpr int kRealMinLog2 = 13;  // the real-row route from n = 8192 on
-constexpr int kLog2N1 = 7;   // four-step column length 128
-constexpr int kCols = 16;    // columns per block in the column pass
-constexpr int kRows = 8;     // rows per block in the row pass
+constexpr int kClusterLog2 = 15;  // complex rows here: two-block clusters
+constexpr int kLitWords = 65;     // float2 a lane of the back literals' table
 
 // Direction of a transform: the imaginary part is multiplied by `sign` on
 // the way in and by `sign * scale` on the way out, the real part by
@@ -740,7 +760,7 @@ real_fwd_kernel(RealFwdArgs a, const float2* __restrict__ tw) {
     // the pairs: the transform leaves Z in the buffer, and the thread of
     // k = t + T i reads Z[k] and Z[N - k] (k = 0: Z[0] and Z[N/2])
     afx::real_route_transform<C, true>(
-        v, buf, tw, t, a.stages > 1,
+        v, buf, tw + n, t, a.stages > 1,
         [&](int ka, float2 z) { buf[slot(g + 64 * ka + 4096 * kb)] = z; });
     __syncthreads();
     float2 za_[kPairs], zb_[kPairs];
@@ -902,7 +922,7 @@ real_inv_kernel(RealInvArgs a, const float2* __restrict__ tw) {
     // the thread ends with F[m], m = g + 64 ka + 4096 kb: x[2m], x[2m+1]
     float* out = a.x + row * n;
     afx::real_route_transform<C, false>(
-        v, buf, tw, t, a.stages > 1, [&](int ka, float2 f) {
+        v, buf, tw + n, t, a.stages > 1, [&](int ka, float2 f) {
           const int m = g + 64 * ka + 4096 * kb;
           const float2 val = make_float2(s * f.x, -s * f.y);
           if (pairs_ok) {
@@ -915,158 +935,342 @@ real_inv_kernel(RealInvArgs a, const float2* __restrict__ tw) {
   }
 }
 
-// The fused autocorrelation of one row per block (n = 8192, 16384):
-// out = 0.5 * Im(ifft(fft(xr + i xi)^2)).  With S = fft(z)^2 and
-// F = fft(conj(S)), ifft(S) = conj(F) / n, so out = -0.5 / n * Im(F).
-__global__ void __launch_bounds__(1024)
-autocorr_row_kernel(const float* __restrict__ xr,
-                    const float* __restrict__ xi, float* __restrict__ out,
-                    const float2* __restrict__ tw, int log2n) {
-  extern __shared__ float2 z[];
-  const int n = 1 << log2n;
-  const size_t off = static_cast<size_t>(blockIdx.x) << log2n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    z[pad(i)] = make_float2(xr[off + i], xi[off + i]);
+// What acf_reg_kernel reads and writes.  The general entry: row r is n
+// floats of xr and of xi (len = n).  The frames entry (xi null): row r is
+// the len = L <= n / 2 samples of one frame, and the operands are formed in
+// registers, z[j] = f[j] + i f[(-j) mod n] (zero past the frame).  Lags
+// [0, lags) of the row's autocorrelation go to out (rows of `lags`).
+struct AcfRegArgs {
+  const float* xr;
+  const float* xi;
+  long long batch;
+  int len, lags;
+  float* out;
+  bool bulk;  // every row 16-byte aligned and len % 4 == 0: TMA
+};
+
+// The autocorrelation 0.5 * Im(ifft(fft(z)^2)) of n = 4096 C points in
+// registers (see the note at the top): persistent blocks of 64 C threads,
+// one row a block at a time, the next row's operands staged while this
+// one is transformed.  tw: the kernel table of n (its pass-1 factors of n
+// points, and route_transform_back's twiddles, copied to shared memory).
+template <int C, bool kFrames>
+__global__ void __launch_bounds__(64 * C)
+acf_reg_kernel(AcfRegArgs a, const float2* __restrict__ tw) {
+  using R = afx::RealRoute<C>;
+  constexpr int N = R::kN, T = R::kB;
+  constexpr int kImag = N + 8;  // the staged imaginary operand starts here
+  // the frames entry stages a frame at [0, L) of n floats whose tail stays
+  // zero, so that both operands are read without a test
+  constexpr int kStage = kFrames ? N : 2 * kImag;
+  extern __shared__ float4 smem4[];
+  float* stage = reinterpret_cast<float*>(smem4);
+  float* buf = stage + kStage;
+  float2* lit = reinterpret_cast<float2*>(buf + R::kBuf);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(lit + kLitWords * C);
+  const int t = threadIdx.x;
+  const float2* fac = tw + N + N / 8;
+  auto fetch = [&](long long r) {
+    const float* re = a.xr + r * a.len;
+    const float* im = kFrames ? nullptr : a.xi + r * a.len;
+    if (a.bulk) {
+      if (t == 0) {
+        if constexpr (kFrames) {
+          afx::bulk_fetch(stage, re, 4u * a.len, bar);
+        } else {
+          afx::bulk_fetch2(stage, re, stage + kImag, im, 4u * a.len, bar);
+        }
+      }
+    } else {
+      // at [0, len) whatever the address: 4-byte copies
+      afx::fetch_floats(stage, re, a.len, 0, false, t, T);
+      if constexpr (!kFrames) {
+        afx::fetch_floats(stage + kImag, im, a.len, 0, false, t, T);
+      }
+      __pipeline_commit();
+    }
+  };
+
+  if constexpr (C > 1) afx::fill_back_literals<C>(lit, tw, N, t, T);
+  if constexpr (kFrames) {
+    for (int i = a.len + t; i < N; i += T) stage[i] = 0.f;
   }
+  if (a.bulk && t == 0) afx::mbar_init(bar);
   __syncthreads();
-  fft_smem(z, log2n, tw, log2n);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float2 v = z[pad(i)];
-    z[pad(i)] = make_float2(v.x * v.x - v.y * v.y, -2.f * v.x * v.y);
-  }
-  __syncthreads();
-  fft_smem(z, log2n, tw, log2n);
-  const float s = -0.5f / static_cast<float>(n);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[off + i] = s * z[pad(i)].y;
+  long long row = blockIdx.x;
+  uint32_t phase = 0;
+  if (row < a.batch) fetch(row);
+  const float s = -0.5f / static_cast<float>(N);
+  for (; row < a.batch; row += gridDim.x) {
+    if (a.bulk) {
+      afx::mbar_wait(bar, phase);
+      phase ^= 1u;
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();  // the row stands in the staging buffer
+    // the output's length, opaque: the 64 tests derived from it are made
+    // again each row, not kept in registers across the rows
+    int lags = a.lags;
+    asm volatile("" : "+r"(lags));
+    float2 v[64];
+    if constexpr (kFrames) {
+      // z[j] = f[j] + i f[(-j) mod n]: the staged frame, zero past L
+#pragma unroll
+      for (int j1 = 0; j1 < 64; ++j1) {
+        const int j = j1 * T + t;
+        v[bit_reverse(j1, 6)] =
+            make_float2(stage[j], stage[(N - j) & (N - 1)]);
+      }
+    } else {
+#pragma unroll
+      for (int j1 = 0; j1 < 64; ++j1) {
+        const int j = j1 * T + t;
+        v[bit_reverse(j1, 6)] = make_float2(stage[j], stage[kImag + j]);
+      }
+    }
+    __syncthreads();  // the staging buffer is free: fetch the next row
+    if (row + gridDim.x < a.batch) fetch(row + gridDim.x);
+
+    // the forward leaves Z[g + 64 ka + 4096 kb] at v[ka]; the square,
+    // conjugated, stays there, and the transform in the opposite order
+    // starts from it: F[t + T m1] at v[m1], out = -0.5 / n * Im(F)
+    // t, opaque where the row goes on (the lanes' literal selections are
+    // made again each row, not kept in registers across the rows)
+    int tl = t;
+    asm volatile("" : "+r"(tl));
+    afx::real_route_transform<C, false>(v, buf, fac, tl, true,
+                                        [](int, float2) {});
+#pragma unroll
+    for (int ka = 0; ka < 64; ++ka) {
+      const float2 z = v[ka];
+      v[ka] = make_float2(z.x * z.x - z.y * z.y, -2.f * z.x * z.y);
+    }
+    afx::route_transform_back<C>(v, buf, fac, lit, t);
+    float* out = a.out + row * a.lags;
+#pragma unroll
+    for (int m1 = 0; m1 < 64; ++m1) {
+      const int m = m1 * T + t;
+      if (m < lags) out[m] = s * v[m1].y;
+    }
   }
 }
 
-// Four-step, pass 1: for kCols columns t2 of row blockIdx.x, the length-n1
-// FFT over t1 of x[t1 * n2 + t2], times W_n^(t2 k1), into y[k1 * n2 + t2].
-// blockDim.x = kCols * n1 / 16.
-__global__ void __launch_bounds__(128)
-fft_col_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-               float2* __restrict__ y, const float2* __restrict__ tw,
-               int log2n, float sign) {
-  extern __shared__ float2 z[];
-  const int n1 = 1 << kLog2N1;
-  const int stride = seq_stride(n1);
-  const int log2n2 = log2n - kLog2N1;
-  const int c0 = blockIdx.y * kCols;
-  const size_t off = static_cast<size_t>(blockIdx.x) << log2n;
-  for (int idx = threadIdx.x; idx < n1 * kCols; idx += blockDim.x) {
-    const int t1 = idx / kCols, c = idx % kCols;
-    const size_t g = off + (static_cast<size_t>(t1) << log2n2) + c0 + c;
-    z[c * stride + pad(t1)] = make_float2(xr[g], xi ? sign * xi[g] : 0.f);
-  }
-  __syncthreads();
-  fft_smem(z, kLog2N1, tw, log2n);
-  const int n = 1 << log2n;
-  for (int idx = threadIdx.x; idx < n1 * kCols; idx += blockDim.x) {
-    const int k1 = idx / kCols, c = idx % kCols;
-    const int t2 = c0 + c;
-    const float2 w = __ldg(&tw[(t2 * k1) & (n - 1)]);
-    y[off + (static_cast<size_t>(k1) << log2n2) + t2] =
-        cmul(z[c * stride + pad(k1)], w);
-  }
+// --- thread block clusters of two (complex rows at n = 32768) -----------
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
 }
 
-// Four-step, pass 2: for kRows rows k1 of row blockIdx.x, the length-n2
-// FFT over t2 of y[k1 * n2 + t2], written to bin k1 + n1 * k2.
-// blockDim.x = kRows * n2 / 16.  yi may be null.
-__global__ void __launch_bounds__(1024)
-fft_rowpass_kernel(const float2* __restrict__ y, float* __restrict__ yr,
-                   float* __restrict__ yi, const float2* __restrict__ tw,
-                   int log2n, Dir d) {
-  extern __shared__ float2 z[];
-  const int n1 = 1 << kLog2N1;
-  const int log2n2 = log2n - kLog2N1;
-  const int n2 = 1 << log2n2;
-  const int stride = seq_stride(n2);
-  const int r0 = blockIdx.y * kRows;
-  const size_t off = static_cast<size_t>(blockIdx.x) << log2n;
-  for (int idx = threadIdx.x; idx < kRows * n2; idx += blockDim.x) {
-    const int r = idx >> log2n2, t2 = idx & (n2 - 1);
-    z[r * stride + pad(t2)] =
-        y[off + (static_cast<size_t>(r0 + r) << log2n2) + t2];
-  }
-  __syncthreads();
-  fft_smem(z, log2n2, tw, log2n);
-  for (int idx = threadIdx.x; idx < kRows * n2; idx += blockDim.x) {
-    const int r = idx % kRows, k2 = idx / kRows;
-    const float2 v = z[r * stride + pad(k2)];
-    const size_t o = off + r0 + r + static_cast<size_t>(n1) * k2;
-    yr[o] = d.scale * v.x;
-    if (yi) yi[o] = d.sign * d.scale * v.y;
-  }
+// Every thread of both blocks: the writes to shared memory before it are
+// seen by the other block's reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Autocorrelation at n = 32768, middle step, in place in the scratch
-// buffer.  For kRows rows k1 of row blockIdx.x: the length-n2 FFT over t2
-// of y[k1 * n2 + t2] gives the spectrum's bins k1 + n1 k2; they are
-// squared and conjugated; the length-n2 FFT over k2 gives index j2 of the
-// transform F = fft(conj(S)) split as bin = k1 + n1 k2, output index
-// j1 n2 + j2; times W_n^(k1 j2), back into y[k1 * n2 + j2].
-// blockDim.x = kRows * n2 / 16.
-__global__ void __launch_bounds__(1024)
-autocorr_mid_kernel(float2* __restrict__ y, const float2* __restrict__ tw,
-                    int log2n) {
-  extern __shared__ float2 z[];
-  const int log2n2 = log2n - kLog2N1;
-  const int n2 = 1 << log2n2;
-  const int n = 1 << log2n;
-  const int stride = seq_stride(n2);
-  const int r0 = blockIdx.y * kRows;
-  const size_t off = static_cast<size_t>(blockIdx.x) << log2n;
-  for (int idx = threadIdx.x; idx < kRows * n2; idx += blockDim.x) {
-    const int r = idx >> log2n2, t2 = idx & (n2 - 1);
-    z[r * stride + pad(t2)] =
-        y[off + (static_cast<size_t>(r0 + r) << log2n2) + t2];
-  }
-  __syncthreads();
-  fft_smem(z, log2n2, tw, log2n);
-  for (int idx = threadIdx.x; idx < kRows * n2; idx += blockDim.x) {
-    const int r = idx >> log2n2, k2 = idx & (n2 - 1);
-    const float2 v = z[r * stride + pad(k2)];
-    z[r * stride + pad(k2)] =
-        make_float2(v.x * v.x - v.y * v.y, -2.f * v.x * v.y);
-  }
-  __syncthreads();
-  fft_smem(z, log2n2, tw, log2n);
-  for (int idx = threadIdx.x; idx < kRows * n2; idx += blockDim.x) {
-    const int r = idx >> log2n2, j2 = idx & (n2 - 1);
-    const float2 w = __ldg(&tw[((r0 + r) * j2) & (n - 1)]);
-    y[off + (static_cast<size_t>(r0 + r) << log2n2) + j2] =
-        cmul(z[r * stride + pad(j2)], w);
-  }
+// The address of `local` (this block's shared memory) in block `rank`'s,
+// for ld_peer.
+__device__ __forceinline__ unsigned peer_addr(const void* local,
+                                              unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(afx::smem_u32(local)), "r"(rank));
+  return r;
 }
 
-// Autocorrelation at n = 32768, last step: for kCols columns j2 of row
-// blockIdx.x, the length-n1 FFT over k1 of y[k1 * n2 + j2] gives
-// F[j1 * n2 + j2]; out = -0.5 / n * Im(F).  blockDim.x = kCols * n1 / 16.
-__global__ void __launch_bounds__(128)
-autocorr_colout_kernel(const float2* __restrict__ y, float* __restrict__ out,
-                       const float2* __restrict__ tw, int log2n) {
-  extern __shared__ float2 z[];
-  const int n1 = 1 << kLog2N1;
-  const int stride = seq_stride(n1);
-  const int log2n2 = log2n - kLog2N1;
-  const int c0 = blockIdx.y * kCols;
-  const size_t off = static_cast<size_t>(blockIdx.x) << log2n;
-  for (int idx = threadIdx.x; idx < n1 * kCols; idx += blockDim.x) {
-    const int k1 = idx / kCols, c = idx % kCols;
-    z[c * stride + pad(k1)] =
-        y[off + (static_cast<size_t>(k1) << log2n2) + c0 + c];
-  }
+__device__ __forceinline__ float ld_peer(unsigned addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];"
+               : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// What cluster_kernel reads and writes, rows of n = 32768: xr, xi (xi
+// null: zeros) -> yr, yi (yi null: not written), or (kAcf) the
+// autocorrelation of xr + i xi -> yr.
+struct ClusterArgs {
+  const float* xr;
+  const float* xi;
+  float* yr;
+  float* yi;
+  long long batch;
+  Dir d;
+  bool bulk;  // xr and xi 16-byte aligned: TMA
+};
+
+// Complex rows of n = 32768 (256 KB, more than a block's shared memory or
+// registers hold): one cluster of two blocks a row, each block holding
+// N = n / 2 points in registers (fft_real_reg.cuh at C = 4, 256 threads),
+// persistent clusters (see the note at the top).  Block `rank` stages
+// half `rank` of the row (TMA, or cp.async where unaligned); after a
+// cluster barrier each thread reads its points j = j1 T + t of both halves,
+// its own and the partner's through distributed shared memory, and forms
+// by decimation in frequency a[j] = x[j] + x[j + N] (rank 0) or
+// b[j] = (x[j] - x[j + N]) W_n^j (rank 1), whose N-point transforms are
+// X[2k] and X[2k + 1].  The autocorrelation squares its half of the bins
+// in place and runs the inverse passes in the opposite order, which leaves
+// E (rank 0) and O (rank 1), the transforms of the even and odd bins of
+// conj(S); F[m] = E[m] + W_n^m O[m] and F[m + N] = E[m] - W_n^m O[m], and
+// only Im F is kept, so rank 0 hands Im E and rank 1 Im(W_n^m O) to the
+// other through the transpose buffer.  tw: the n-point table, then the
+// pass-1 factors of N points.
+template <bool kAcf>
+__global__ void __launch_bounds__(256)
+cluster_kernel(ClusterArgs a, const float2* __restrict__ tw) {
+  using R = afx::RealRoute<4>;
+  constexpr int N = R::kN, T = R::kB, n = 2 * N;
+  constexpr int kImag = N + 8;  // the staged imaginary half starts here
+  extern __shared__ float4 smem4[];
+  float* stage = reinterpret_cast<float*>(smem4);
+  float* buf = stage + 2 * kImag;
+  float2* lit = reinterpret_cast<float2*>(buf + R::kBuf);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(lit + kLitWords * 4);
+  const int t = threadIdx.x;
+  // few values live across a row (the row's registers are the
+  // transforms'): the rank is read again where it is needed, the rest
+  // comes from the kernel's parameters
+  auto fetch = [&](long long r) {
+    const unsigned rank = cluster_rank();
+    const float* re = a.xr + r * n + rank * N;
+    const float* im = a.xi == nullptr ? nullptr : a.xi + r * n + rank * N;
+    if (a.bulk) {
+      if (t == 0) {
+        if (im != nullptr) {
+          afx::bulk_fetch2(stage, re, stage + kImag, im, 4u * N, bar);
+        } else {
+          afx::bulk_fetch(stage, re, 4u * N, bar);
+        }
+      }
+    } else {
+      // at [0, N) whatever the address: 4-byte copies
+      afx::fetch_floats(stage, re, N, 0, false, t, T);
+      if (im != nullptr) afx::fetch_floats(stage + kImag, im, N, 0, false, t, T);
+      __pipeline_commit();
+    }
+  };
+
+  if constexpr (kAcf) afx::fill_back_literals<4>(lit, tw, n, t, T);
+  if (a.bulk && t == 0) afx::mbar_init(bar);
   __syncthreads();
-  fft_smem(z, kLog2N1, tw, log2n);
-  const float s = -0.5f / static_cast<float>(1 << log2n);
-  for (int idx = threadIdx.x; idx < n1 * kCols; idx += blockDim.x) {
-    const int j1 = idx / kCols, c = idx % kCols;
-    out[off + (static_cast<size_t>(j1) << log2n2) + c0 + c] =
-        s * z[c * stride + pad(j1)].y;
+  long long row = blockIdx.x / 2;
+  uint32_t phase = 0;
+  if (row < a.batch) fetch(row);
+  for (; row < a.batch; row += gridDim.x / 2) {
+    if (a.bulk) {
+      afx::mbar_wait(bar, phase);
+      phase ^= 1u;
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+    cluster_sync();  // both halves stand in the two blocks' staging buffers
+    const bool has_im = a.xi != nullptr;
+    float2 v[64];
+    {
+      // the partner's points first, all loads in a row, then this block's
+      const unsigned peer = cluster_rank() ^ 1u;
+      const unsigned peer_re = peer_addr(stage, peer);
+      const unsigned peer_im = peer_addr(stage + kImag, peer);
+#pragma unroll
+      for (int j1 = 0; j1 < 64; ++j1) {
+        const int j = j1 * T + t;
+        v[bit_reverse(j1, 6)] =
+            make_float2(ld_peer(peer_re + 4u * j),
+                        has_im ? ld_peer(peer_im + 4u * j) : 0.f);
+      }
+    }
+    {
+      // rank 0: own + peer = x[j] + x[j + N]; rank 1: (peer - own) W_n^j.
+      // One loop a rank (the rank is the block's): a twiddle load or
+      // select in a loop both ranks run took registers the later passes
+      // needed (ptxas spilled)
+      const float2* twr = afx::per_row(tw);
+      if (cluster_rank() == 0) {
+#pragma unroll
+        for (int j1 = 0; j1 < 64; ++j1) {
+          const int j = j1 * T + t;
+          const float2 p =
+              make_float2(stage[j], has_im ? stage[kImag + j] : 0.f);
+          const float2 q = v[bit_reverse(j1, 6)];
+          v[bit_reverse(j1, 6)] =
+              make_float2(p.x + q.x, a.d.sign * (p.y + q.y));
+        }
+      } else {
+#pragma unroll
+        for (int j1 = 0; j1 < 64; ++j1) {
+          const int j = j1 * T + t;
+          const float2 p =
+              make_float2(stage[j], has_im ? stage[kImag + j] : 0.f);
+          const float2 q = v[bit_reverse(j1, 6)];
+          const float2 z = make_float2(q.x - p.x, a.d.sign * (q.y - p.y));
+          v[bit_reverse(j1, 6)] = cmul(z, __ldg(twr + j));
+        }
+      }
+    }
+    cluster_sync();  // the partner has read this block's staging buffer
+    if (row + gridDim.x / 2 < a.batch) fetch(row + gridDim.x / 2);
+    // t, opaque where the row goes on (the lanes' literal selections are
+    // made again each row, not kept in registers across the rows)
+    int tl = t;
+    if constexpr (kAcf) asm volatile("" : "+r"(tl));
+    afx::real_route_transform<4, false>(v, buf, tw + n, tl, true,
+                                        [](int, float2) {});
+    if constexpr (!kAcf) {
+      // thread u holds X[2 k + rank] at v[ka], k = g + 64 ka + 4096 kb
+      const unsigned rank = cluster_rank();
+      const int g = t / 4, kb = bit_reverse(t % 4, 2);
+      float* oyr = a.yr + row * n + rank;
+      float* oyi = a.yi == nullptr ? nullptr : a.yi + row * n + rank;
+      const float fi = a.d.sign * a.d.scale;
+#pragma unroll
+      for (int ka = 0; ka < 64; ++ka) {
+        const int k2 = 2 * (g + 64 * ka + 4096 * kb);
+        oyr[k2] = a.d.scale * v[ka].x;
+        if (oyi != nullptr) oyi[k2] = fi * v[ka].y;
+      }
+    } else {
+#pragma unroll
+      for (int ka = 0; ka < 64; ++ka) {
+        const float2 z = v[ka];
+        v[ka] = make_float2(z.x * z.x - z.y * z.y, -2.f * z.x * z.y);
+      }
+      afx::route_transform_back<4>(v, buf, tw + n, lit, t);
+      // thread t holds E[m] or O[m] at v[m1], m = m1 T + t.  The barrier
+      // keeps the twiddle loads below from being issued during the
+      // transform, whose registers they would take
+      __syncthreads();
+      {
+        const unsigned rank = cluster_rank();
+        const float2* twm = afx::per_row(tw);
+#pragma unroll
+        for (int m1 = 0; m1 < 64; ++m1) {
+          const int m = m1 * T + t;
+          const float h = rank ? cmul(v[m1], __ldg(twm + m)).y : v[m1].y;
+          buf[m] = h;
+          v[m1].x = h;
+        }
+      }
+      cluster_sync();  // both halves' imaginary parts stand in the buffers
+      const unsigned rank = cluster_rank();
+      const unsigned peer_buf = peer_addr(buf, rank ^ 1u);
+#pragma unroll
+      for (int m1 = 0; m1 < 64; ++m1) {
+        v[m1].y = ld_peer(peer_buf + 4u * (m1 * T + t));
+      }
+      // rank 0: F[m] = E + W O; rank 1: F[m + N] = E - W O
+      float* out = a.yr + row * n + rank * N;
+      const float s = -0.5f / static_cast<float>(n);
+      const float sg = rank ? -1.f : 1.f;
+#pragma unroll
+      for (int m1 = 0; m1 < 64; ++m1) {
+        out[m1 * T + t] = s * fmaf(sg, v[m1].x, v[m1].y);
+      }
+    }
   }
+  cluster_sync();  // no block leaves while its partner may read it
 }
 
 }  // namespace
@@ -1215,13 +1419,96 @@ int launch_real(const float* ir, const float* ii, float* or_, float* oi,
                   : launch_real_inv<4, false>(a, tw, st);
 }
 
+// The autocorrelation in registers at n = 4096 C: persistent blocks of
+// 64 C threads with their staging buffer, the transpose buffer, the back
+// transform's twiddles and an mbarrier.  tw: the kernel table of n.
+template <int C, bool kFrames>
+int launch_acf_reg(AcfRegArgs a, const float2* tw, cudaStream_t st) {
+  using R = afx::RealRoute<C>;
+  constexpr int n = R::kN;
+  constexpr int kSmem = 4 * ((kFrames ? n : 2 * (n + 8)) + R::kBuf) +
+                        8 * kLitWords * C + 16;
+  static_assert(kSmem <= 232448, "a block's shared memory on sm_90");
+  auto kernel = acf_reg_kernel<C, kFrames>;
+  unsigned grid = 0;
+  cudaError_t e = persistent_grid(kernel, kSmem, a.batch, 1, &grid, R::kB);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, R::kB, kSmem, st>>>(a, tw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Complex rows at n = 32768: one launch of persistent clusters of two
+// blocks (cudaLaunchKernelExC with the cluster dimension), as many as the
+// card holds at once (cudaOccupancyMaxActiveClusters, asked once a device
+// and remembered).  A launch the card refuses returns its error.
+constexpr int kClusterSmem =
+    4 * (2 * (afx::RealRoute<4>::kN + 8) + afx::RealRoute<4>::kBuf) +
+    8 * kLitWords * 4 + 16;
+static_assert(kClusterSmem <= 232448, "a block's shared memory on sm_90");
+
+// The launch configuration of cluster_kernel<kAcf> on stream st, and the
+// clusters the device holds at once (asked once a device).
+template <bool kAcf>
+cudaError_t cluster_config(cudaStream_t st, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr, int* resident) {
+  const void* fn = reinterpret_cast<const void*>(cluster_kernel<kAcf>);
+  static int max_clusters[16] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 16) return cudaErrorInvalidDevice;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 2;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(2);
+  cfg->blockDim = dim3(afx::RealRoute<4>::kB);
+  cfg->dynamicSmemBytes = kClusterSmem;
+  cfg->stream = st;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  if (max_clusters[dev] == 0) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kClusterSmem);
+    if (e != cudaSuccess) return e;
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, fn, cfg);
+    if (e != cudaSuccess) return e;
+    if (clusters < 1) return cudaErrorLaunchOutOfResources;
+    max_clusters[dev] = clusters;
+  }
+  *resident = max_clusters[dev];
+  return cudaSuccess;
+}
+
+template <bool kAcf>
+int launch_cluster(ClusterArgs a, const float2* tw, cudaStream_t st) {
+  const void* fn = reinterpret_cast<const void*>(cluster_kernel<kAcf>);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int resident = 0;
+  cudaError_t e = cluster_config<kAcf>(st, &cfg, &attr, &resident);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long clusters = a.batch < resident ? a.batch : resident;
+  cfg.gridDim = dim3(2 * static_cast<unsigned>(clusters));
+  void* args[] = {&a, &tw};
+  e = cudaLaunchKernelExC(&cfg, fn, args);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 // bins: the forward's count of leading natural-order bins, n except on the
 // real-row route.  lo, live: the forward's input rows are `live` samples
 // at offset lo of n-point rows of zeros (lo = 0, live = n except on the
 // real-row route); the inverse's rows are `live` bins, n or (on the
 // real-row route) the n / 2 + 1 of a half spectrum, and its lo is 0.
 int transform(const float* xr, const float* xi, float* yr, float* yi,
-              void* scratch, const void* tw, long long batch, int log2n,
+              const void* tw, long long batch, int log2n,
               Dir d, int bins, int lo, int live, int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float2* twf = static_cast<const float2*>(tw);
@@ -1261,19 +1548,10 @@ int transform(const float* xr, const float* xi, float* yr, float* yi,
                      st>>>(xr, xi, yr, yi, twf, log2n, d);
     return static_cast<int>(cudaGetLastError());
   }
-  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int n1 = 1 << kLog2N1;
-  const int n2 = 1 << (log2n - kLog2N1);
-  float2* y = static_cast<float2*>(scratch);
-  fft_col_kernel<<<dim3(static_cast<unsigned>(batch), n2 / kCols),
-                   kCols * n1 / 16, sizeof(float2) * seq_stride(n1) * kCols,
-                   st>>>(xr, xi, y, twf, log2n, d.sign);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  fft_rowpass_kernel<<<dim3(static_cast<unsigned>(batch), n1 / kRows),
-                       kRows * n2 / 16, sizeof(float2) * seq_stride(n2) * kRows,
-                       st>>>(y, yr, yi, twf, log2n, d);
-  return static_cast<int>(cudaGetLastError());
+  // complex rows at n = 32768
+  const ClusterArgs a{xr, xi, yr, yi, batch, d,
+                      aligned16(xr) && (xi == nullptr || aligned16(xi))};
+  return launch_cluster<false>(a, twf, st);
 }
 
 }  // namespace
@@ -1282,77 +1560,100 @@ int transform(const float* xr, const float* xi, float* yr, float* yi,
 // the samples [lo, lo + live) of an n-point row that is zero elsewhere
 // (lo = 0 and live = n except for real input at n >= 8192).  yr, yi:
 // (batch, bins) fp32, the first bins of the natural-order spectrum; bins
-// < n only for real input at n >= 8192 (else bins = n).  scratch: batch *
-// n float2, used only by complex rows at n = 32768 (null elsewhere).  tw:
-// n + n/8 float2, exp(-2 pi i k / n) for k < n, then the real-row route's
-// pass-1 factors W_N^(t r) at [n + r B + t] and W_N^(8 t q) at [n + 8 B +
-// q B + t] (N = n/2, B = N/64, r, q < 8, t < B).  stages: 3 (the whole
-// transform), or at n = 2048 and 4096 and on the real-row route 1 or 2 to
-// cut the kernel for timing (the output is then not the spectrum).
-// Returns the CUDA error code of the launches (0 on success).
+// < n only for real input at n >= 8192 (else bins = n).  tw: n + n/8 +
+// n/4 float2, exp(-2 pi i k / n) for k < n, then the pass-1 factors of
+// N = n/2 points (the real-row route's and the clusters'), W_N^(t r) at
+// [n + r B + t] and W_N^(8 t q) at [n + 8 B + q B + t] (B = N/64, r, q <
+// 8, t < B), then those of n points at [n + n/8 ..] (the autocorrelation
+// in registers).  stages: 3 (the whole transform), or at n = 2048 and
+// 4096 and on the real-row route 1 or 2 to cut the kernel for timing (the
+// output is then not the spectrum).  Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int af_fft_pow2_fwd(const float* xr, const float* xi, float* yr,
-                               float* yi, void* scratch, const void* tw,
-                               long long batch, int log2n, int bins, int lo,
-                               int live, int stages, void* stream) {
-  return transform(xr, xi, yr, yi, scratch, tw, batch, log2n, Dir{1.f, 1.f},
+                               float* yi, const void* tw, long long batch,
+                               int log2n, int bins, int lo, int live,
+                               int stages, void* stream) {
+  return transform(xr, xi, yr, yi, tw, batch, log2n, Dir{1.f, 1.f},
                    bins, lo, live, stages, stream);
 }
 
 // The inverse, 1/n included: yr, yi (batch, in_bins) natural-order
 // spectrum -> xr, xi (batch, n) signal.  yi may be null (a spectrum with
 // no imaginary part); xi may be null: the imaginary output is then not
-// written (from n = 8192 on the real-row route; scratch is then unused).
-// in_bins: n, or on the real-row route n / 2 + 1, a half spectrum (bin
-// n - k is conj Y[k]; the imaginary parts of bins 0 and n/2 are ignored,
-// as irfft does).  scratch, tw and stages as above.
+// written (from n = 8192 on the real-row route).  in_bins: n, or on the
+// real-row route n / 2 + 1, a half spectrum (bin n - k is conj Y[k]; the
+// imaginary parts of bins 0 and n/2 are ignored, as irfft does).  tw and
+// stages as above.
 extern "C" int af_fft_pow2_inv(const float* yr, const float* yi, float* xr,
-                               float* xi, void* scratch, const void* tw,
-                               long long batch, int log2n, int in_bins,
-                               int stages, void* stream) {
-  return transform(yr, yi, xr, xi, scratch, tw, batch, log2n,
+                               float* xi, const void* tw, long long batch,
+                               int log2n, int in_bins, int stages,
+                               void* stream) {
+  return transform(yr, yi, xr, xi, tw, batch, log2n,
                    Dir{-1.f, 1.f / static_cast<float>(1 << log2n)}, 1 << log2n,
                    0, in_bins, stages, stream);
 }
 
-// out = 0.5 * Im(ifft(fft(xr + i xi)^2)), all (batch, n) fp32.  scratch and
-// tw as above (the second table unread).
+// out = 0.5 * Im(ifft(fft(xr + i xi)^2)), all (batch, n) fp32.  tw as
+// above.
 extern "C" int af_fft_pow2_autocorr(const float* xr, const float* xi,
-                                    float* out, void* scratch, const void* tw,
+                                    float* out, const void* tw,
                                     long long batch, int log2n, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float2* twf = static_cast<const float2*>(tw);
   if (batch <= 0) return 0;
   if (bad_args(batch, log2n)) return static_cast<int>(cudaErrorInvalidValue);
-  const AcfArgs a{xr, xi, nullptr, 0, 0, 0, 0, out, batch};
-  if (log2n == 11) return launch_acf<64, 32, false>(a, twf, st);
-  if (log2n == 12) return launch_acf<64, 64, false>(a, twf, st);
-  if (log2n <= kMaxSinglePassLog2) {
-    const int smem = static_cast<int>(sizeof(float2)) * seq_stride(1 << log2n);
-    cudaError_t e = allow_smem(autocorr_row_kernel, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    autocorr_row_kernel<<<static_cast<unsigned>(batch), (1 << log2n) / 16,
-                          smem, st>>>(xr, xi, out, twf, log2n);
-    return static_cast<int>(cudaGetLastError());
+  const bool bulk = aligned16(xr) && aligned16(xi);
+  if (log2n == kClusterLog2) {
+    return launch_cluster<true>(
+        ClusterArgs{xr, xi, out, nullptr, batch, Dir{1.f, 1.f}, bulk}, twf,
+        st);
   }
-  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const int n1 = 1 << kLog2N1;
-  const int n2 = 1 << (log2n - kLog2N1);
-  const unsigned b = static_cast<unsigned>(batch);
-  float2* y = static_cast<float2*>(scratch);
-  fft_col_kernel<<<dim3(b, n2 / kCols), kCols * n1 / 16,
-                   sizeof(float2) * seq_stride(n1) * kCols, st>>>(
-      xr, xi, y, twf, log2n, 1.f);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  autocorr_mid_kernel<<<dim3(b, n1 / kRows), kRows * n2 / 16,
-                        sizeof(float2) * seq_stride(n2) * kRows, st>>>(
-      y, twf, log2n);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  autocorr_colout_kernel<<<dim3(b, n2 / kCols), kCols * n1 / 16,
-                           sizeof(float2) * seq_stride(n1) * kCols, st>>>(
-      y, out, twf, log2n);
-  return static_cast<int>(cudaGetLastError());
+  if (log2n >= 13) {
+    const int n = 1 << log2n;
+    const AcfRegArgs a{xr, xi, batch, n, n, out, bulk};
+    return log2n == 13 ? launch_acf_reg<2, false>(a, twf, st)
+                       : launch_acf_reg<4, false>(a, twf, st);
+  }
+  const AcfArgs a{xr, xi, nullptr, 0, 0, 0, 0, out, batch};
+  return log2n == 11 ? launch_acf<64, 32, false>(a, twf, st)
+                     : launch_acf<64, 64, false>(a, twf, st);
+}
+
+// The autocorrelation of frames, n = 4096, 8192 or 16384: frames (rows, L)
+// fp32, L <= n / 2; out (rows, lags) = lags [0, lags) of 0.5 * Im(ifft(
+// fft(z)^2)), z[j] = f[j] + i f[(-j) mod n] (zero past the frame's L
+// samples): the frame's autocorrelation, linear for lags below n - L + 1.
+// tw as above.
+extern "C" int af_fft_pow2_autocorr_frames(const float* frames, float* out,
+                                           const void* tw, long long rows,
+                                           int log2n, int len, int lags,
+                                           void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float2* twf = static_cast<const float2*>(tw);
+  if (rows <= 0) return 0;
+  const int n = 1 << log2n;
+  if (log2n < 12 || log2n > 14 || len < 1 || len > n / 2 || lags < 1 ||
+      lags > n || rows > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const AcfRegArgs a{frames, nullptr, rows, len, lags, out,
+                     aligned16(frames) && len % 4 == 0};
+  return log2n == 12   ? launch_acf_reg<1, true>(a, twf, st)
+         : log2n == 13 ? launch_acf_reg<2, true>(a, twf, st)
+                       : launch_acf_reg<4, true>(a, twf, st);
+}
+
+// The clusters of two blocks the current device holds at once for the
+// complex rows at n = 32768 (acf: the autocorrelation's kernel), or minus
+// the CUDA error code.
+extern "C" int af_fft_pow2_resident_clusters(int acf) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int resident = 0;
+  const cudaError_t e =
+      acf ? cluster_config<true>(nullptr, &cfg, &attr, &resident)
+          : cluster_config<false>(nullptr, &cfg, &attr, &resident);
+  return e == cudaSuccess ? resident : -static_cast<int>(e);
 }
 
 // YIN's autocorrelation, n = 2048 or 4096: x (clips, samples) fp32, frame

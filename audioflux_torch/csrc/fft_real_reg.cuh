@@ -57,22 +57,45 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
-// One thread: order the block's earlier reads of the staging buffer before
-// the async proxy's writes, then copy `bytes` (a multiple of 16, both
-// addresses 16-byte aligned) from src into dst; the copy completes the
+// One thread: a 1-D TMA copy of `bytes` (a multiple of 16, both addresses
+// 16-byte aligned) from src into dst that completes its bytes of the
 // barrier's current phase.
-__device__ __forceinline__ void bulk_fetch(void* dst, const void* src,
-                                           uint32_t bytes, uint64_t* bar) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// One thread: order the block's earlier reads of the staging buffer before
+// the async proxy's writes, and make the barrier's one arrival of the
+// phase, expecting `total` bytes.
+__device__ __forceinline__ void bulk_expect(uint32_t total, uint64_t* bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(total)
+               : "memory");
+}
+
+// One thread: copy `bytes` from src into dst; the copy completes the
+// barrier's current phase.
+__device__ __forceinline__ void bulk_fetch(void* dst, const void* src,
+                                           uint32_t bytes, uint64_t* bar) {
+  bulk_expect(bytes, bar);
+  bulk_copy(dst, src, bytes, bar);
+}
+
+// The same for two copies of `bytes` each that complete one phase
+// together: the arrival expects both before either is issued.
+__device__ __forceinline__ void bulk_fetch2(void* dst0, const void* src0,
+                                            void* dst1, const void* src1,
+                                            uint32_t bytes, uint64_t* bar) {
+  bulk_expect(2 * bytes, bar);
+  bulk_copy(dst0, src0, bytes, bar);
+  bulk_copy(dst1, src1, bytes, bar);
 }
 
 // Every thread: wait until the phase of parity `phase` has completed.
@@ -263,48 +286,56 @@ __device__ __forceinline__ int misalign4(const float* p) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
 }
 
+// Times W_N^(t k1) on v[slot(k1)], k1 < 64, as the fp32 product of the
+// two exact factors W_N^(t r) W_N^(8 t q), k1 = 8 q + r, read from fac:
+// W_N^(t r) at [r B + t], W_N^(8 t q) at [8 B + q B + t] (r, q < 8).
+template <int B, typename Slot>
+__device__ __forceinline__ void pass1_twiddle(float2 (&v)[64],
+                                              const float2* __restrict__ fac,
+                                              int t, Slot slot) {
+  const float2* pa = fac + t;
+  const float2* pb = fac + 8 * B + t;
+  float2 a[8];
+#pragma unroll
+  for (int r = 1; r < 8; ++r) a[r] = __ldg(pa + r * B);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const float2 b = q ? __ldg(pb + q * B) : make_float2(1.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      if (q == 0 && r == 0) continue;
+      const float2 w = q == 0 ? a[r] : r == 0 ? b : cmul(a[r], b);
+      const int i = slot(8 * q + r);
+      v[i] = cmul(v[i], w);
+    }
+  }
+}
+
 // The transform of one row (see the note at the top).  On entry thread t
 // holds z[j1 B + t] at v[bit_reverse(j1, 6)] (64 points).  Thread u =
 // g C + jb ends with Z[g + 64 ka + 4096 bit_reverse(jb, log2 C)]; each of
 // its 64 outputs is handed to epi(ka, value) as soon as it is final, and
-// stays in v[ka].  tw: the n-point table, then W_N^(t r) at [n + r B + t]
-// and W_N^(8 t q) at [n + 8 B + q B + t] (r, q < 8).  buf: the transpose
-// buffer, RealRoute<C>::kBuf words, float2 (kCplx: one pass through it)
-// or float (real parts, then imaginary parts: half the bytes, two
-// passes); the block is synchronised on entry to the first write and
-// after the last read.  `full` false skips the arithmetic (a timing cut:
-// epi then sees the input).
+// stays in v[ka].  fac: the pass-1 factors of N = RealRoute<C>::kN points
+// (pass1_twiddle).  buf: the transpose buffer, RealRoute<C>::kBuf words,
+// float2 (kCplx: one pass through it) or float (real parts, then imaginary
+// parts: half the bytes, two passes); the block is synchronised on entry
+// to the first write and after the last read.  `full` false skips the
+// arithmetic (a timing cut: epi then sees the input).
 template <int C, bool kCplx, typename Epi>
 __device__ __forceinline__ void real_route_transform(
-    float2 (&v)[64], void* buf, const float2* __restrict__ tw, int t,
+    float2 (&v)[64], void* buf, const float2* __restrict__ fac, int t,
     bool full, Epi&& epi) {
   using R = RealRoute<C>;
-  constexpr int B = R::kB, P = R::kP, n = 2 * R::kN;
+  constexpr int B = R::kB, P = R::kP;
   const int g = t / C, jb = t % C;
   if (!full) {
 #pragma unroll
     for (int ka = 0; ka < 64; ++ka) epi(ka, v[ka]);
     return;
   }
-  tw = per_row(tw);
+  fac = per_row(fac);
   reg_dft<64>(v);
-  {
-    const float2* pa = tw + n + t;
-    const float2* pb = tw + n + 8 * B + t;
-    float2 a[8];
-#pragma unroll
-    for (int r = 1; r < 8; ++r) a[r] = __ldg(pa + r * B);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const float2 b = q ? __ldg(pb + q * B) : make_float2(1.f, 0.f);
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        if (q == 0 && r == 0) continue;
-        const float2 w = q == 0 ? a[r] : r == 0 ? b : cmul(a[r], b);
-        v[8 * q + r] = cmul(v[8 * q + r], w);
-      }
-    }
-  }
+  pass1_twiddle<B>(v, fac, t, [](int k1) { return k1; });
   // the transpose: column t of row k1 at [k1 P + t]; thread u reads row g
   // at the points ja C + jb
   if constexpr (kCplx) {
@@ -365,6 +396,91 @@ __device__ __forceinline__ void real_route_transform(
       }
     }
     epi(ka, v[ka]);
+  }
+}
+
+// The same N-point transform (F = DFT(S), the forward's sign) with its
+// passes in the opposite order, for a row that real_route_transform left
+// in place: on entry thread u = g C + jb holds S[g + 64 ka + 4096 kb] at
+// v[ka], kb = bit_reverse(jb, log2 C); on exit thread t holds F[t + B m1]
+// at v[m1], the layout real_route_transform reads.  With k = k1 + 64 k2
+// (k1 = g, k2 = ka + 64 kb) and m = m2 + B m1 (m2 = ma C + mb),
+//   F[m] = sum_k1 W_64^(k1 m1) W_N^(k1 m2)
+//          sum_ka W_64^(ka ma) W_B^(ka mb) sum_kb W_C^(kb mb) S[k]:
+//   the C-point DFT over kb across the lanes of row g, decimation in time
+//           (input in bit-reversed order across the lanes, so lane jb ends
+//           with mb = jb; lane 3's value times -i before the second stage
+//           at C = 4);
+//   times W_B^(ka jb), read from lit (C > 1: the block's table of them in
+//           shared memory, W_B^(jb ka) at [jb 65 + ka], exact fp32 table
+//           entries; as literals they would be the forward's literals a
+//           second time a row, which the compiler keeps in registers
+//           across the rows and spills), and the 64-point DFT over ka:
+//           G[g, ma C + jb] at the thread's v[ma];
+//   the transpose through buf, written at [g P + ma C + jb], read at
+//           [k1 P + t] (both free of bank conflicts);
+//   times W_N^(t k1) (pass1_twiddle, the same two factors), and the
+//           64-point DFT over k1.
+// No bit-reversal pass: the register permutations fold into the unrolled
+// indices.  buf as in real_route_transform (float: two passes).
+template <int C>
+__device__ __forceinline__ void route_transform_back(
+    float2 (&v)[64], float* buf, const float2* __restrict__ fac,
+    const float2* lit, int t) {
+  using R = RealRoute<C>;
+  constexpr int B = R::kB, P = R::kP;
+  const int g = t / C, jb = t % C;
+  fac = per_row(fac);
+  float2 w[64];
+#pragma unroll
+  for (int ka = 0; ka < 64; ++ka) {
+    float2 x = v[ka];
+    if constexpr (C > 1) {
+#pragma unroll
+      for (int h = 1; h <= C / 2; h *= 2) {
+        if (h == 2 && jb == 3) x = make_float2(x.y, -x.x);  // times -i
+        const float px = __shfl_xor_sync(0xffffffffu, x.x, h);
+        const float py = __shfl_xor_sync(0xffffffffu, x.y, h);
+        const float sg = jb & h ? -1.f : 1.f;
+        x = make_float2(fmaf(sg, x.x, px), fmaf(sg, x.y, py));
+      }
+      if (ka > 0) x = cmul(x, lit[jb * 65 + ka]);
+    }
+    w[bit_reverse(ka, 6)] = x;
+  }
+  reg_dft<64>(w);
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+#pragma unroll
+    for (int ma = 0; ma < 64; ++ma) {
+      buf[g * P + ma * C + jb] = c ? w[ma].y : w[ma].x;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k1 = 0; k1 < 64; ++k1) {
+      const float x = buf[k1 * P + t];
+      if (c) {
+        v[bit_reverse(k1, 6)].y = x;
+      } else {
+        v[bit_reverse(k1, 6)].x = x;
+      }
+    }
+    __syncthreads();
+  }
+  pass1_twiddle<B>(v, fac, t, [](int k1) { return bit_reverse(k1, 6); });
+  reg_dft<64>(v);
+}
+
+// route_transform_back's table W_B^(jb ka) (B = 64 C, jb < C, ka < 64) at
+// lit[jb 65 + ka], from the n-point table tw (n a multiple of B): the
+// entries tw[(n / B) jb ka].  All T threads of the block; the caller
+// synchronises before the first use.
+template <int C>
+__device__ __forceinline__ void fill_back_literals(
+    float2* lit, const float2* __restrict__ tw, int n, int t, int T) {
+  for (int i = t; i < C * 64; i += T) {
+    const int jb = i / 64, ka = i % 64;
+    lit[jb * 65 + ka] = __ldg(tw + (n / (64 * C)) * jb * ka);
   }
 }
 

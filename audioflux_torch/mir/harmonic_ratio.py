@@ -5,9 +5,10 @@ Counterpart of ``audioflux_tpu/mir/harmonic_ratio.py`` (reference
 normalized autocorrelation gamma(tau) = acf(tau)/sqrt(acf(0)*tailEnergy(tau))
 searched past the first zero crossing of the acf, its maximum refined by
 quadratic interpolation (util_qaudInterp).  The autocorrelation of every
-frame, ``ifft(|fft(frame, 2 * window)|^2)``, is one call of
-``ops.cuda_fft.fft_autocorr``; the cumsum tail, the zero-crossing search
-and the interpolation are PyTorch on the same device.
+frame, ``ifft(|fft(frame, 2 * window)|^2)`` at the lags it reads, is one
+call of ``ops.cuda_fft.fft_autocorr_frames``; the cumsum tail, the
+zero-crossing search and the interpolation are PyTorch on the same
+device.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ __all__ = ["HarmonicRatio"]
 def _hr_impl(x, window, *, window_length, slide_length, fft_length,
              max_length):
     frames = frame_signal(x, window_length, slide_length) * window
-    acf = autocorr_rows(frames, fft_length)
+    acf = autocorr_rows(frames, fft_length, max_length + 1)
 
     csum = torch.cumsum(frames * frames, dim=-1)
     # tail[j] = cumE[window_length-2-j] (harmonicRatio_algorithm.c:186-189)

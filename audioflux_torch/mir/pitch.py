@@ -7,12 +7,13 @@ pick over a lag/bin range; each one's per-frame FFT loop is one batched
 transform over all frames of all clips:
 
 - NCF: ``ifft(|fft(frame, 2N)|^2)`` is the autocorrelation, computed by
-  ``ops.cuda_fft.fft_autocorr(frame, rev)`` in one pass (the operands are
-  zero-padded to 2N, so the circular correlation is the linear one);
+  ``ops.cuda_fft.fft_autocorr_frames`` in one pass from the frames (the
+  transform is 2N long, so the circular correlation is the linear one),
+  which writes only the lags up to ``max_index``;
 - CEP: real cepstrum of log power on ``torch.fft`` (``exact``: the log
   amplifies a kernel's error on near-zero bins into argmax flips);
-- HPS/LHS: a 32768-point spectrum (the FFT kernel's four-step route) and
-  a (max_index + 1) x harmonics gather;
+- HPS/LHS: a 32768-point spectrum (the FFT kernel's real-row route, the
+  bins the gather reads) and a (max_index + 1) x harmonics gather;
 - PEF: a forward at 2N, a log-grid interpolation (a gather), and a
   cross-correlation with the comb filter at ``xcorr_fft_length``, whose
   spectrum is built once per plan on its device.
@@ -42,25 +43,25 @@ def _round_pow2(n: int) -> int:
     return lo * 2 if (n - lo) > (lo * 2 - n) else lo
 
 
-def autocorr_operands(frames: torch.Tensor, n: int):
-    """The two (..., n) operands of :func:`autocorr_rows`: the frames
-    zero-padded to n, and ``rev[m] = frame[(-m) mod n]``."""
-    L = frames.shape[-1]
-    xr = F.pad(frames, (0, n - L)).contiguous()
-    rev = torch.cat([frames[..., :1],
-                     frames.new_zeros(frames.shape[:-1] + (n - L,)),
-                     frames[..., 1:].flip(-1)], dim=-1).contiguous()
-    return xr, rev
+# the two (..., n) operands of the general autocorrelation: the frames
+# zero-padded to n, and rev[m] = frame[(-m) mod n]
+autocorr_operands = cuda_fft.frame_operands
 
 
-def autocorr_rows(frames: torch.Tensor, n: int) -> torch.Tensor:
+def autocorr_rows(frames: torch.Tensor, n: int,
+                  lags: int | None = None) -> torch.Tensor:
     """``real(ifft(|fft(frames, n)|^2))`` of (..., L) fp32 frames, L <= n/2:
-    their autocorrelation at lags 0..n-1, through one call of
-    ``ops.cuda_fft.fft_autocorr(frame, rev)`` (the kernel for a CUDA
-    tensor, its plain version for a CPU tensor): the circular convolution
-    of the frame with its reversal, which the zero padding makes the
-    linear correlation."""
-    return cuda_fft.fft_autocorr(*autocorr_operands(frames, n))
+    their autocorrelation at lags 0..lags-1 (None: all n), the circular
+    convolution of the frame with its reversal, which the zero padding
+    makes the linear correlation.  At n = 4096..16384 one call of
+    ``ops.cuda_fft.fft_autocorr_frames`` (on the card the kernel reads the
+    frames and writes only the lags asked for); elsewhere
+    ``fft_autocorr(frame, rev)`` of the two operands, sliced.  A CPU
+    tensor takes the kernels' plain versions."""
+    lags = n if lags is None else lags
+    if n in cuda_fft.FRAMES_N:
+        return cuda_fft.fft_autocorr_frames(frames, n, lags)
+    return cuda_fft.fft_autocorr(*autocorr_operands(frames, n))[..., :lags]
 
 
 class _PitchBase:
@@ -113,7 +114,8 @@ class PitchNCF(_PitchBase):
     def pitch(self, data_arr):
         """(..., n) -> (..., time) fundamental frequency."""
         L2 = self.fft_length * 2
-        acf = autocorr_rows(self._frames(data_arr), L2)
+        acf = autocorr_rows(self._frames(data_arr), L2,
+                            min(self.max_index + 1, L2))
         acf = acf / np.sqrt(L2)
         rms = torch.sqrt(acf[..., :1])
         lags = acf[..., self.min_index:self.max_index + 1] / rms

@@ -1,6 +1,7 @@
 """Batched FFTs for power-of-two n in [2048, 32768]: the CUDA kernels of
-``csrc/fft_pow2.cu`` (forward, inverse, fused autocorrelation, and YIN's
-autocorrelation straight from the clips) and their plain PyTorch versions.
+``csrc/fft_pow2.cu`` (forward, inverse, fused autocorrelation, YIN's
+autocorrelation straight from the clips and the autocorrelation of
+frames) and their plain PyTorch versions.
 
 Counterpart of ``audioflux_tpu/ops/pallas_fft.py`` (``fft4_fwd``,
 ``fft4_inv``, ``fft4_autocorr``, ``supports``).  The kernels read and
@@ -21,9 +22,16 @@ Which route takes a call (:func:`route`):
   a whole spectrum or the half that ``irfft`` takes (``n``);
 * complex rows at 8192, 16384 (forward, or an inverse with an imaginary
   output): one row a block in shared memory;
-* complex rows at 32768 (:data:`FOUR_STEP_MIN`), and ``fft_autocorr`` at
-  32768: the four-step split through a device buffer of (rows, n, 2)
-  floats, allocated for those calls only.
+* complex rows at 32768 (:data:`CLUSTER_N`), and ``fft_autocorr`` there:
+  one launch of clusters of two blocks, a row a cluster, half the row in
+  each block's registers, the halves joined through distributed shared
+  memory; no device buffer.
+
+``fft_autocorr`` at 8192 and 16384 runs the round trip in registers
+(the real-row route's transform of n points, then the same passes in the
+opposite order); :func:`fft_autocorr_frames` is its entry for frames
+(NCF, HarmonicRatio), which forms both operands on the card and writes
+only the lags asked for.
 """
 
 from __future__ import annotations
@@ -41,12 +49,13 @@ from audioflux_torch.ops.frame import cal_time_length, frame_signal
 
 __all__ = ["supports", "route", "fft_fwd", "fft_fwd_ref", "fft_inv",
            "fft_inv_ref", "fft_autocorr", "fft_autocorr_ref",
-           "fft_autocorr_yin", "fft_autocorr_yin_ref", "twiddle_table"]
+           "fft_autocorr_yin", "fft_autocorr_yin_ref", "fft_autocorr_frames",
+           "fft_autocorr_frames_ref", "frame_operands", "twiddle_table"]
 
 REGISTER_N = (2048, 4096)   # the lengths of the register-resident route
 REAL_MIN = 8192             # from here on real rows take the real-row route
-FOUR_STEP_MIN = 32768       # from here on complex rows take the four-step
-                            # split
+CLUSTER_N = 32768           # complex rows here take two-block clusters
+FRAMES_N = (4096, 8192, 16384)  # the lengths of fft_autocorr_frames
 
 
 def supports(n: int) -> bool:
@@ -57,12 +66,12 @@ def supports(n: int) -> bool:
 def route(n: int, real: bool) -> str:
     """The route of a transform of n points: ``real`` is a forward of real
     rows or an inverse with real output.  "register", "real", "row" or
-    "four_step" (the only one with a device buffer)."""
+    "cluster" (complex rows at 32768)."""
     if n in REGISTER_N:
         return "register"
     if real:
         return "real"
-    return "four_step" if n >= FOUR_STEP_MIN else "row"
+    return "cluster" if n == CLUSTER_N else "row"
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,12 +83,11 @@ def twiddle_table(n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(tw).to(device)
 
 
-def _pass1_factors(n: int) -> np.ndarray:
-    """The real-row route's pass-1 twiddles W_N^(t k1), N = n/2, as two
-    exact factors (``csrc/fft_real_reg.cuh``): W_N^(t r) at [r B + t], then
-    W_N^(8 t q) at [8 B + q B + t], r, q < 8, t < B = N/64; (16 B, 2)
+def _pass1_factors(N: int) -> np.ndarray:
+    """The register transform's pass-1 twiddles W_N^(t k1) of N points as
+    two exact factors (``csrc/fft_real_reg.cuh``): W_N^(t r) at [r B + t],
+    then W_N^(8 t q) at [8 B + q B + t], r, q < 8, t < B = N/64; (16 B, 2)
     fp32, built in float64."""
-    N = n // 2
     t = np.arange(N // 64)
     e = np.concatenate([np.outer(np.arange(8), t),
                         np.outer(8 * np.arange(8), t)]).reshape(-1)
@@ -89,9 +97,12 @@ def _pass1_factors(n: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _kernel_table(n: int, device: torch.device) -> torch.Tensor:
-    """The table the row kernels take: :func:`twiddle_table` of n, then the
-    real-row route's pass-1 factors (:func:`_pass1_factors`)."""
+    """The table the kernels take: :func:`twiddle_table` of n, then the
+    pass-1 factors of n/2 points (the real-row route's and the clusters'),
+    then those of n points (the autocorrelation in registers); n + n/8 +
+    n/4 rows."""
     return torch.cat([twiddle_table(n, device),
+                      torch.from_numpy(_pass1_factors(n // 2)).to(device),
                       torch.from_numpy(_pass1_factors(n)).to(device)])
 
 
@@ -99,14 +110,17 @@ def _kernel_table(n: int, device: torch.device) -> torch.Tensor:
 def _lib():
     lib = _build.load("fft_pow2")
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fwd = [p, p, p, p, p, p, ll, i, i, i, i, i, p]
-    inv = [p, p, p, p, p, p, ll, i, i, i, p]
-    auto = [p, p, p, p, p, ll, i, p]
+    fwd = [p, p, p, p, p, ll, i, i, i, i, i, p]
+    inv = [p, p, p, p, p, ll, i, i, i, p]
+    auto = [p, p, p, p, ll, i, p]
     yin = [p, p, p, ll, ll, i, i, i, i, p]
+    frames = [p, p, p, ll, i, i, i, p]
     for fn, argtypes in ((lib.af_fft_pow2_fwd, fwd),
                          (lib.af_fft_pow2_inv, inv),
                          (lib.af_fft_pow2_autocorr, auto),
-                         (lib.af_fft_pow2_autocorr_yin, yin)):
+                         (lib.af_fft_pow2_autocorr_yin, yin),
+                         (lib.af_fft_pow2_autocorr_frames, frames),
+                         (lib.af_fft_pow2_resident_clusters, [i])):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
@@ -115,11 +129,9 @@ def _lib():
 def _check_rows(who: str, n=None, **tensors) -> int:
     """The checks every wrapper makes: pow2 n in the kernels' domain (the
     rows' length unless given), float32, contiguous, one shape and one
-    device.  Returns n."""
-    first = next(t for t in tensors.values() if t is not None)
-    n = first.shape[-1] if n is None else int(n)
-    if not supports(n):
-        raise ValueError(f"{who} needs pow2 n in [2048, 32768], got {n}")
+    device, a CPU or CUDA device.  Returns n.  (Written for few attribute
+    reads: it runs on every call, and a small call's time is the host's.)"""
+    first = None
     for name, t in tensors.items():
         if t is None:
             continue
@@ -127,39 +139,41 @@ def _check_rows(who: str, n=None, **tensors) -> int:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.shape != first.shape or t.device != first.device:
+        if first is None:
+            first = t
+        elif t.shape != first.shape or t.device != first.device:
             raise ValueError(f"{' and '.join(tensors)} must share shape and "
                              "device")
-    if first.device.type not in ("cpu", "cuda"):
+    n = first.shape[-1] if n is None else int(n)
+    if not supports(n):
+        raise ValueError(f"{who} needs pow2 n in [2048, 32768], got {n}")
+    if not (first.is_cuda or first.is_cpu):
         raise ValueError(f"unsupported device {first.device}")
     return n
 
 
-@functools.lru_cache(maxsize=None)
-def _sm90(index: int) -> None:
-    """:func:`require_sm90` once a card."""
-    require_sm90(torch.device("cuda", index))
+_SM90_SEEN: set = set()   # the card indices require_sm90 has passed
+_TABLE_PTRS: dict = {}    # (n, card index) -> the kernel table's address
 
 
-def _call(fn, who: str, x: torch.Tensor, n: int, *ptrs, extra=(),
-          four_step=False):
-    """Launch ``fn(*ptrs, scratch, tw, batch, log2n, *extra, stream)`` on
-    ``x``'s device and stream, a row of ``x`` an item; raise on a CUDA
-    error.  ``scratch`` is the four-step split's device buffer, allocated
-    only where ``four_step``."""
-    dev = x.device
-    _sm90(dev.index)
-    batch, log2n = x.numel() // x.shape[-1], n.bit_length() - 1
-    scratch = (torch.empty((batch, n, 2), dtype=torch.float32,
-                           device=dev) if four_step else None)
-    tw = _kernel_table(n, dev)
-    args = (*ptrs, None if scratch is None else scratch.data_ptr(),
-            tw.data_ptr(), batch, log2n, *extra)
-    if dev.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+def _call(fn, who: str, x: torch.Tensor, n: int, *ptrs, extra=()):
+    """Launch ``fn(*ptrs, tw, batch, log2n, *extra, stream)`` on ``x``'s
+    device and current stream, a row of ``x`` an item; raise on a CUDA
+    error.  The per-call host work is kept to dictionary lookups: the
+    card's check and the table are made once a card."""
+    index = x.device.index
+    if index not in _SM90_SEEN:
+        require_sm90(x.device)
+        _SM90_SEEN.add(index)
+    tw = _TABLE_PTRS.get((n, index))
+    if tw is None:
+        tw = _TABLE_PTRS[(n, index)] = _kernel_table(n, x.device).data_ptr()
+    args = (*ptrs, tw, x.numel() // x.shape[-1], n.bit_length() - 1, *extra)
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     else:
-        with torch.cuda.device(dev):
-            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err:
         raise RuntimeError(f"{who} launch failed: CUDA error {err}")
 
@@ -227,7 +241,7 @@ def fft_fwd(xr: torch.Tensor, xi: torch.Tensor | None = None,
     n = _check_span(xr.shape[-1], n, lo, xi)
     _check_rows("fft_fwd", n, xr=xr, xi=xi)
     bins = _check_bins(n, bins, xi)
-    if xr.device.type == "cpu":
+    if not xr.is_cuda:
         return fft_fwd_ref(xr, xi, bins, n, lo)
     return _fwd(xr, xi, n, bins, lo=lo)
 
@@ -246,14 +260,13 @@ def _fwd(xr, xi, n, bins=None, stages=3, lo=0):
     if way == "register" and bins < n:    # the route writes every bin
         yr, yi = _fwd(xr, xi, n, n, stages)
         return yr[..., :bins].contiguous(), yi[..., :bins].contiguous()
-    yr = xr.new_empty(xr.shape[:-1] + (bins,))
-    yi = xr.new_empty(xr.shape[:-1] + (bins,))
+    shape = xr.shape[:-1] + (bins,)
+    yr, yi = xr.new_empty(shape), xr.new_empty(shape)
     if xr.numel() == 0:
         return yr, yi
     _call(_lib().af_fft_pow2_fwd, "fft_pow2 forward", xr, n, xr.data_ptr(),
           None if xi is None else xi.data_ptr(), yr.data_ptr(),
-          yi.data_ptr(), extra=(bins, lo, live, stages),
-          four_step=way == "four_step")
+          yi.data_ptr(), extra=(bins, lo, live, stages))
     _count(fft_fwd, way)
     fft_fwd.live_launches += int(live < n)
     return yr, yi
@@ -261,9 +274,7 @@ def _fwd(xr, xi, n, bins=None, stages=3, lo=0):
 
 def _count(fn, way):
     fn.launches += 1
-    fn.register_launches += int(way == "register")
-    fn.real_launches += int(way == "real")
-    fn.four_step_launches += int(way == "four_step")
+    setattr(fn, f"{way}_launches", getattr(fn, f"{way}_launches") + 1)
 
 
 def _half_n(rows: int, n) -> int:
@@ -319,7 +330,7 @@ def fft_inv(yr: torch.Tensor, yi: torch.Tensor, out_imag: bool = True,
         n = _half_n(yr.shape[-1], n)
         out_imag = False
     n = _check_rows("fft_inv", n, yr=yr, yi=yi)
-    if yr.device.type == "cpu":
+    if not yr.is_cuda:
         return fft_inv_ref(yr, yi, out_imag, n if half else None)
     way = route(n, not out_imag)
     if half and way != "real":     # the register route takes whole spectra
@@ -330,7 +341,7 @@ def fft_inv(yr: torch.Tensor, yi: torch.Tensor, out_imag: bool = True,
         return xr, xi
     _call(_lib().af_fft_pow2_inv, "fft_pow2 inverse", yr, n, yr.data_ptr(),
           yi.data_ptr(), xr.data_ptr(), None if xi is None else xi.data_ptr(),
-          extra=(yr.shape[-1], 3), four_step=way == "four_step")
+          extra=(yr.shape[-1], 3))
     _count(fft_inv, way)
     fft_inv.half_launches += int(yr.shape[-1] < n)
     return xr, xi
@@ -345,22 +356,88 @@ def fft_autocorr_ref(xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
 def fft_autocorr(xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """``0.5 * Im(ifft(fft(xr + i xi)^2))`` of two (..., n) fp32 rows: the
     circular convolution of ``xr`` with ``xi``, in one pass over the two
-    operands (the square never leaves the card's on-chip memory at
-    n <= 16384; at n = 2048 and 4096 the whole round trip runs in
-    registers).
+    operands: the whole round trip runs in registers (at 32768 in a
+    cluster of two blocks a row), and the square never leaves the chip.
 
     A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
     takes the plain version."""
     n = _check_rows("fft_autocorr", xr=xr, xi=xi)
-    if xr.device.type == "cpu":
+    if not xr.is_cuda:
         return fft_autocorr_ref(xr, xi)
     out = torch.empty_like(xr)
     if xr.numel() == 0:
         return out
     _call(_lib().af_fft_pow2_autocorr, "fft_pow2 autocorrelation", xr, n,
-          xr.data_ptr(), xi.data_ptr(), out.data_ptr(),
-          four_step=n >= FOUR_STEP_MIN)
+          xr.data_ptr(), xi.data_ptr(), out.data_ptr())
     fft_autocorr.launches += 1
+    fft_autocorr.cluster_launches += int(n == CLUSTER_N)
+    return out
+
+
+def resident_clusters(acf: bool = False) -> int:
+    """The clusters of two blocks the current card holds at once for the
+    complex rows at 32768 (``acf``: the autocorrelation's kernel), the grid
+    of their persistent launch; raises on a CUDA error."""
+    got = _lib().af_fft_pow2_resident_clusters(int(acf))
+    if got < 0:
+        raise RuntimeError(f"fft_pow2 cluster query failed: CUDA error "
+                           f"{-got}")
+    return got
+
+
+def frame_operands(frames: torch.Tensor, n: int):
+    """The two (..., n) operands whose :func:`fft_autocorr` is the
+    autocorrelation of (..., L) frames, L <= n/2: the frames zero-padded to
+    n, and ``rev[m] = frame[(-m) mod n]``."""
+    L = frames.shape[-1]
+    xr = F.pad(frames, (0, n - L)).contiguous()
+    rev = torch.cat([frames[..., :1],
+                     frames.new_zeros(frames.shape[:-1] + (n - L,)),
+                     frames[..., 1:].flip(-1)], dim=-1).contiguous()
+    return xr, rev
+
+
+def fft_autocorr_frames_ref(frames: torch.Tensor, n: int,
+                            lags: int) -> torch.Tensor:
+    """Plain version of :func:`fft_autocorr_frames`: the two operands
+    (:func:`frame_operands`), :func:`fft_autocorr_ref`, the first lags."""
+    acf = fft_autocorr_ref(*frame_operands(frames, n))
+    return acf[..., :lags].contiguous()
+
+
+def fft_autocorr_frames(frames: torch.Tensor, n: int,
+                        lags: int) -> torch.Tensor:
+    """``real(ifft(|fft(frame, n)|^2))`` of (..., L) fp32 frames, L <= n/2,
+    at lags 0 .. lags - 1: (..., lags).  It is :func:`fft_autocorr` of the
+    frame and its reversal ``rev[m] = frame[(-m) mod n]``, which the kernel
+    forms in registers from the frame's L samples (it reads only those,
+    and writes only the lags asked for); the zero padding makes the
+    circular correlation the linear one below lag n - L + 1.  ``n`` is
+    4096, 8192 or 16384 (:data:`FRAMES_N`).
+
+    A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
+    takes the plain version."""
+    L = frames.shape[-1]
+    if n not in FRAMES_N:
+        raise ValueError(f"fft_autocorr_frames needs n in {FRAMES_N}, "
+                         f"got {n}")
+    if not 1 <= L <= n // 2 or not 1 <= lags <= n:
+        raise ValueError(f"need 1 <= L <= n/2 and 1 <= lags <= n, got L "
+                         f"{L}, lags {lags}, n {n}")
+    if frames.dtype != torch.float32:
+        raise TypeError(f"frames must be float32, got {frames.dtype}")
+    if frames.device.type == "cpu":
+        return fft_autocorr_frames_ref(frames, n, lags)
+    if frames.device.type != "cuda":
+        raise ValueError(f"unsupported device {frames.device}")
+    out = frames.new_empty(frames.shape[:-1] + (lags,))
+    if out.numel() == 0:
+        return out
+    rows = frames.reshape(-1, L).contiguous()
+    _call(_lib().af_fft_pow2_autocorr_frames, "fft_pow2 frames "
+          "autocorrelation", rows, n, rows.data_ptr(), out.data_ptr(),
+          extra=(L, lags))
+    fft_autocorr_frames.launches += 1
     return out
 
 
@@ -434,9 +511,13 @@ fft_fwd.register_launches = 0   # those at n = 2048, 4096 (the register route)
 fft_inv.register_launches = 0
 fft_fwd.real_launches = 0       # real rows at n = 8192..32768 (real-row route)
 fft_inv.real_launches = 0
-fft_fwd.four_step_launches = 0  # complex rows at n = 32768 (four-step route)
-fft_inv.four_step_launches = 0
+fft_fwd.row_launches = 0        # complex rows at n = 8192, 16384 (row route)
+fft_inv.row_launches = 0
+fft_fwd.cluster_launches = 0    # complex rows at n = 32768 (cluster route)
+fft_inv.cluster_launches = 0
 fft_fwd.live_launches = 0       # real-row route, rows shorter than n
 fft_inv.half_launches = 0       # real-row route, half spectra
 fft_autocorr.launches = 0
+fft_autocorr.cluster_launches = 0   # n = 32768
 fft_autocorr_yin.launches = 0
+fft_autocorr_frames.launches = 0

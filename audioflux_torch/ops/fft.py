@@ -92,6 +92,14 @@ def ifft(x: torch.Tensor, n=None, dim=-1, exact=False) -> torch.Tensor:
     return torch.complex(outr, outi).movedim(-1, dim)
 
 
+def _f32c(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as contiguous float32, itself where it is (no call made: a
+    small transform's time is the host's)."""
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return t.to(torch.float32).contiguous()
+
+
 def fft_parts(re: torch.Tensor, im: torch.Tensor | None = None,
               bins: int | None = None, n: int | None = None, lo: int = 0):
     """``fft(re + i im)`` over the last axis (``im=None``: real input) as
@@ -109,10 +117,8 @@ def fft_parts(re: torch.Tensor, im: torch.Tensor | None = None,
         z = cuda_fft._padded(re, n, lo)
         y = torch.fft.fft(z if im is None else torch.complex(z, im), dim=-1)
         return y.real[..., :bins], y.imag[..., :bins]
-    return cuda_fft.fft_fwd(
-        re.to(torch.float32).contiguous(),
-        None if im is None else im.to(torch.float32).contiguous(), bins, n,
-        lo)
+    return cuda_fft.fft_fwd(_f32c(re), None if im is None else _f32c(im),
+                            bins, n, lo)
 
 
 def ifft_parts(re: torch.Tensor, im: torch.Tensor, real_only: bool = False,

@@ -55,9 +55,12 @@ def reassign_windows(window: np.ndarray) -> tuple:
     return h, dh, th
 
 
-def _reassign_impl(x, wins, *, fft_length, slide_length, samplate, thresh,
-                   re_type, order, result_type, is_padding):
-    """(..., n) -> (reassigned (..., m, T), plain STFT (..., m, T))."""
+def _corrections(x, wins, *, fft_length, slide_length, samplate, thresh,
+                 re_type, is_padding):
+    """The plain STFT and its corrected coordinates: (Sh (..., T, m),
+    w2 (..., T, m) Hz, t2 (..., T, m) s, T, tmax), or (Sh, None, None, T,
+    None) for ReassignType.NONE.  Any float dtype: a float64 input (and
+    float64 windows) gives the float64 coordinates."""
     m = fft_length // 2 + 1
     dev = x.device
     if is_padding:
@@ -73,11 +76,12 @@ def _reassign_impl(x, wins, *, fft_length, slide_length, samplate, thresh,
     need_dh = rt in (ReassignType.ALL, ReassignType.FRE)
     need_th = rt in (ReassignType.ALL, ReassignType.TIME) and T > 1
     sel = [0] + ([1] if need_dh else []) + ([2] if need_th else [])
-    S = afft.rfft(frames[..., None, :, :] * wins[sel, None, :], dim=-1)
+    # a float64 input stays float64 (torch.fft; the kernel tier is fp32)
+    S = afft.rfft(frames[..., None, :, :] * wins[sel, None, :], dim=-1,
+                  exact=x.dtype == torch.float64)
     Sh = S[..., 0, :, :]                                 # (..., T, m)
     if rt == ReassignType.NONE:
-        out = Sh.transpose(-1, -2)
-        return out, out
+        return Sh, None, None, T, None
     Sdh = S[..., 1, :, :] if need_dh else None
     Sth = S[..., len(sel) - 1, :, :] if need_th else None
 
@@ -106,6 +110,37 @@ def _reassign_impl(x, wins, *, fft_length, slide_length, samplate, thresh,
         t2 = torch.minimum(torch.clamp(t2, min=0.0), tmax)
     else:
         t2 = timb.expand(Sh.shape)
+    return Sh, w2, t2, T, tmax
+
+
+def _frequency_position(x, wins, *, fft_length, slide_length, samplate,
+                        thresh, re_type, is_padding):
+    """The reassigned frequency of every STFT cell on the bin grid, before
+    rounding: (..., T, m), bin ``floor(p + 0.5)``; a cell whose p lies a
+    rounding away from a half-integer (a bin edge) may land in either bin.
+    The plain STFT's power beside it (thresholded at ``thresh**2``)."""
+    Sh, w2, _, _, _ = _corrections(
+        x, wins, fft_length=fft_length, slide_length=slide_length,
+        samplate=samplate, thresh=thresh, re_type=re_type,
+        is_padding=is_padding)
+    fmax = samplate / 2.0
+    return (w2 * (fft_length // 2) / f32_scalar(fmax, x.device),
+            Sh.real.square() + Sh.imag.square())
+
+
+def _reassign_impl(x, wins, *, fft_length, slide_length, samplate, thresh,
+                   re_type, order, result_type, is_padding):
+    """(..., n) -> (reassigned (..., m, T), plain STFT (..., m, T))."""
+    m = fft_length // 2 + 1
+    dev = x.device
+    Sh, w2, t2, T, tmax = _corrections(
+        x, wins, fft_length=fft_length, slide_length=slide_length,
+        samplate=samplate, thresh=thresh, re_type=re_type,
+        is_padding=is_padding)
+    if w2 is None:
+        out = Sh.transpose(-1, -2)
+        return out, out
+    fmax = samplate / 2.0
 
     # grid indices (roundf == floor(x + 0.5) for non-negative values)
     if T > 1:

@@ -23,8 +23,15 @@ Phases (any failure exits non-zero; no result line is printed then):
    n/4 at 932, an odd offset and length, five samples at the end) at bins
    1, n/2 + 1, 10,001 and n, the inverse to real output of whole and half
    spectra, of Hermitian spectra, the round trip and a real spectrum
-   through the C entry, none of them on the four-step route; YIN's
-   autocorrelation entry on clips of odd
+   through the C entry, none of them on a complex-row route; the routes
+   of slice 14: complex rows at 32768 (the two-block clusters: forward,
+   inverse, a real spectrum's inverse through the C entry) on 1, 3 and
+   7,472 rows, aligned and one float off, the general autocorrelation at
+   8192 and 16384 (registers) and 32768 (clusters) on the same, and the
+   frames entry at n 4096, 8192 and 16384 on NCF's and HarmonicRatio's
+   frames and lags (contiguous and ``unfold`` views), at lag 1 and every
+   lag, odd frame lengths and one float off, each call's route held by
+   its counter; YIN's autocorrelation entry on clips of odd
    length, a view at an offset of one float, slides that put frames off
    16-byte alignment, one-frame clips and several lags; the
    fused mel+MFCC kernel over eight shape classes, unaligned views, a
@@ -48,17 +55,17 @@ Phases (any failure exits non-zero; no result line is printed then):
    inverse rows (64 x 2048 rows of 4096, forward and inverse) and Deep's
    7,472 frames at 5e-5; and (2f) over slice 9's rows of config 5's 8 x
    30 s (7,472 frames): ``fft_autocorr`` at 8192 on NCF's and
-   HarmonicRatio's operands, ``fft_pow2`` at 32768 on HPS's frames (4,096
+   HarmonicRatio's operands (the general entry), ``fft_pow2`` at 32768 on HPS's frames (4,096
    live samples, the bins it keeps) and PEF's log-grid power (8,192 live at
    its pad, the half spectrum: the real-row route) and on its whole
-   product spectrum (complex: the four-step route, on no main path),
+   product spectrum (complex: the cluster route, on no main path),
    ``fft_inv`` at 32768 on the half product (the real-row route, PEF's
    call), on the whole product to real output and to complex output
-   (four-step), and ``fft_pow2`` at 8192 on PEF's frames (4,096 live, the
+   (clusters), and ``fft_pow2`` at 8192 on PEF's frames (4,096 live, the
    bins its rfft keeps), at 5e-5; then ``PitchHPS``, ``PitchLHS``,
    ``PitchPEF`` and ``xcorr`` must launch the real-row route with a live
-   span (PEF and xcorr the half-spectrum inverse too) and never the
-   four-step route;
+   span (PEF and xcorr the half-spectrum inverse too) and never a
+   complex-row route;
 3. the main paths at full size, each with the launch counts set to 0 just
    before it and read just after (on the MIR path, before and after each
    user's call; the route counts show the FFT's register route and the
@@ -126,10 +133,10 @@ Phases (any failure exits non-zero; no result line is printed then):
       ``HPSSNMF`` on its first clip; ``nmf`` (k 16) on HPSSNMF's
       magnitude, an ``HMM(16, 64)`` trained on 16 steps and decoded, and
       ``viterbi`` (log domain) over 7,472 steps; NCF and HarmonicRatio
-      must launch ``fft_autocorr``, HPS, LHS and PEF the FFT's real-row
-      route with a live span (PEF its half-spectrum inverse too) and none
-      the four-step route, TuneTrack
-      ``fft_autocorr_yin``; each against
+      must launch ``fft_autocorr_frames`` and not the general entry, HPS,
+      LHS and PEF the FFT's real-row route with a live span (PEF its
+      half-spectrum inverse too) and no complex-row route, TuneTrack
+      ``fft_autocorr_yin`` and (its HarmonicRatio) the frames entry; each against
       the port on the CPU (first and last clip): at most 2% of the frames
       off by more than one step of the engine's grid, HarmonicRatio by
       more than 1e-4, TimeStretch/PitchShift at 1e-3 of the peak,
@@ -189,10 +196,13 @@ Phases (any failure exits non-zero; no result line is printed then):
    of its live frames at the bins it keeps, PEF's frames through rfft,
    PEF's live log-grid power to the half spectrum and the inverse of its
    half product, each with its cuts under ``cuts_ms``; the whole product's
-   real and complex inverses and the complex rows on the four-step route
-   beside them) under
+   real and complex inverses and the complex rows on the cluster route
+   beside them; the autocorrelation's general entry on NCF's and
+   HarmonicRatio's operands, its frames entry on their frames and lags,
+   the general entry at 16384 and 32768, and the complex rows at 8192 and
+   16384, the row route, on 7,472 random rows) under
    ``shapes`` of ``fft_pow2``, ``fft_inv`` and ``fft_autocorr`` (whose row
-   counts both entries' launches), with ``torch.fft.rfft``/``irfft``
+   counts every entry's launches), with ``torch.fft.rfft``/``irfft``
    beside the library call where they give the same values; slice 10
    (4g): audio-hours per second of the sharded calls beside the same
    calls unsharded on the same card, the halo bytes and the time of the
@@ -203,8 +213,13 @@ Phases (any failure exits non-zero; no result line is printed then):
    CQT on one 10-min clip in the batch form, the frame form and
    unsharded.
 
-The FFT rows of the kernels line carry ``real_route_launches``, the
-real-row route's share of their main-path launches.  The second-to-last
+The FFT rows of the kernels line carry ``real_route_launches``,
+``row_route_launches`` and ``cluster_route_launches``, the shares of
+their main-path launches that took the real-row route, the complex rows
+at 8192-16384 and the complex rows at 32768.  Config 3's reassigned BFT
+(3d) is gated by ``reassign_edge_gate``: flips only where a source cell
+lies within float32 rounding of a bin edge, mass over the cells no edge
+touches (``tools/reassign_gate_probe.py`` runs it over many draws).  The second-to-last
 line is the kernels JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 ``--upto N`` stops after phase N (a development aid: no result lines).
@@ -268,8 +283,9 @@ from audioflux_torch.ops.cuda_cwt import (band_row_counts,  # noqa: E402
                                           cwt_ifft_bank_ref,
                                           resident_clusters)
 from audioflux_torch.ops.cuda_fft import (  # noqa: E402
-    fft_autocorr, fft_autocorr_ref, fft_autocorr_yin, fft_autocorr_yin_ref,
-    fft_fwd, fft_fwd_ref, fft_inv, fft_inv_ref)
+    fft_autocorr, fft_autocorr_frames, fft_autocorr_frames_ref,
+    fft_autocorr_ref, fft_autocorr_yin, fft_autocorr_yin_ref, fft_fwd,
+    fft_fwd_ref, fft_inv, fft_inv_ref)
 from audioflux_torch.ops.cuda_median import (  # noqa: E402
     median_filter_last_axis, median_filter_last_axis_ref)
 from audioflux_torch.ops.cuda_scatter import (  # noqa: E402
@@ -435,7 +451,7 @@ def phase0_identity():
 # kernels that must compile with no stack frame and no spill (their
 # register arrays must stay in registers)
 NO_SPILL = ("autocorr_reg_kernel", "unwrap_rows_kernel", "real_fwd_kernel",
-            "real_inv_kernel")
+            "real_inv_kernel", "acf_reg_kernel", "cluster_kernel")
 
 
 def phase1_build():
@@ -568,6 +584,7 @@ def phase2_kernels(gen):
             check(f"fft_autocorr register route n={n}, {batch} rows "
                   "(offsets 0 and 1 float)", worst, FFT_TOL)
     real_route_kernels(gen)
+    errs.update(slice14_kernels())
     # YIN's entry, framing from the clips: clips whose length is no
     # multiple of the slide (every other clip off 16-byte alignment), a
     # 1-D view at an offset of one float, slides that put frames off
@@ -718,7 +735,7 @@ def real_route_kernels(gen):
     below 1000 rows also of Hermitian spectra (a real row's), the round
     trip, and the C entry's inverse of a real spectrum (a null imaginary
     input) into an output one float off.  Every call must take the
-    real-row route, none the four-step route."""
+    real-row route, none a complex-row route."""
     # the inputs of 1, 3 and 64 rows come from the shared generator, as
     # before this route had live spans and half spectra (the later phases'
     # inputs follow from its state); every other input from one of this
@@ -779,7 +796,7 @@ def real_route_kernels(gen):
             torch.cuda.synchronize()
             counts = read_counts()
             for d in ("fft_pow2", "fft_inv"):
-                if (counts[f"{d} four-step route"]
+                if (counts[f"{d} cluster route"] or counts[f"{d} row route"]
                         or counts[f"{d} real-row route"] != counts[d]):
                     raise AssertionError(f"real rows at n={n} left the "
                                          f"real-row route: {counts}")
@@ -794,6 +811,121 @@ def real_route_kernels(gen):
                                     "round trip, a real spectrum through "
                                     "the C entry") + "; offsets 0 and 1 "
                   "float)", worst, FFT_TOL)
+
+
+def slice14_kernels():
+    """The routes redesigned in slice 14 against their plain versions at
+    5e-5 of the peak, from a generator of their own (the later phases'
+    draws do not move): complex rows at n = 32768 (the two-block
+    clusters): the forward, the inverse with an imaginary output, and the
+    C entry's inverse of a real spectrum (a null imaginary input), on 1, 3
+    and 7,472 rows, at a 16-byte aligned address and one float off (the
+    rows then go by cp.async, not TMA); beside them the forward of real
+    rows (xi=None) and the inverse without an imaginary output, which take
+    the real-row route; the general autocorrelation at 8192 and 16384 (in
+    registers) and 32768 (the clusters) on the same rows; the frames entry
+    at n 4096, 8192 and 16384 on NCF's and HarmonicRatio's 7,472 frames and
+    lags (contiguous, and as ``unfold`` views of clips), at lag 1 and every
+    lag, frames no multiple of 4 long and one float off.  Each call's route
+    is held by its counter.  Returns the largest absolute errors at the
+    main paths' shapes, for the kernels line."""
+    own = torch.Generator(device="cuda")
+    own.manual_seed(14)
+    errs = {}
+    n = cuda_fft.CLUSTER_N
+    print(f"  the card holds {cuda_fft.resident_clusters(False)} clusters "
+          f"of two blocks of the complex rows at {n} at once "
+          f"({cuda_fft.resident_clusters(True)} of the autocorrelation's; "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} "
+          "SMs)")
+    for batch in (1, 3, 7472):
+        worst = 0.0
+        zero_counts()
+        for off in (0, 1):
+            buf = randn(2 * batch * n + 1, own)
+            xr = buf[off:off + batch * n].view(batch, n)
+            xi = buf[off + batch * n:off + 2 * batch * n].view(batch, n)
+            worst = max(worst, pair_rel(fft_fwd(xr, xi), fft_fwd_ref(xr, xi)),
+                        pair_rel(fft_inv(xr, xi), fft_inv_ref(xr, xi)))
+            got = (torch.empty_like(xr), torch.empty_like(xr))
+            cuda_fft._call(cuda_fft._lib().af_fft_pow2_inv,
+                           "fft_pow2 inverse", xr, n, xr.data_ptr(), None,
+                           got[0].data_ptr(), got[1].data_ptr(),
+                           extra=(n, 3))
+            worst = max(worst, pair_rel(
+                got, fft_inv_ref(xr, torch.zeros_like(xr))))
+            worst = max(worst, pair_rel(fft_fwd(xr), fft_fwd_ref(xr)),
+                        pair_rel(fft_inv(xr, xi, out_imag=False),
+                                 fft_inv_ref(xr, xi, out_imag=False)))
+            del buf, xr, xi, got
+        torch.cuda.synchronize()
+        c = read_counts()
+        want = {"fft_pow2 cluster route": 2, "fft_inv cluster route": 2,
+                "fft_pow2 real-row route": 2, "fft_inv real-row route": 2}
+        if any(c[k] != v for k, v in want.items()):
+            raise AssertionError(f"cluster route, {batch} rows: routes {c}")
+        check(f"fft_pow2/fft_inv cluster route n={n}, {batch} rows (forward, "
+              "inverse, the C entry's inverse of a real spectrum; beside "
+              "them xi=None and out_imag=False on the real-row route; "
+              "offsets 0 and 1 float)", worst, FFT_TOL)
+    for n in (8192, 16384, 32768):
+        for batch in (1, 3, 7472):
+            worst = 0.0
+            zero_counts()
+            for off in (0, 1):
+                buf = randn(2 * batch * n + 1, own)
+                xr = buf[off:off + batch * n].view(batch, n)
+                xi = buf[off + batch * n:off + 2 * batch * n].view(batch, n)
+                e, pk = pair_err((fft_autocorr(xr, xi),),
+                                 (fft_autocorr_ref(xr, xi),))
+                worst = max(worst, e / pk)
+                if batch == 7472:
+                    errs[f"acf {n}"] = max(errs.get(f"acf {n}", 0.0), e)
+                del buf, xr, xi
+            torch.cuda.synchronize()
+            c = read_counts()
+            if (c["fft_autocorr"] != 2
+                    or c["fft_autocorr cluster"] != 2 * (n == 32768)):
+                raise AssertionError(f"fft_autocorr n={n}: routes {c}")
+            way = "clusters" if n == 32768 else "registers"
+            check(f"fft_autocorr n={n} ({way}), {batch} rows (offsets 0 "
+                  "and 1 float)", worst, FFT_TOL)
+    ncf = PitchNCF(samplate=SR, device="cuda")
+    hr = HarmonicRatio(samplate=SR, device="cuda")
+    clips = randn((MIR_SMALL, MIR_SECONDS * SR), own, 0.3)
+    cases = [(8192, ncf.max_index + 1, 7472, 0, "NCF's lags"),
+             (8192, hr.max_length + 1, 7472, 0, "HarmonicRatio's lags"),
+             (8192, 1, 65, 0, "lag 1"), (8192, 8192, 65, 1, "every lag"),
+             (4096, 4096, 33, 1, "every lag"),
+             (16384, 1001, 7472, 1, "1001 lags"),
+             (16384, 16384, 3, 0, "every lag")]
+    for n, lags, rows, off, label in cases:
+        L = n // 2
+        for kind in ("contiguous", "unfold", "odd length"):
+            if kind == "unfold":
+                if rows != 7472:
+                    continue
+                f = clips.unfold(-1, L, 1024 if n == 8192 else 2 * L // 4)
+                f = f[..., :rows // MIR_SMALL, :]
+            else:
+                Lk = L - 3 if kind == "odd length" else L
+                buf = randn(rows * Lk + 1, own)
+                f = buf[off:off + rows * Lk].view(rows, Lk)
+            zero_counts()
+            got = fft_autocorr_frames(f, n, lags)
+            torch.cuda.synchronize()
+            c = read_counts()
+            if c["fft_autocorr_frames"] != 1 or c["fft_autocorr"]:
+                raise AssertionError(f"fft_autocorr_frames: routes {c}")
+            e, pk = pair_err((got,), (fft_autocorr_frames_ref(f, n, lags),))
+            if label.startswith(("NCF", "HarmonicRatio")):
+                errs["frames"] = max(errs.get("frames", 0.0), e)
+            check(f"fft_autocorr_frames n={n}, {tuple(f.shape)} {kind} "
+                  f"frames (offset {off if kind != 'unfold' else 0}), "
+                  f"{label} ({lags})", e / pk, FFT_TOL)
+            del f, got
+    del clips
+    return errs
 
 
 def complex_err(got, ref):
@@ -994,15 +1126,19 @@ def gate(label, dev_out, plan_cpu, x_cpu):
 COUNTERS = {"fft_pow2": (fft_fwd, "launches"),
             "fft_pow2 register route": (fft_fwd, "register_launches"),
             "fft_pow2 real-row route": (fft_fwd, "real_launches"),
-            "fft_pow2 four-step route": (fft_fwd, "four_step_launches"),
+            "fft_pow2 row route": (fft_fwd, "row_launches"),
+            "fft_pow2 cluster route": (fft_fwd, "cluster_launches"),
             "fft_inv": (fft_inv, "launches"),
             "fft_inv register route": (fft_inv, "register_launches"),
             "fft_inv real-row route": (fft_inv, "real_launches"),
-            "fft_inv four-step route": (fft_inv, "four_step_launches"),
+            "fft_inv row route": (fft_inv, "row_launches"),
+            "fft_inv cluster route": (fft_inv, "cluster_launches"),
             "fft_pow2 live span": (fft_fwd, "live_launches"),
             "fft_inv half spectrum": (fft_inv, "half_launches"),
             "fft_autocorr": (fft_autocorr, "launches"),
+            "fft_autocorr cluster": (fft_autocorr, "cluster_launches"),
             "fft_autocorr_yin": (fft_autocorr_yin, "launches"),
+            "fft_autocorr_frames": (fft_autocorr_frames, "launches"),
             "median_filter": (median_filter_last_axis, "launches"),
             "median_filter network": (median_filter_last_axis,
                                       "network_launches")}
@@ -1311,6 +1447,117 @@ def flips_and_mass(label, got, ref, flip_tol=FLIP_TOL):
           f"{mass:.3e} (<= {MASS_TOL:.0e})", flush=True)
     if not (flips <= FLIP_SHARE and mass <= MASS_TOL):
         raise AssertionError(f"{label}: flips {flips:.3e}, mass {mass:.3e}")
+
+
+def reassign_edges(got, ref, plan, x_dev, x_cpu):
+    """What config 3's reassigned-BFT gate sees (``reassign_edge_gate``):
+    a reassigned cell goes to bin floor(p + 0.5) of its corrected
+    frequency p (and to its own bin where its power is below thresh^2),
+    so a float32 p a rounding from a half-integer (or a power a rounding
+    from the threshold) may land in either bin on two devices.  p and the
+    power come from the plan's own code three times: on the card, on the
+    CPU in float32, and on the CPU in float64 (float64 input and windows).
+    A source cell moved between the card and the CPU lies on an edge when
+    its float64 p is within delta of the crossed half-integer (or its
+    float64 power within delta_p of thresh^2): delta = 4 x the frame's
+    largest float32 deviation |p32 - p64| |S| over |S| of the cell (the
+    deviation scales as 1 / |S|), plus 4 ulp of p; delta_p = 4 x the
+    frame's largest |power32 - power64|.  Returns the counts, the flip
+    share (band cells off the CPU's by more than 1e-3 of the peak), the
+    mass over all band cells and over those no moved source cell on an
+    edge touches, and each flipped cell with its source cells."""
+    from audioflux_torch.transforms.reassign import _frequency_position
+    re = plan._re
+    kw = dict(fft_length=re.fft_length, slide_length=re.slide_length,
+              samplate=re.samplate, thresh=re.thresh, re_type=re.re_type,
+              is_padding=re.is_padding)
+    p_d, w_d = (t.cpu().double() for t in _frequency_position(
+        x_dev, re._wins_t, **kw))
+    wins = torch.from_numpy(re._wins)
+    p_c, w_c = (t.double() for t in _frequency_position(x_cpu, wins, **kw))
+    p64, w64 = _frequency_position(x_cpu.double(), wins.double(), **kw)
+    th2 = float(np.float32(re.thresh) ** 2)
+    lo = plan.low_index
+    nb = got.shape[-2]
+    own_bin = torch.arange(p_d.shape[-1], dtype=torch.float64)
+    on_d, on_c = w_d >= th2, w_c >= th2
+    bin_d = torch.where(on_d, torch.floor(p_d + 0.5), own_bin)
+    bin_c = torch.where(on_c, torch.floor(p_c + 0.5), own_bin)
+    moved = bin_d != bin_c                                  # (clips, T, m)
+    mag = w64.sqrt()
+    scale = ((p_c - p64).abs() * mag).amax(-1, keepdim=True)
+    delta = 4 * scale / mag.clamp_min(1e-30) + 4 * 2.0 ** -24 * p64.abs()
+    edge = torch.minimum(bin_d, bin_c) + 0.5
+    dist = (p64 - edge).abs()
+    dp = 4 * (w_c - w64).abs().amax(-1, keepdim=True)
+    near_w = (on_d != on_c) & ((w64 - th2).abs() <= dp)
+    on_edge = moved & ((dist <= delta) | near_w)
+    # band cells (clip, band, frame) a moved source cell on an edge touches:
+    # the bins it went to on either device
+    touched = torch.zeros(got.shape, dtype=torch.bool)
+    n_edge = 0
+    for c, f, k in on_edge.nonzero().tolist():
+        n_edge += 1
+        for b in {int(bin_d[c, f, k]), int(bin_c[c, f, k])}:
+            if lo <= b < lo + nb:
+                touched[c, b - lo, f] = True
+    g, r = got.abs().double(), ref.abs().double()
+    flip = (g - r).abs() > RE_FLIP_TOL * float(r.max())
+    keep = ~touched
+    cells = []
+    for c, b, f in flip.nonzero().tolist():
+        src = [dict(bin=k, p64=float(p64[c, f, k]),
+                    edge=float(edge[c, f, k]), dist=float(dist[c, f, k]),
+                    delta=float(delta[c, f, k]),
+                    card=float((p_d - p64)[c, f, k]),
+                    cpu=float((p_c - p64)[c, f, k]),
+                    on_edge=bool(on_edge[c, f, k]))
+               for k in moved[c, f].nonzero().flatten().tolist()
+               if lo + b in (int(bin_d[c, f, k]), int(bin_c[c, f, k]))]
+        cells.append(dict(clip=c, band=b, frame=f, card=float(g[c, b, f]),
+                          cpu=float(r[c, b, f]),
+                          on_edge=bool(touched[c, b, f]), sources=src))
+    return dict(
+        moved=int(moved.sum()), cells_total=moved.numel(), on_edge=n_edge,
+        flips=float(flip.double().mean()),
+        mass_all=abs(float(g.sum()) / max(float(r.sum()), 1e-30) - 1),
+        mass=abs(float(g[keep].sum()) / max(float(r[keep].sum()), 1e-30) - 1),
+        kept=int(keep.sum()), flipped=cells)
+
+
+def print_reassign_edges(label, e):
+    print(f"  {label}: {e['moved']} source cells of {e['cells_total']} "
+          f"moved between card and CPU, {e['on_edge']} of them on an edge; "
+          f"flips {e['flips']:.3e} (<= {FLIP_SHARE:.0e}), mass "
+          f"{e['mass_all']:.3e} over all cells, {e['mass']:.3e} over the "
+          f"{e['kept']} cells no edge touches (<= {MASS_TOL:.0e})",
+          flush=True)
+    for cell in e["flipped"]:
+        print(f"    flipped cell: clip {cell['clip']}, band {cell['band']}, "
+              f"frame {cell['frame']}: |card| {cell['card']:.6g}, |CPU| "
+              f"{cell['cpu']:.6g}{'' if cell['on_edge'] else ' (no edge)'}")
+        for src in cell["sources"]:
+            print(f"      source bin {src['bin']}: float64 position "
+                  f"{src['p64']:.9f}, edge {src['edge']:.1f}, distance "
+                  f"{src['dist']:.3e} (float32 envelope {src['delta']:.3e}); "
+                  f"card - float64 {src['card']:.3e}, CPU float32 - float64 "
+                  f"{src['cpu']:.3e}")
+
+
+def reassign_edge_gate(label, got, ref, plan, x_dev, x_cpu):
+    """Config 3's reassigned-BFT gate by what it can see
+    (``reassign_edges``): every flipped band cell must take a moved source
+    cell on an edge, the share of flips stays <= 5e-3, and the mass of the
+    band cells no such source cell touches within 1e-4."""
+    e = reassign_edges(got, ref, plan, x_dev, x_cpu)
+    print_reassign_edges(label, e)
+    away = [(c["clip"], c["band"], c["frame"]) for c in e["flipped"]
+            if not c["on_edge"]]
+    if not (e["flips"] <= FLIP_SHARE and e["mass"] <= MASS_TOL
+            and not away):
+        raise AssertionError(f"{label}: flips {e['flips']:.3e}, mass "
+                             f"{e['mass']:.3e}, flipped cells away from an "
+                             f"edge {away}")
 
 
 def scatter_inputs(sq, W, fre_t, fn=synsq_bins):
@@ -2139,13 +2386,14 @@ def phase3_slice7_paths(gen, errs):
           rel_err(ch[ends].cpu(), chroma_linear(
               x_cpu, chroma_num=12, radix2_exp=C3_R2E, samplate=SR,
               slide_length=C3_SLIDE, **cpu)), GATE_TOL)
-    flips_and_mass("gate config 3 reassigned BFT (first and last 8 clips) "
-                   "vs CPU", R[ends].cpu(),
-                   BFT(num=128, radix2_exp=C3_R2E, samplate=SR,
-                       slide_length=C3_SLIDE,
-                       scale_type=SpectralFilterBankScaleType.LINEAR,
-                       data_type=SpectralDataType.POWER, is_reassign=True,
-                       **cpu).bft(x_cpu, result_type=1), RE_FLIP_TOL)
+    reassign_edge_gate(
+        "gate config 3 reassigned BFT (first and last 8 clips) vs CPU",
+        R[ends].cpu(), BFT(num=128, radix2_exp=C3_R2E, samplate=SR,
+                           slide_length=C3_SLIDE,
+                           scale_type=SpectralFilterBankScaleType.LINEAR,
+                           data_type=SpectralDataType.POWER,
+                           is_reassign=True, **cpu).bft(x_cpu, result_type=1),
+        rb, xs[ends], x_cpu)
     rows_s = reassign_rows(rb._re, xs, 2)
     errs["fft_pow2 4096"] = max(errs["fft_pow2 4096"], whole_batch(
         f"fft_pow2 n=4096, all {rows_s.numel() >> C3_R2E} server "
@@ -2917,6 +3165,9 @@ def s9_rows(p, x):
     return dict(
         ncf=autocorr_operands(p["ncf"]._frames(x), 2 * p["ncf"].fft_length),
         hr=autocorr_operands(hr_frames, hr.fft_length),
+        ncf_frames=p["ncf"]._frames(x).contiguous(),
+        hr_frames=hr_frames.contiguous(),
+        ncf_lags=p["ncf"].max_index + 1, hr_lags=hr.max_length + 1,
         hps=p["hps"]._frames(x).contiguous(),
         hps_n=p["hps"].interp_fft_length,
         hps_bins=min(int(p["hps"]._hidx.max()) + 1, X),
@@ -2974,10 +3225,11 @@ def phase2_slice9_kernels(gen):
         f"at {r['pef_lo']} (real-row route), PEF's cross-correlation {what}",
         *live_fwd(X, X // 2 + 1, r["pef_lo"]), (r["pef_buf"],), 1, FFT_TOL)
     errs["pef_fwd_c"] = whole_batch(
-        f"fft_pow2 complex {X} (four-step; no main path), PEF's whole "
+        f"fft_pow2 complex {X} (cluster route; no main path), PEF's whole "
         f"product {what}", fft_fwd, fft_fwd_ref, r["pef_prod"], 1, FFT_TOL)
     errs["pef_inv_c"] = whole_batch(
-        f"fft_inv {X} complex output (four-step; no main path), PEF's whole "
+        f"fft_inv {X} complex output (cluster route; no main path), PEF's "
+        f"whole "
         f"product {what}", fft_inv, fft_inv_ref, r["pef_prod"], 1, FFT_TOL)
     errs["pef_inv_whole"] = whole_batch(
         f"fft_inv {X} real output of the whole product (real-row route; no "
@@ -2994,7 +3246,7 @@ def phase2_slice9_kernels(gen):
     del r
     # the users' calls: HPS, LHS, PEF and xcorr launch the real-row route
     # with a live span (PEF and xcorr its half-spectrum inverse too) and
-    # never the four-step route
+    # never a complex-row route
     own = torch.Generator(device="cuda")
     own.manual_seed(13)
     xs = randn((C3_CLIPS, C3_N), own, 0.2)
@@ -3011,8 +3263,9 @@ def phase2_slice9_kernels(gen):
         c = read_counts()
         require_launched(label, {k: c[k] for k in (
             "fft_pow2 real-row route", "fft_pow2 live span", *need)})
-        if c["fft_pow2 four-step route"] or c["fft_inv four-step route"]:
-            raise AssertionError(f"{label} took the four-step route: {c}")
+        if any(c[f"{d} {w} route"] for d in ("fft_pow2", "fft_inv")
+               for w in ("row", "cluster")):
+            raise AssertionError(f"{label} took a complex-row route: {c}")
     return errs
 
 
@@ -3058,24 +3311,29 @@ def phase3_slice9_paths(gen):
     rows = MIR_SMALL * p["ncf"].cal_time_length(x.shape[-1])
     row_gb = rows * 4 / 1e9            # one fp32 value a frame
     real_f, real_i = "fft_pow2 real-row route", "fft_inv real-row route"
-    four = ("fft_pow2 four-step route", "fft_inv four-step route")
+    complex_routes = ("fft_pow2 cluster route", "fft_inv cluster route",
+                      "fft_pow2 row route", "fft_inv row route")
     # --- the batched engines and HarmonicRatio on 8 x 30 s -------------
-    # reckoned: NCF the two operands, the autocorrelation and its scaled
-    # copy (4 x 8192 a row); HPS/LHS the frames (4096; the transform reads
+    # reckoned: NCF its frames (4096 a row, made contiguous), the lags the
+    # frames entry writes and their scaled copy (2 x 1001); HPS/LHS the frames (4096; the transform reads
     # them as they are), the kept bins' parts, their complex copy and
     # magnitude (5 x 10001) and the gather; PEF the spectrum's kept bins at
     # 8192 and their power (3 x 4097), the log-grid power (8192), the half
     # spectrum's and the product's parts (4 x 16385) and the inverse
     # (32768); CEP torch.fft's complex tiles (6 x 8192).  HPS, LHS and PEF
     # must take the real-row route with a live span (PEF's inverse from the
-    # half spectrum) and never the four-step route
+    # half spectrum) and never a complex-row route; NCF and HarmonicRatio
+    # the frames entry of the autocorrelation, never the general entry
     live, half = "fft_pow2 live span", "fft_inv half spectrum"
-    batched = (("ncf", ("fft_autocorr",), (), 4 * 8192),
+    batched = (("ncf", ("fft_autocorr_frames",), ("fft_autocorr",),
+                4096 + 2 * 1001),
                ("cep", (), ("fft_pow2", "fft_inv", "fft_autocorr"), 6 * 8192),
-               ("hps", ("fft_pow2", real_f, live), four, 4096 + 6 * 10001),
-               ("lhs", ("fft_pow2", real_f, live), four, 4096 + 6 * 10001),
+               ("hps", ("fft_pow2", real_f, live), complex_routes,
+                4096 + 6 * 10001),
+               ("lhs", ("fft_pow2", real_f, live), complex_routes,
+                4096 + 6 * 10001),
                ("pef", ("fft_pow2", real_f, live, "fft_inv", real_i, half),
-                four, 8192 + 4 * 16385 + 32768 + 3 * 4097))
+                complex_routes, 8192 + 4 * 16385 + 32768 + 3 * 4097))
     out = {}
     for name, req, forbid, per_row in batched:
         plan = p[name]
@@ -3094,7 +3352,8 @@ def phase3_slice9_paths(gen):
         out[name] = fre
     hr, _ = count_call(f"HarmonicRatio.harmonic_ratio, {MIR_SMALL} x "
                   f"{MIR_SECONDS} s", lambda: p["hr"].harmonic_ratio(x),
-                  ("fft_autocorr",), 4 * 8192 * row_gb, launches)
+                  ("fft_autocorr_frames",), 4 * 4096 * row_gb, launches,
+                  ("fft_autocorr",))
     share_gate("3f HarmonicRatio (first and last clip) vs CPU",
                hr[ends], pc["hr"].harmonic_ratio(xc), S9_HR_TOL)
     # --- TimeStretch and PitchShift on 8 x 30 s -------------------------
@@ -3138,8 +3397,8 @@ def phase3_slice9_paths(gen):
     p["tune"].clear()
     tf, _ = count_call(f"TuneTrack.tune, {one}",
                   lambda: p["tune"].tune(x1),
-                  ("fft_pow2", "fft_autocorr", "fft_autocorr_yin"), 0.5,
-                  launches)
+                  ("fft_pow2", "fft_autocorr_frames", "fft_autocorr_yin"),
+                  0.5, launches, ("fft_autocorr",))
     pc["tune"].clear()
     tf_c = pc["tune"].tune(x1c)
     share_gate("3f TuneTrack fre vs CPU, more than one bin", tf, tf_c,
@@ -3358,13 +3617,61 @@ def phase4_slice9_timing(d, errs):
         return chunked(lambda a: torch.fft.rfft(a, dim=-1), (rows_,), 1)
     n8 = r["pef8_n"]
     acf_ops = nrows * (10.0 * n8 * math.log2(n8) + 6.0 * n8)
-    k_ncf = shape_row("fft_autocorr", fft_autocorr, fft_autocorr_ref, acf_lib,
-                      r["ncf"], 12 * r["ncf"][0].numel(), acf_ops,
-                      f"{nrows}x{n8} rows (xr, xi), NCF's", errs["acf_ncf"])
-    k_ncf = k_ncf["ms"]
+    shape_row("fft_autocorr", fft_autocorr, fft_autocorr_ref, acf_lib,
+              r["ncf"], 12 * r["ncf"][0].numel(), acf_ops,
+              f"{nrows}x{n8} rows (xr, xi), NCF's operands, general entry "
+              "(registers)", errs["acf_ncf"])
     shape_row("fft_autocorr", fft_autocorr, fft_autocorr_ref, acf_lib,
               r["hr"], 12 * r["hr"][0].numel(), acf_ops,
-              f"{nrows}x{n8} rows (xr, xi), HarmonicRatio's", errs["acf_hr"])
+              f"{nrows}x{n8} rows (xr, xi), HarmonicRatio's operands, "
+              "general entry (registers)", errs["acf_hr"])
+    # the frames entry (NCF's and HarmonicRatio's call): the frames in,
+    # the lags kept out; the library yardstick is irfft(|rfft|^2), sliced
+    frames_entry = {}
+    for who in ("ncf", "hr"):
+        f_, lags_ = r[f"{who}_frames"], r[f"{who}_lags"]
+        e = shape_row(
+            "fft_autocorr",
+            lambda f, lags_=lags_: fft_autocorr_frames(f, n8, lags_),
+            lambda f, lags_=lags_: fft_autocorr_frames_ref(f, n8, lags_),
+            lambda f, lags_=lags_: torch.fft.irfft(
+                torch.fft.rfft(f, n=n8).abs().square(), n=n8)[..., :lags_],
+            (f_,), 4 * f_.numel() + 4 * nrows * lags_, acf_ops,
+            f"frames entry, {nrows}x{f_.shape[-1]} frames -> {lags_} lags "
+            f"of {n8}, {'NCF' if who == 'ncf' else 'HarmonicRatio'}'s",
+            errs["frames"])
+        frames_entry[who] = e
+    k_ncf = frames_entry["ncf"]["ms"]
+    # the general entry at 16384 (registers) and 32768 (the clusters), and
+    # the complex rows at 8192 and 16384 (the row route, fft_row_kernel),
+    # on 7,472 random rows, laid out as the engines' (clips, frames, n) so
+    # that the plain and library calls go a clip at a time
+    own = torch.Generator(device="cuda")
+    own.manual_seed(141)
+    lead = (MIR_SMALL, nrows // MIR_SMALL)
+    for n_ in (16384, 32768):
+        xr_ = randn(lead + (n_,), own)
+        xi_ = randn(lead + (n_,), own)
+        ops_ = nrows * (10.0 * n_ * math.log2(n_) + 6.0 * n_)
+        shape_row("fft_autocorr", fft_autocorr, fft_autocorr_ref, acf_lib,
+                  (xr_, xi_), 12 * xr_.numel(), ops_,
+                  f"{nrows}x{n_} random rows (xr, xi), general entry "
+                  f"({'clusters' if n_ == 32768 else 'registers'})",
+                  errs[f"acf {n_}"])
+        del xr_, xi_
+    for n_ in (8192, 16384):
+        xr_ = randn(lead + (n_,), own)
+        xi_ = randn(lead + (n_,), own)
+        ops_ = nrows * 5.0 * n_ * math.log2(n_)
+        e_f = pair_err(fft_fwd(xr_, xi_), fft_fwd_ref(xr_, xi_))[0]
+        shape_row("fft_pow2", fft_fwd, fft_fwd_ref, fwd_lib, (xr_, xi_),
+                  16 * xr_.numel(), ops_,
+                  f"forward {nrows}x{n_} complex (row route)", e_f)
+        e_i = pair_err(fft_inv(xr_, xi_), fft_inv_ref(xr_, xi_))[0]
+        shape_row("fft_inv", fft_inv, fft_inv_ref, inv_lib, (xr_, xi_),
+                  16 * xr_.numel(), ops_,
+                  f"{nrows}x{n_} complex output (row route)", e_i)
+        del xr_, xi_
     # the real-row route: a real FFT of n points is about 2.5 n log2 n
     # operations; its bytes are the live samples in and the bins written
     fops = nrows * 5.0 * X * math.log2(X)
@@ -3403,8 +3710,8 @@ def phase4_slice9_timing(d, errs):
     k_8, k_buf = k_fwd["pef8"], k_fwd["pef_buf"]
     shape_row("fft_pow2", fft_fwd, fft_fwd_ref, fwd_lib, r["pef_prod"],
               16 * r["pef_prod"][0].numel(), fops,
-              f"forward {nrows}x{X} complex, PEF's whole product (four-step; "
-              "no main path)", errs["pef_fwd_c"])
+              f"forward {nrows}x{X} complex, PEF's whole product (cluster "
+              "route; no main path)", errs["pef_fwd_c"])
     pr, pi = r["pef_half"]
     h = X // 2 + 1
     Ph = torch.complex(pr, pi)
@@ -3438,12 +3745,16 @@ def phase4_slice9_timing(d, errs):
               "route; no main path)", errs["pef_inv_whole"])
     shape_row("fft_inv", fft_inv, fft_inv_ref, inv_lib, r["pef_prod"],
               16 * fr.numel(), fops,
-              f"{nrows}x{X} complex output, PEF's whole product (four-step; "
-              "no main path)", errs["pef_inv_c"])
+              f"{nrows}x{X} complex output, PEF's whole product (cluster "
+              "route; no main path)", errs["pef_inv_c"])
     del out, r, pr, pi, fr, fi
     # --- the splits: kernels against PyTorch (and host) time ------------
-    print(f"  split PitchNCF: fft_autocorr {k_ncf:.3f} ms of "
+    print(f"  split PitchNCF: fft_autocorr_frames {k_ncf:.3f} ms of "
           f"{call_ms['PitchNCF']:.3f} (PyTorch {call_ms['PitchNCF'] - k_ncf:.3f})")
+    k_hr = frames_entry["hr"]["ms"]
+    print(f"  split HarmonicRatio: fft_autocorr_frames {k_hr:.3f} ms of "
+          f"{call_ms['HarmonicRatio']:.3f} (PyTorch "
+          f"{call_ms['HarmonicRatio'] - k_hr:.3f})")
     k_pef = k_8 + k_buf + k_inv
     print(f"  split PitchPEF: kernels {k_pef:.3f} ms (forward 8192 {k_8:.3f}, "
           f"forward 32768 {k_buf:.3f}, inverse 32768 {k_inv:.3f}) of "
@@ -3473,6 +3784,7 @@ def phase4_slice9_timing(d, errs):
           f"{k_1 + k_inv1:.3f} ms (forward {k_1:.3f}, inverse {k_inv1:.3f}); "
           f"the NMF loop alone {nmf_ms:.3f} ms (one host check an "
           "iteration)")
+    shapes["frames_entry"] = frames_entry["ncf"]
     return shapes
 
 
@@ -3486,13 +3798,21 @@ def merge_slice9(rows, launches, shapes):
         if name in ("fft_pow2", "fft_inv"):
             row["launches"] += launches.get(name, 0)
         if name == "fft_autocorr":
+            fe = shapes["frames_entry"]
+            row["entries"].append(dict(
+                name="fft_autocorr", route="cuda", entry="fft_autocorr_frames",
+                source=row["source"], replaces=row["replaces"], launches=0,
+                **{k: fe[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "library_ms")}, shape=fe["shape"]))
             for e in row["entries"]:
                 e["launches"] += launches.get(e["entry"], 0)
             row["launches"] = sum(e["launches"] for e in row["entries"])
-            row["measures"] += ("; launches: both entries' main-path "
+            row["measures"] += ("; launches: every entry's main-path "
                                 "launches (the general entry's since "
-                                "slice 9)")
-        if name in shapes:
+                                "slice 9, the frames entry's, NCF's and "
+                                "HarmonicRatio's, since slice 14)")
+        if name in shapes and name != "frames_entry":
             row.setdefault("shapes", []).extend(shapes[name])
     return rows
 
@@ -4535,14 +4855,18 @@ def merge_slice10(rows, launches, shapes):
 
 
 def merge_real_route(rows, launch_dicts):
-    """The FFT rows gain ``real_route_launches``: the real-row route's
-    share of their main-path launches (slices 7-10 run it; the mel+MFCC,
-    MIR and wavelet paths transform at 2048 and 4096 only)."""
+    """The FFT rows gain ``real_route_launches``, ``row_route_launches``
+    and ``cluster_route_launches``: the shares of their main-path launches
+    that took the real-row route, the complex rows at 8192-16384 and the
+    complex rows at 32768 (slices 7-10 run them; the mel+MFCC, MIR and
+    wavelet paths transform at 2048 and 4096 only)."""
     for row in rows:
         if row["name"] in ("fft_pow2", "fft_inv"):
-            row["real_route_launches"] = sum(
-                d.get(f"{row['name']} real-row route", 0)
-                for d in launch_dicts)
+            for way, key in (("real-row", "real_route_launches"),
+                             ("row", "row_route_launches"),
+                             ("cluster", "cluster_route_launches")):
+                row[key] = sum(d.get(f"{row['name']} {way} route", 0)
+                               for d in launch_dicts)
     return rows
 
 
@@ -4563,6 +4887,7 @@ def main():
     phase2_slice7_kernels(gen, errs)
     phase2_slice8_kernels(gen)
     errs9 = phase2_slice9_kernels(gen)
+    errs9.update({k: errs[k] for k in ("frames", "acf 16384", "acf 32768")})
     torch.cuda.empty_cache()
     if upto < 3:
         return

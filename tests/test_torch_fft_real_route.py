@@ -260,26 +260,30 @@ def test_fft_fwd_bins_checks():
 
 def test_kernel_table():
     """The table the row kernels take: the n-point twiddles, then the
-    real-row route's pass-1 factors W_N^(t r) and W_N^(8 t q) (N = n/2,
-    t < N/64, r, q < 8), each within an fp32 rounding of the n-point
-    entry of the same angle."""
+    pass-1 factors W_N^(t r) and W_N^(8 t q) of N = n/2 points (the
+    real-row route's and the clusters'; t < N/64, r, q < 8), then those of
+    N = n points (the autocorrelation in registers), each within an fp32
+    rounding of the n-point entry of the same angle."""
     for n in REAL_N:
         tab = cuda_fft._kernel_table(n, torch.device("cpu"))
         full = cuda_fft.twiddle_table(n, torch.device("cpu"))
         B = n // 128
-        assert tab.shape == (n + 16 * B, 2)
+        assert tab.shape == (n + 16 * B + 32 * B, 2)
         assert torch.equal(tab[:n], full)
-        t = torch.arange(B)
         r = torch.arange(8)[:, None]
-        assert float((tab[n:n + 8 * B] - full[(2 * r * t).reshape(-1)])
-                     .abs().max()) <= 6e-8
-        assert float((tab[n + 8 * B:] - full[(16 * r * t).reshape(-1)])
-                     .abs().max()) <= 6e-8
+        for start, b, step in ((n, B, 2), (n + 16 * B, 2 * B, 1)):
+            t = torch.arange(b)
+            assert float((tab[start:start + 8 * b]
+                          - full[(step * r * t).reshape(-1)])
+                         .abs().max()) <= 6e-8
+            assert float((tab[start + 8 * b:start + 16 * b]
+                          - full[(8 * step * r * t).reshape(-1)])
+                         .abs().max()) <= 6e-8
 
 
 def test_route_table():
-    """Which route takes which call, and so which allocate the four-step
-    buffer: complex rows at 32768 only."""
+    """Which route takes which call: complex rows at 32768 take the
+    two-block clusters (no route allocates a device buffer)."""
     got = {(n, real): cuda_fft.route(n, real)
            for n in (2048, 4096, 8192, 16384, 32768)
            for real in (False, True)}
@@ -287,8 +291,8 @@ def test_route_table():
                    (4096, False): "register", (4096, True): "register",
                    (8192, False): "row", (8192, True): "real",
                    (16384, False): "row", (16384, True): "real",
-                   (32768, False): "four_step", (32768, True): "real"}
-    assert cuda_fft.REAL_MIN == 8192 and cuda_fft.FOUR_STEP_MIN == 32768
+                   (32768, False): "cluster", (32768, True): "real"}
+    assert cuda_fft.REAL_MIN == 8192 and cuda_fft.CLUSTER_N == 32768
 
 
 @pytest.mark.parametrize("n", [4096] + list(REAL_N))

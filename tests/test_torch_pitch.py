@@ -115,22 +115,24 @@ def test_autocorr_rows_matches_jax_power_inverse(clips, n, L):
 
 
 def test_ncf_and_hr_reach_the_autocorrelation_wrapper(clips, monkeypatch):
-    """NCF and HarmonicRatio call ``cuda_fft.fft_autocorr`` once, at
-    2 x window (8192 at the defaults), with the reversed operand."""
+    """NCF and HarmonicRatio call ``cuda_fft.fft_autocorr_frames`` once,
+    at 2 x window (8192 at the defaults), with their (windowed) frames,
+    and ask only for the lags they read: NCF's up to ``max_index``,
+    HarmonicRatio's up to ``max_length``."""
     seen = []
-    real = cuda_fft.fft_autocorr
+    real = cuda_fft.fft_autocorr_frames
 
-    def spy(xr, xi):
-        seen.append(tuple(xr.shape))
-        np.testing.assert_array_equal(_np(xi[..., 0]), _np(xr[..., 0]))
-        np.testing.assert_array_equal(_np(xi[..., -1]), _np(xr[..., 1]))
-        return real(xr, xi)
-    monkeypatch.setattr(cuda_fft, "fft_autocorr", spy)
-    aft.PitchNCF(**CPU).pitch(clips)
-    aft.HarmonicRatio(**CPU).harmonic_ratio(clips)
-    T_ncf = aft.PitchNCF(**CPU).cal_time_length(SR)
-    T_hr = aft.HarmonicRatio(**CPU).cal_time_length(SR)
-    assert seen == [(2, T_ncf, 8192), (2, T_hr, 8192)]
+    def spy(frames, n, lags):
+        seen.append((tuple(frames.shape), n, lags))
+        return real(frames, n, lags)
+    monkeypatch.setattr(cuda_fft, "fft_autocorr_frames", spy)
+    ncf, hr = aft.PitchNCF(**CPU), aft.HarmonicRatio(**CPU)
+    ncf.pitch(clips)
+    hr.harmonic_ratio(clips)
+    T_ncf = ncf.cal_time_length(SR)
+    T_hr = hr.cal_time_length(SR)
+    assert seen == [((2, T_ncf, 4096), 8192, ncf.max_index + 1),
+                    ((2, T_hr, 4096), 8192, hr.max_length + 1)]
 
 
 def test_harmonic_ratio_matches_golden_and_jax(goldens):

@@ -11,9 +11,18 @@ card (``nvidia-smi`` name and power limit) and one JSON line of median
 CUDA-event times in ms: the engines' FFT calls on config 5's 8 clips of
 30 s (7,472 frames; HPS's forward and the bins it keeps, PEF's frames,
 cross-correlation forward and real-output inverse), ``xcorr``'s forward
-and inverse on 1000 clips of 4096, the complex forward at 32768 (code the
-two trees share), and the users' calls ``PitchHPS``/``PitchLHS``/
-``PitchPEF.pitch`` and ``xcorr``.  Imports nothing of JAX.
+and inverse on 1000 clips of 4096, the complex forward and inverse at
+32768, the autocorrelation of NCF's rows (the general entry on the two
+operands, and the call NCF makes: the frames entry where the tree has it)
+and of random rows at 16384 and 32768, and the users' calls
+``PitchHPS``/``PitchLHS``/``PitchPEF``/``PitchNCF.pitch``,
+``HarmonicRatio.harmonic_ratio`` and ``xcorr``.  Beside them the host
+time of ``xcorr``'s forward (``fft_parts(x, n=8192, bins=4097)`` on 1000
+rows of 4096): through ``ops.fft.fft_parts``, ``cuda_fft.fft_fwd`` and
+a bare call of the C entry with its arguments made beforehand, each as
+the host clock's microseconds a call (the median of 7 batches of 200
+calls queued without a synchronisation, ``*_host_us``) and as CUDA-event
+ms, against ``torch.fft.rfft``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -114,10 +123,65 @@ def main():
         lambda: afft.ifft_parts(prod.real, prod.imag, real_only=True)
         if xinv else afft.ifft(prod, dim=-1).real)
     del F1, prod
+    # the complex inverse at 32768 (four-step route, then the clusters)
+    pr, pi = (torch.randn((out["frames"], 32768), generator=gen,
+                          device="cuda") for _ in range(2))
+    out["complex_inv_32768"] = cuda_ms(lambda: cuda_fft.fft_inv(pr, pi))
+    del pr, pi
+    # the autocorrelation: NCF's operands through the general entry, NCF's
+    # frames as the tree's autocorr_rows takes them, random rows
+    from audioflux_torch.mir import HarmonicRatio, PitchNCF
+    from audioflux_torch.mir import pitch as mpitch
+    ncf = PitchNCF(samplate=sr, device="cuda")
+    hr = HarmonicRatio(samplate=sr, device="cuda")
+    fr = ncf._frames(x)
+    ops = mpitch.autocorr_operands(fr, 8192)
+    out["acf_8192_general"] = cuda_ms(lambda: cuda_fft.fft_autocorr(*ops))
+    del ops
+    lags = ncf.max_index + 1
+    if "lags" in inspect.signature(mpitch.autocorr_rows).parameters:
+        out["acf_8192_ncf_call"] = cuda_ms(
+            lambda: mpitch.autocorr_rows(fr, 8192, lags))
+    else:
+        out["acf_8192_ncf_call"] = cuda_ms(
+            lambda: mpitch.autocorr_rows(fr, 8192)[..., :lags])
+    for n in (16384, 32768):
+        a, b = (torch.randn((out["frames"], n), generator=gen, device="cuda")
+                for _ in range(2))
+        out[f"acf_{n}"] = cuda_ms(lambda: cuda_fft.fft_autocorr(a, b))
+        del a, b
+    # xcorr's forward at 8192 on 1000 rows: host and device time a call
+    import time
+    lib = cuda_fft._lib()
+    yr = xs.new_empty((1000, 4097))
+    yi = xs.new_empty((1000, 4097))
+    tw = cuda_fft._kernel_table(8192, xs.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    tail = (tw.data_ptr(), 1000, 13, 4097, 0, 4096, 3, stream)
+    if len(lib.af_fft_pow2_fwd.argtypes) == 13:     # the scratch argument
+        tail = (None,) + tail
+    bare = (xs.data_ptr(), None, yr.data_ptr(), yi.data_ptr()) + tail
+    calls = (("fft_parts", lambda: afft.fft_parts(xs, n=8192, bins=4097)),
+             ("fft_fwd", lambda: cuda_fft.fft_fwd(xs, bins=4097, n=8192)),
+             ("bare", lambda: lib.af_fft_pow2_fwd(*bare)),
+             ("rfft", lambda: torch.fft.rfft(xs, n=8192)))
+    for name, fn in calls:
+        out[f"xcorr_fwd_{name}"] = cuda_ms(fn, reps=20)
+        batches = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            batches.append((time.perf_counter() - t0) / 200 * 1e6)
+            torch.cuda.synchronize()
+        out[f"xcorr_fwd_{name}_host_us"] = sorted(batches)[3]
     # the users' calls
     for name, fn in (("PitchHPS", lambda: hps.pitch(x)),
                      ("PitchLHS", lambda: lhs.pitch(x)),
                      ("PitchPEF", lambda: pef.pitch(x)),
+                     ("PitchNCF", lambda: ncf.pitch(x)),
+                     ("HarmonicRatio", lambda: hr.harmonic_ratio(x)),
                      ("xcorr", lambda: xcorr(xs, ys))):
         out[name] = cuda_ms(fn, reps=5, warmup=1)
     print(smi)
