@@ -69,10 +69,21 @@
 //     and writes x[2m] = Re z[m], x[2m+1] = Im z[m] as float2 straight
 //     from registers.  No device buffer, no imaginary half, no mirror half
 //     beyond the bins asked for;
-//   * complex rows at n = 8192, 16384: fft_row_kernel, one block per row,
-//     n/16 threads; the row (at most 139 KB with padding) lives in dynamic
-//     shared memory for the radix-16 Stockham passes of fft_smem.cuh, so
-//     device memory sees one read and one write per point;
+//   * complex rows at n = 8192, 16384 (czt, the CWT's and PWT's inverses
+//     below cwt_ifft_bank's lengths, hilbert, ST, NSGT, FST, deconv):
+//     row_reg_kernel, the real-row route's register transform on all n
+//     points (fft_real_reg.cuh at N = n = 4096 C, C = 2 or 4: 64 points a
+//     thread, n / 64 threads a row, one transpose through shared memory,
+//     the last factor across C lanes by __shfl_xor), in persistent blocks
+//     that stage the next row's two planes while this one is transformed
+//     (TMA bulk copies on an mbarrier where both planes are 16-byte
+//     aligned, cp.async elsewhere; a null imaginary input is a plane of
+//     zeros staged once).  The transform leaves bin g + 64 ka + 4096 kb
+//     with the thread's v[ka], so for each ka a warp holds 32 / C
+//     consecutive bins at each of C offsets: the stores go straight from
+//     registers in natural order and fill whole 32-byte sectors.  Each
+//     point is read once and written once (16 bytes), one block an SM at
+//     16384 (about 198 KB of shared memory), two at 8192;
 //   * complex rows at n = 32768 (256 KB, more than one SM's shared memory
 //     or registers hold), and the autocorrelation there: cluster_kernel,
 //     one launch of persistent clusters of two blocks, a row a cluster.
@@ -141,15 +152,11 @@
 
 using afx::bit_reverse;
 using afx::cmul;
-using afx::fft_smem;
 using afx::ilog2;
-using afx::pad;
 using afx::reg_dft;
-using afx::seq_stride;
 
 namespace {
 
-constexpr int kMaxSinglePassLog2 = 14;
 constexpr int kRealMinLog2 = 13;  // the real-row route from n = 8192 on
 constexpr int kClusterLog2 = 15;  // complex rows here: two-block clusters
 constexpr int kLitWords = 65;     // float2 a lane of the back literals' table
@@ -629,24 +636,143 @@ autocorr_reg_kernel(AcfArgs g, const float2* __restrict__ tw) {
   }
 }
 
-// One row per block (n = 8192, 16384); blockDim.x = n / 16.  yi may be null
-// (the imaginary output is then not written).
-__global__ void __launch_bounds__(1024)
-fft_row_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-               float* __restrict__ yr, float* __restrict__ yi,
-               const float2* __restrict__ tw, int log2n, Dir d) {
-  extern __shared__ float2 z[];
-  const int n = 1 << log2n;
-  const size_t off = static_cast<size_t>(blockIdx.x) << log2n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    z[pad(i)] = make_float2(xr[off + i], xi ? d.sign * xi[off + i] : 0.f);
+// What row_reg_kernel reads and writes: complex rows of n = 4096 C
+// points, xr and xi (xi null: zeros, the C entry's inverse of a spectrum
+// with no imaginary part) -> yr and yi, natural order.  `stages` 1 stores
+// what was loaded (a timing cut: the bytes without the arithmetic), 3 is
+// the whole kernel (2 selects the kViaBuf instantiation, which runs whole).
+struct RowArgs {
+  const float* xr;
+  const float* xi;
+  float* yr;
+  float* yi;
+  long long batch;
+  int stages;
+  bool bulk;  // xr and xi 16-byte aligned: TMA
+};
+
+// Complex rows at n = 8192, 16384 (see the note at the top): persistent
+// blocks of 64 C threads, one row a block at a time, the n-point transform
+// of fft_real_reg.cuh in registers while the next row's two planes are
+// staged (TMA bulk copies on an mbarrier where both planes are 16-byte
+// aligned, cp.async elsewhere).  kInv: the inverse, the forward between
+// two conjugations with the exact 1/n in the store.  The transform leaves
+// Z[g + 64 ka + 4096 kb] with thread g C + jb at v[ka]; for a fixed ka a
+// warp's lanes hold 32 / C consecutive g at each of the C values of kb, so
+// the stores straight from registers fill whole 32-byte sectors of yr and
+// yi.  kViaBuf (the forward only, a measurement): each plane of the row
+// goes through the transpose buffer instead and leaves as 16-byte words.
+template <int C, bool kInv, bool kViaBuf>
+__global__ void __launch_bounds__(64 * C)
+row_reg_kernel(RowArgs a, const float2* __restrict__ tw) {
+  using R = afx::RealRoute<C>;
+  constexpr int N = R::kN, T = R::kB;
+  constexpr int kImag = N + 8;      // the staged imaginary plane starts here
+  constexpr int kSkew = 32 / C;     // the buffer's skew a 4096 (kViaBuf)
+  constexpr float kScale = kInv ? 1.f / N : 1.f;
+  constexpr float kSign = kInv ? -1.f : 1.f;
+  extern __shared__ float4 smem4[];
+  float* stage = reinterpret_cast<float*>(smem4);
+  float* buf = stage + 2 * kImag;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(buf + R::kBuf);
+  const int t = threadIdx.x;
+  const float2* fac = tw + N + N / 8;
+  auto fetch = [&](long long r) {
+    const float* re = a.xr + r * N;
+    const float* im = a.xi == nullptr ? nullptr : a.xi + r * N;
+    if (a.bulk) {
+      if (t == 0) {
+        if (im != nullptr) {
+          afx::bulk_fetch2(stage, re, stage + kImag, im, 4u * N, bar);
+        } else {
+          afx::bulk_fetch(stage, re, 4u * N, bar);
+        }
+      }
+    } else {
+      // at [0, N) whatever the address: 4-byte copies
+      afx::fetch_floats(stage, re, N, 0, false, t, T);
+      if (im != nullptr) {
+        afx::fetch_floats(stage + kImag, im, N, 0, false, t, T);
+      }
+      __pipeline_commit();
+    }
+  };
+
+  // a null xi: its plane stays zero and is read like a staged one
+  if (a.xi == nullptr) {
+    for (int i = t; i < N; i += T) stage[kImag + i] = 0.f;
   }
+  if (a.bulk && t == 0) afx::mbar_init(bar);
   __syncthreads();
-  fft_smem(z, log2n, tw, log2n);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float2 v = z[pad(i)];
-    yr[off + i] = d.scale * v.x;
-    if (yi) yi[off + i] = d.sign * d.scale * v.y;
+  long long row = blockIdx.x;
+  uint32_t phase = 0;
+  if (row < a.batch) fetch(row);
+  for (; row < a.batch; row += gridDim.x) {
+    if (a.bulk) {
+      afx::mbar_wait(bar, phase);
+      phase ^= 1u;
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();  // the row stands in the staging buffer
+    float2 v[64];
+#pragma unroll
+    for (int j1 = 0; j1 < 64; ++j1) {
+      const int j = j1 * T + t;
+      v[bit_reverse(j1, 6)] = make_float2(stage[j], kSign * stage[kImag + j]);
+    }
+    __syncthreads();  // the staging buffer is free: fetch the next row
+    if (row + gridDim.x < a.batch) fetch(row + gridDim.x);
+
+    // t, opaque where the row goes on (the lanes' literal selections and
+    // the store addresses are made again each row, not kept in registers
+    // across the rows)
+    int tl = t;
+    asm volatile("" : "+r"(tl));
+    const int g = tl / C, kb = bit_reverse(tl % C, R::kLogC);
+    if constexpr (!kViaBuf) {
+      float* const oyr = a.yr + row * N + g + 4096 * kb;
+      float* const oyi = a.yi + row * N + g + 4096 * kb;
+      // the stores in a loop of their own after the transform: issued
+      // from inside its last pass, between the lanes' shuffles, they made
+      // the forward at 16384 a sixth slower
+      afx::real_route_transform<C, false>(v, buf, fac, tl, a.stages > 1,
+                                          [](int, float2) {});
+#pragma unroll
+      for (int ka = 0; ka < 64; ++ka) {
+        oyr[64 * ka] = kScale * v[ka].x;
+        oyi[64 * ka] = kSign * kScale * v[ka].y;
+      }
+    } else {
+      // bin k at buf[k + (k >> 12) kSkew]: the lanes of a warp write 32
+      // distinct banks; a plane at a time, read back as 16-byte words
+      float* const col = buf + g + (4096 + kSkew) * kb;
+      afx::real_route_transform<C, false>(
+          v, buf, fac, tl, true,
+          [&](int ka, float2 z) { col[64 * ka] = kScale * z.x; });
+      const bool wide = ((reinterpret_cast<uintptr_t>(a.yr) |
+                          reinterpret_cast<uintptr_t>(a.yi)) & 15) == 0;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (c) {
+#pragma unroll
+          for (int ka = 0; ka < 64; ++ka) {
+            col[64 * ka] = kSign * kScale * v[ka].y;
+          }
+        }
+        __syncthreads();  // the plane stands in the buffer
+        float* const out = (c ? a.yi : a.yr) + row * N;
+        if (wide) {
+          for (int i = 4 * t; i < N; i += 4 * T) {
+            *reinterpret_cast<float4*>(out + i) =
+                *reinterpret_cast<const float4*>(buf + i + (i >> 12) * kSkew);
+          }
+        } else {
+          for (int i = t; i < N; i += T) out[i] = buf[i + (i >> 12) * kSkew];
+        }
+        __syncthreads();  // the buffer is free
+      }
+    }
   }
 }
 
@@ -1419,6 +1545,40 @@ int launch_real(const float* ir, const float* ii, float* or_, float* oi,
                   : launch_real_inv<4, false>(a, tw, st);
 }
 
+// Complex rows at n = 4096 C: persistent blocks of 64 C threads, each
+// with its staging buffer of two planes, the transpose buffer and an
+// mbarrier.
+template <int C, bool kInv, bool kViaBuf>
+int launch_row(const RowArgs& a, const float2* tw, cudaStream_t st) {
+  using R = afx::RealRoute<C>;
+  constexpr int kSmem = 4 * (2 * (R::kN + 8) + R::kBuf) + 16;
+  static_assert(kSmem <= 232448, "a block's shared memory on sm_90");
+  auto kernel = row_reg_kernel<C, kInv, kViaBuf>;
+  unsigned grid = 0;
+  cudaError_t e = persistent_grid(kernel, kSmem, a.batch, 1, &grid, R::kB);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, R::kB, kSmem, st>>>(a, tw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The complex rows at n = 8192 (C = 2) and 16384 (C = 4): stages 3 the
+// whole kernel, 1 its load and store (a cut), 2 the forward with its
+// stores through the transpose buffer (a measurement).
+int launch_rows(const RowArgs& a, const float2* tw, int log2n, bool forward,
+                cudaStream_t st) {
+  const bool c2 = log2n == kRealMinLog2;
+  if (!forward) {
+    return c2 ? launch_row<2, true, false>(a, tw, st)
+              : launch_row<4, true, false>(a, tw, st);
+  }
+  if (a.stages == 2) {
+    return c2 ? launch_row<2, false, true>(a, tw, st)
+              : launch_row<4, false, true>(a, tw, st);
+  }
+  return c2 ? launch_row<2, false, false>(a, tw, st)
+            : launch_row<4, false, false>(a, tw, st);
+}
+
 // The autocorrelation in registers at n = 4096 C: persistent blocks of
 // 64 C threads with their staging buffer, the transpose buffer, the back
 // transform's twiddles and an mbarrier.  tw: the kernel table of n.
@@ -1516,8 +1676,13 @@ int transform(const float* xr, const float* xi, float* yr, float* yi,
   if (batch <= 0) return 0;
   const bool real_route =
       log2n >= kRealMinLog2 && (forward ? xi == nullptr : yi == nullptr);
+  // the complex rows at 8192, 16384 (row_reg_kernel) take cuts too, and
+  // always write an imaginary output
+  const bool rows =
+      !real_route && log2n >= kRealMinLog2 && log2n < kClusterLog2;
   if (bad_args(batch, log2n) || stages < 1 || stages > 3 ||
-      (stages != 3 && log2n > 12 && !real_route)) {
+      (stages != 3 && log2n == kClusterLog2 && !real_route) ||
+      (rows && (yi == nullptr || (stages == 2 && !forward)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n = 1 << log2n;
@@ -1540,13 +1705,10 @@ int transform(const float* xr, const float* xi, float* yr, float* yi,
     return launch_real(xr, xi, yr, yi, twf, batch, log2n, bins, lo, live,
                        forward, stages, st);
   }
-  if (log2n <= kMaxSinglePassLog2) {
-    const int smem = static_cast<int>(sizeof(float2)) * seq_stride(1 << log2n);
-    cudaError_t e = allow_smem(fft_row_kernel, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    fft_row_kernel<<<static_cast<unsigned>(batch), (1 << log2n) / 16, smem,
-                     st>>>(xr, xi, yr, yi, twf, log2n, d);
-    return static_cast<int>(cudaGetLastError());
+  if (rows) {
+    const RowArgs a{xr, xi, yr, yi, batch, stages,
+                    aligned16(xr) && (xi == nullptr || aligned16(xi))};
+    return launch_rows(a, twf, log2n, forward, st);
   }
   // complex rows at n = 32768
   const ClusterArgs a{xr, xi, yr, yi, batch, d,
@@ -1567,8 +1729,10 @@ int transform(const float* xr, const float* xi, float* yr, float* yi,
 // 8, t < B), then those of n points at [n + n/8 ..] (the autocorrelation
 // in registers).  stages: 3 (the whole transform), or at n = 2048 and
 // 4096 and on the real-row route 1 or 2 to cut the kernel for timing (the
-// output is then not the spectrum).  Returns the CUDA error code of the
-// launch (0 on success).
+// output is then not the spectrum); on the complex rows at 8192 and 16384
+// 1 (the load and the store alone) or, for the forward, 2 (the spectrum,
+// its stores through the transpose buffer).  Returns the CUDA error code
+// of the launch (0 on success).
 extern "C" int af_fft_pow2_fwd(const float* xr, const float* xi, float* yr,
                                float* yi, const void* tw, long long batch,
                                int log2n, int bins, int lo, int live,

@@ -21,7 +21,9 @@ Which route takes a call (:func:`route`):
   writes only its first ``bins`` natural-order bins, and an inverse takes
   a whole spectrum or the half that ``irfft`` takes (``n``);
 * complex rows at 8192, 16384 (forward, or an inverse with an imaginary
-  output): one row a block in shared memory;
+  output): the row route, the real-row route's register transform on all
+  n points, one row a block with the next row staged, the bins stored
+  from registers in natural order;
 * complex rows at 32768 (:data:`CLUSTER_N`), and ``fft_autocorr`` there:
   one launch of clusters of two blocks, a row a cluster, half the row in
   each block's registers, the halves joined through distributed shared
@@ -250,7 +252,9 @@ def _fwd(xr, xi, n, bins=None, stages=3, lo=0):
     """Launch the forward kernel; ``stages`` 1 and 2 cut it, for
     measurements (the output is then not the spectrum): at n = 2048 and
     4096 after its first or second pass, on the real-row route after the
-    load or after the n/2-point transform."""
+    load or after the n/2-point transform; on the row route (complex rows
+    at 8192, 16384) 1 is the load and the store alone and 2 the whole
+    spectrum with its stores through the transpose buffer."""
     bins = n if bins is None else bins
     live = xr.shape[-1]
     way = route(n, xi is None)

@@ -9,8 +9,8 @@ Phases (any failure exits non-zero; no result line is printed then):
 1. build every kernel from ``audioflux_torch/csrc`` with nvcc (one process
    per source, started together) and print ptxas' register, stack and
    spill lines (the register-resident autocorrelation, the unwrap's
-   run-per-thread kernels and the FFT's real-row kernels must have neither
-   stack nor spill), and the
+   run-per-thread kernels, the FFT's real-row kernels, its clusters and
+   its complex-row kernels must have neither stack nor spill), and the
    FMNMX instructions of each median network kernel beside the network's
    own count;
 2. each kernel against its plain PyTorch version on the card: the forward
@@ -31,7 +31,12 @@ Phases (any failure exits non-zero; no result line is printed then):
    frames entry at n 4096, 8192 and 16384 on NCF's and HarmonicRatio's
    frames and lags (contiguous and ``unfold`` views), at lag 1 and every
    lag, odd frame lengths and one float off, each call's route held by
-   its counter; YIN's autocorrelation entry on clips of odd
+   its counter; the route of slice 15: complex rows at 8192 and 16384
+   (``row_reg_kernel``: the forward, the forward with its stores through
+   the transpose buffer, the inverse, a real spectrum's inverse through
+   the C entry) on 1, 3, 2113 and 7,472 rows, aligned and one float off,
+   each call's route held by its counter; YIN's autocorrelation entry on
+   clips of odd
    length, a view at an offset of one float, slides that put frames off
    16-byte alignment, one-frame clips and several lags; the
    fused mel+MFCC kernel over eight shape classes, unaligned views, a
@@ -117,7 +122,9 @@ Phases (any failure exits non-zero; no result line is printed then):
       ``DeepSpectrogram(num=84)`` orders 1 and 4, ``DeepChromaSpectrogram``
       and ``Cepstrogram`` (which launches no kernel) on config 5's 8 clips
       of 30 s; ``hilbert``, ``xcorr`` and ``czt`` on config 3's 1000 clips
-      of 4096 samples (each launches the forward and the inverse) and
+      of 4096 samples (each launches the forward and the inverse; ``czt``
+      both on the complex-row route at 8192, as the extractor's CWT and
+      PWT their inverse) and
       ``phase_vocoder`` on an ``STFT(2048, HANN, 512)`` of the 8 clips; the
       first and last clips against the port on the CPU (FFT-based outputs
       at 1e-4 of the peak, DWT/WPT/SWT at 1e-5, Deep by flips and mass,
@@ -200,7 +207,9 @@ Phases (any failure exits non-zero; no result line is printed then):
    beside them; the autocorrelation's general entry on NCF's and
    HarmonicRatio's operands, its frames entry on their frames and lags,
    the general entry at 16384 and 32768, and the complex rows at 8192 and
-   16384, the row route, on 7,472 random rows) under
+   16384, the row route, on 7,472 random rows, with its cuts under
+   ``cuts_ms``: the load and store alone, and the forward's stores
+   through the transpose buffer against those from registers) under
    ``shapes`` of ``fft_pow2``, ``fft_inv`` and ``fft_autocorr`` (whose row
    counts every entry's launches), with ``torch.fft.rfft``/``irfft``
    beside the library call where they give the same values; slice 10
@@ -451,7 +460,8 @@ def phase0_identity():
 # kernels that must compile with no stack frame and no spill (their
 # register arrays must stay in registers)
 NO_SPILL = ("autocorr_reg_kernel", "unwrap_rows_kernel", "real_fwd_kernel",
-            "real_inv_kernel", "acf_reg_kernel", "cluster_kernel")
+            "real_inv_kernel", "acf_reg_kernel", "cluster_kernel",
+            "row_reg_kernel")
 
 
 def phase1_build():
@@ -585,6 +595,7 @@ def phase2_kernels(gen):
                   "(offsets 0 and 1 float)", worst, FFT_TOL)
     real_route_kernels(gen)
     errs.update(slice14_kernels())
+    row_route_kernels()
     # YIN's entry, framing from the clips: clips whose length is no
     # multiple of the slide (every other clip off 16-byte alignment), a
     # 1-D view at an offset of one float, slides that put frames off
@@ -926,6 +937,54 @@ def slice14_kernels():
             del f, got
     del clips
     return errs
+
+
+def row_route_kernels():
+    """The complex rows at n = 8192 and 16384 (``row_reg_kernel``, slice
+    15) against the plain versions at 5e-5 of the peak, from a generator of
+    their own (the later phases' draws do not move): the forward, the
+    forward with its stores through the transpose buffer (``stages=2``, the
+    measurement variant), the inverse with an imaginary output, and the C
+    entry's inverse of a real spectrum (a null imaginary input, whose
+    plane the kernel leaves at zero), on 1, 3 (odd), 2113 and 7,472 rows
+    (no multiple of the resident blocks at either n), at a 16-byte aligned
+    address (TMA) and one float off (``cp.async``).  Each wrapper call's
+    route is held by its counter."""
+    own = torch.Generator(device="cuda")
+    own.manual_seed(15)
+    for n in (8192, 16384):
+        for batch in (1, 3, 2113, 7472):
+            worst = 0.0
+            zero_counts()
+            for off in (0, 1):
+                buf = randn(2 * batch * n + 1, own)
+                xr = buf[off:off + batch * n].view(batch, n)
+                xi = buf[off + batch * n:off + 2 * batch * n].view(batch, n)
+                ref = fft_fwd_ref(xr, xi)
+                worst = max(worst, pair_rel(fft_fwd(xr, xi), ref),
+                            pair_rel(cuda_fft._fwd(xr, xi, n, stages=2), ref))
+                del ref
+                worst = max(worst, pair_rel(fft_inv(xr, xi),
+                                            fft_inv_ref(xr, xi)))
+                got = (torch.empty_like(xr), torch.empty_like(xr))
+                cuda_fft._call(cuda_fft._lib().af_fft_pow2_inv,
+                               "fft_pow2 inverse", xr, n, xr.data_ptr(), None,
+                               got[0].data_ptr(), got[1].data_ptr(),
+                               extra=(n, 3))
+                worst = max(worst, pair_rel(
+                    got, fft_inv_ref(xr, torch.zeros_like(xr))))
+                del buf, xr, xi, got
+            torch.cuda.synchronize()
+            c = read_counts()
+            want = {"fft_pow2": 4, "fft_pow2 row route": 4, "fft_inv": 2,
+                    "fft_inv row route": 2}
+            if any(c[k] != v for k, v in want.items()):
+                raise AssertionError(f"row route n={n}, {batch} rows: "
+                                     f"routes {c}")
+            check(f"fft_pow2/fft_inv row route n={n}, {batch} rows (forward, "
+                  "forward with its stores through the buffer, inverse, the "
+                  "C entry's inverse of a real spectrum; offsets 0 and 1 "
+                  "float)", worst, FFT_TOL)
 
 
 def complex_err(got, ref):
@@ -2808,15 +2867,19 @@ def phase3_slice8_paths(gen):
     torch.cuda.synchronize()
     r, _ = counted(f"FeatureExtractor.spectrogram, nine transforms, "
                    f"{FE_CLIPS} x {L}", lambda: fe.spectrogram(x),
-                   ("fft_pow2", "fft_inv"), max(held_gb, 3 * st_gb + wav_gb))
+                   ("fft_pow2", "fft_inv", "fft_inv row route"),
+                   max(held_gb, 3 * st_gb + wav_gb))
     for name in FE_NAMES:
         finite(f"3e {name}", r[name]["spectrogram"])
     # each transform alone: ST launches both FFT kernels, FST and NSGT the
     # forward; CWT and PWT pad 4096 to 8192, below cwt_ifft_bank's 2^14,
-    # and run the forward and the inverse FFT kernels instead
+    # and run the forward and the inverse FFT kernels instead, the inverse
+    # of complex rows at 8192 on the row route
     required = {"st": ("fft_pow2", "fft_inv"), "fst": ("fft_pow2",),
-                "nsgt": ("fft_pow2",), "cwt": ("fft_pow2", "fft_inv"),
-                "pwt": ("fft_pow2", "fft_inv"), "bft": ("fft_pow2",)}
+                "nsgt": ("fft_pow2",),
+                "cwt": ("fft_pow2", "fft_inv", "fft_inv row route"),
+                "pwt": ("fft_pow2", "fft_inv", "fft_inv row route"),
+                "bft": ("fft_pow2",)}
     for name in FE_NAMES:
         out, c = counted(f"{name} alone", lambda name=name: fe._run_one(
             name, fe._objs[name], x), required.get(name, ()),
@@ -2969,7 +3032,9 @@ def phase3_slice8_paths(gen):
         # read the live span and its inverse takes the half spectrum
         need = ("fft_pow2", "fft_inv") + (
             ("fft_pow2 live span", "fft_inv half spectrum")
-            if name == "xcorr" else ())
+            if name == "xcorr" else ()) + (
+            ("fft_pow2 row route", "fft_inv row route")
+            if name == "czt" else ())
         out, _ = counted(f"{name}, {C3_CLIPS} x {C3_N}", fn, need,
                          C3_CLIPS * 2 * C3_N * 80 / 1e9)
         finite(f"3e {name}", out)
@@ -3643,7 +3708,7 @@ def phase4_slice9_timing(d, errs):
         frames_entry[who] = e
     k_ncf = frames_entry["ncf"]["ms"]
     # the general entry at 16384 (registers) and 32768 (the clusters), and
-    # the complex rows at 8192 and 16384 (the row route, fft_row_kernel),
+    # the complex rows at 8192 and 16384 (the row route, row_reg_kernel),
     # on 7,472 random rows, laid out as the engines' (clips, frames, n) so
     # that the plain and library calls go a clip at a time
     own = torch.Generator(device="cuda")
@@ -3664,14 +3729,38 @@ def phase4_slice9_timing(d, errs):
         xi_ = randn(lead + (n_,), own)
         ops_ = nrows * 5.0 * n_ * math.log2(n_)
         e_f = pair_err(fft_fwd(xr_, xi_), fft_fwd_ref(xr_, xi_))[0]
-        shape_row("fft_pow2", fft_fwd, fft_fwd_ref, fwd_lib, (xr_, xi_),
-                  16 * xr_.numel(), ops_,
-                  f"forward {nrows}x{n_} complex (row route)", e_f)
+        e = shape_row("fft_pow2", fft_fwd, fft_fwd_ref, fwd_lib, (xr_, xi_),
+                      16 * xr_.numel(), ops_,
+                      f"forward {nrows}x{n_} complex (row route)", e_f)
+        # the cuts: the load and the store alone (stages 1), and the
+        # spectrum with its stores through the transpose buffer (stages 2)
+        # against the stores from registers (the kernel, stages 3)
+        cut = [cuda_ms(lambda s=s_: cuda_fft._fwd(xr_, xi_, n_, stages=s),
+                       reps=10) for s_ in (1, 2, 3)]
+        e["cuts_ms"] = {"load_store": cut[0], "transform": cut[2] - cut[0],
+                        "stores_via_buffer": cut[1],
+                        "stores_from_registers": cut[2]}
+        print(f"  split (row route, forward, n={n_}): load + store "
+              f"{cut[0]:.3f} ms, the {n_}-point transform "
+              f"{cut[2] - cut[0]:.3f} (whole {cut[2]:.3f}); stores through "
+              f"the buffer {cut[1]:.3f} against from registers {cut[2]:.3f}")
         e_i = pair_err(fft_inv(xr_, xi_), fft_inv_ref(xr_, xi_))[0]
-        shape_row("fft_inv", fft_inv, fft_inv_ref, inv_lib, (xr_, xi_),
-                  16 * xr_.numel(), ops_,
-                  f"{nrows}x{n_} complex output (row route)", e_i)
-        del xr_, xi_
+        e = shape_row("fft_inv", fft_inv, fft_inv_ref, inv_lib, (xr_, xi_),
+                      16 * xr_.numel(), ops_,
+                      f"{nrows}x{n_} complex output (row route)", e_i)
+        yr_, yi_ = torch.empty_like(xr_), torch.empty_like(xr_)
+
+        def row_inv(stage):
+            return lambda: cuda_fft._call(
+                cuda_fft._lib().af_fft_pow2_inv, "fft_pow2 inverse", xr_, n_,
+                xr_.data_ptr(), xi_.data_ptr(), yr_.data_ptr(),
+                yi_.data_ptr(), extra=(n_, stage))
+        cut = [cuda_ms(row_inv(s_), reps=10) for s_ in (1, 3)]
+        e["cuts_ms"] = {"load_store": cut[0], "transform": cut[1] - cut[0]}
+        print(f"  split (row route, inverse, n={n_}): load + store "
+              f"{cut[0]:.3f} ms, the {n_}-point transform "
+              f"{cut[1] - cut[0]:.3f} (whole {cut[1]:.3f})")
+        del xr_, xi_, yr_, yi_
     # the real-row route: a real FFT of n points is about 2.5 n log2 n
     # operations; its bytes are the live samples in and the bins written
     fops = nrows * 5.0 * X * math.log2(X)

@@ -14,9 +14,13 @@ cross-correlation forward and real-output inverse), ``xcorr``'s forward
 and inverse on 1000 clips of 4096, the complex forward and inverse at
 32768, the autocorrelation of NCF's rows (the general entry on the two
 operands, and the call NCF makes: the frames entry where the tree has it)
-and of random rows at 16384 and 32768, and the users' calls
-``PitchHPS``/``PitchLHS``/``PitchPEF``/``PitchNCF.pitch``,
-``HarmonicRatio.harmonic_ratio`` and ``xcorr``.  Beside them the host
+and of random rows at 16384 and 32768, the complex forward and inverse
+at 8192 and 16384 on 7,472 random rows beside ``torch.fft.fft`` and
+``ifft``, the complex forward at 4096 over 131,072 rows and the complex
+inverse of Hilbert's 1000 rows of 4096 beside ``torch.fft``, and the
+users' calls ``PitchHPS``/``PitchLHS``/``PitchPEF``/``PitchNCF.pitch``,
+``HarmonicRatio.harmonic_ratio``, ``xcorr`` and ``czt`` (1000 clips of
+4096, L = 8192).  Beside them the host
 time of ``xcorr``'s forward (``fft_parts(x, n=8192, bins=4097)`` on 1000
 rows of 4096): through ``ops.fft.fft_parts``, ``cuda_fft.fft_fwd`` and
 a bare call of the C entry with its arguments made beforehand, each as
@@ -65,7 +69,7 @@ def main():
         raise SystemExit("no CUDA device: this script times the card")
     sys.path.insert(0, os.path.abspath(args.root))
     import torch.nn.functional as F
-    from audioflux_torch.dsp import xcorr
+    from audioflux_torch.dsp import czt, xcorr
     from audioflux_torch.mir import PitchHPS, PitchLHS, PitchPEF
     from audioflux_torch.ops import cuda_fft
     from audioflux_torch.ops import fft as afft
@@ -150,6 +154,33 @@ def main():
                 for _ in range(2))
         out[f"acf_{n}"] = cuda_ms(lambda: cuda_fft.fft_autocorr(a, b))
         del a, b
+    # the complex rows at 8192 and 16384 (the row route) on 7,472 random
+    # rows, beside torch.fft.fft and .ifft on the same rows
+    for n in (8192, 16384):
+        a, b = (torch.randn((out["frames"], n), generator=gen, device="cuda")
+                for _ in range(2))
+        z = torch.complex(a, b)
+        out[f"complex_fwd_{n}"] = cuda_ms(lambda: cuda_fft.fft_fwd(a, b))
+        out[f"complex_inv_{n}"] = cuda_ms(lambda: cuda_fft.fft_inv(a, b))
+        out[f"fft_{n}"] = cuda_ms(lambda: torch.fft.fft(z, dim=-1))
+        out[f"ifft_{n}"] = cuda_ms(lambda: torch.fft.ifft(z, dim=-1))
+        del a, b, z
+    # two readings at 4096 (the register route in both trees): the complex
+    # forward over 131,072 rows (ST's inverse rows' count) and the complex
+    # inverse of Hilbert's 1000 rows, each beside torch.fft
+    a, b = (torch.randn((131072, 4096), generator=gen, device="cuda")
+            for _ in range(2))
+    z = torch.complex(a, b)
+    out["complex_fwd_4096_131072"] = cuda_ms(lambda: cuda_fft.fft_fwd(a, b))
+    out["fft_4096_131072"] = cuda_ms(lambda: torch.fft.fft(z, dim=-1))
+    del a, b, z
+    H = torch.fft.fft(xs, dim=-1)
+    H[..., 1:2048] *= 2
+    H[..., 2049:] = 0
+    Hr, Hi = H.real.contiguous(), H.imag.contiguous()
+    out["hilbert_inv_4096_1000"] = cuda_ms(lambda: cuda_fft.fft_inv(Hr, Hi))
+    out["ifft_4096_1000"] = cuda_ms(lambda: torch.fft.ifft(H, dim=-1))
+    del H, Hr, Hi
     # xcorr's forward at 8192 on 1000 rows: host and device time a call
     import time
     lib = cuda_fft._lib()
@@ -182,7 +213,8 @@ def main():
                      ("PitchPEF", lambda: pef.pitch(x)),
                      ("PitchNCF", lambda: ncf.pitch(x)),
                      ("HarmonicRatio", lambda: hr.harmonic_ratio(x)),
-                     ("xcorr", lambda: xcorr(xs, ys))):
+                     ("xcorr", lambda: xcorr(xs, ys)),
+                     ("czt", lambda: czt(xs, 0.1, 0.3))):
         out[name] = cuda_ms(fn, reps=5, warmup=1)
     print(smi)
     print(json.dumps(out))
