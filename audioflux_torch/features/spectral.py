@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from audioflux_torch.observe import scope
 from audioflux_torch.ops.backend import as_tensor, resolve_device
 from audioflux_torch.types import (SpectralNoveltyDataType,
                                    SpectralNoveltyMethodType)
@@ -100,17 +101,18 @@ class Spectral:
              is_positive: bool = False, is_exp: bool = False, tp: int = 0):
         """sum(|x_t - x_{t-step}|^p) (optionally ^1/p, mean, positive-only);
         the first ``step`` frames are 0 (flux_spectral.c:55-105)."""
-        x = self._prep(m_data_arr)
-        step = max(int(step), 1)
-        d = x[..., step:, :] - x[..., :-step, :]
-        d = torch.clamp(d, min=0.0) if is_positive else d.abs()
-        d = d * d if p == 2.0 else d.pow(p)
-        v = d.sum(dim=-1)
-        if tp:
-            v = v / x.shape[-1]
-        if is_exp:
-            v = v.pow(1.0 / p)
-        return _lead_pad(v, step)
+        with scope("af.Spectral.flux"):
+            x = self._prep(m_data_arr)
+            step = max(int(step), 1)
+            d = x[..., step:, :] - x[..., :-step, :]
+            d = torch.clamp(d, min=0.0) if is_positive else d.abs()
+            d = d * d if p == 2.0 else d.pow(p)
+            v = d.sum(dim=-1)
+            if tp:
+                v = v / x.shape[-1]
+            if is_exp:
+                v = v.pow(1.0 / p)
+            return _lead_pad(v, step)
 
     def rolloff(self, m_data_arr, threshold: float = 0.95):
         """Frequency below which ``threshold`` of |x|'s cumulative sum lies.

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from audioflux_torch.classic.nmf import _nmf_impl
+from audioflux_torch.observe import scope
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.backend import as_tensor, resolve_device
 from audioflux_torch.ops.cuda_median import median_filter_last_axis
@@ -93,10 +94,11 @@ class HPSS:
 
     def hpss(self, data_arr):
         """(..., n) -> (harmonic, percussive), each (..., out_n)."""
-        return _hpss_impl(as_tensor(data_arr, self.device), self._window_t,
-                          fft_length=self.fft_length,
-                          slide_length=self.slide_length,
-                          h_order=self.h_order, p_order=self.p_order)
+        with scope("af.HPSS.hpss"):
+            return _hpss_impl(as_tensor(data_arr, self.device), self._window_t,
+                              fft_length=self.fft_length,
+                              slide_length=self.slide_length,
+                              h_order=self.h_order, p_order=self.p_order)
 
 
 def _flatness(x, dim):

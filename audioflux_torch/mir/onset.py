@@ -16,6 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from audioflux_torch.features.spectral import Spectral
+from audioflux_torch.observe import scope
 from audioflux_torch.ops.backend import as_tensor, resolve_device
 from audioflux_torch.ops.filter import max_filter
 from audioflux_torch.types import NoveltyType
@@ -44,41 +45,42 @@ def peak_pick(env: np.ndarray, pre_max: int, post_max: int, pre_avg: int,
     the same pairwise-mean semantics as the per-index slice form); only
     the ``wait`` suppression is sequential, over the surviving candidates.
     """
-    env = np.asarray(env)
-    n = len(env)
-    if n == 0:
-        return np.asarray([], np.int64)
-    swv = np.lib.stride_tricks.sliding_window_view
+    with scope("af.peak_pick"):
+        env = np.asarray(env)
+        n = len(env)
+        if n == 0:
+            return np.asarray([], np.int64)
+        swv = np.lib.stride_tricks.sliding_window_view
 
-    # max over the clamped window [max(i-pre_max,0), min(i-1+post_max,n-1)]
-    # (-inf padding == clamping for a max)
-    w1 = pre_max + post_max
-    pad1 = np.concatenate([np.full(pre_max, -np.inf, env.dtype), env,
-                           np.full(max(post_max - 1, 0), -np.inf,
-                                   env.dtype)])
-    is_max = env == swv(pad1, w1)[:n].max(axis=-1)
+        # max over the clamped window [max(i-pre_max,0), min(i-1+post_max,n-1)]
+        # (-inf padding == clamping for a max)
+        w1 = pre_max + post_max
+        pad1 = np.concatenate([np.full(pre_max, -np.inf, env.dtype), env,
+                               np.full(max(post_max - 1, 0), -np.inf,
+                                       env.dtype)])
+        is_max = env == swv(pad1, w1)[:n].max(axis=-1)
 
-    # mean over the clamped window: interior rows by a sliding view (the
-    # same np.mean reduction as env[s2:e2+1].mean()), truncated edge
-    # windows directly
-    w2 = pre_avg + post_avg
-    mean_ok = np.zeros(n, bool)
-    lo, hi = pre_avg, n - post_avg  # rows whose window is untruncated
-    if hi > lo:
-        mean_ok[lo:hi] = env[lo:hi] >= (swv(env, w2)[:hi - lo].mean(axis=-1)
-                                        + delta)
-    for i in list(range(min(lo, n))) + list(range(max(hi, 0), n)):
-        s2 = max(i - pre_avg, 0)
-        e2 = i - 1 + post_avg if i + post_avg < n else n - 1
-        mean_ok[i] = env[i] >= env[s2:e2 + 1].mean() + delta
+        # mean over the clamped window: interior rows by a sliding view (the
+        # same np.mean reduction as env[s2:e2+1].mean()), truncated edge
+        # windows directly
+        w2 = pre_avg + post_avg
+        mean_ok = np.zeros(n, bool)
+        lo, hi = pre_avg, n - post_avg  # rows whose window is untruncated
+        if hi > lo:
+            mean_ok[lo:hi] = env[lo:hi] >= (
+                swv(env, w2)[:hi - lo].mean(axis=-1) + delta)
+        for i in list(range(min(lo, n))) + list(range(max(hi, 0), n)):
+            s2 = max(i - pre_avg, 0)
+            e2 = i - 1 + post_avg if i + post_avg < n else n - 1
+            mean_ok[i] = env[i] >= env[s2:e2 + 1].mean() + delta
 
-    points = []
-    pre = -wait - 1
-    for i in np.flatnonzero(is_max & mean_ok):
-        if i - pre > wait:
-            points.append(i)
-            pre = i
-    return np.asarray(points, np.int64)
+        points = []
+        pre = -wait - 1
+        for i in np.flatnonzero(is_max & mean_ok):
+            if i - pre > wait:
+                points.append(i)
+                pre = i
+        return np.asarray(points, np.int64)
 
 
 class Onset:

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from audioflux_torch.observe import scope
 from audioflux_torch.ops import cuda_fft
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.backend import as_tensor, resolve_device
@@ -154,10 +155,11 @@ class PitchYIN:
 
     def pitch(self, data_arr):
         """(..., n) -> (fre_arr, value_arr) each (..., time)."""
-        fre, value, yin, interp = self._run(data_arr)
-        self._yin_mat = yin
-        self._interp_mat = interp
-        return fre, value
+        with scope("af.PitchYIN.pitch"):
+            fre, value, yin, interp = self._run(data_arr)
+            self._yin_mat = yin
+            self._interp_mat = interp
+            return fre, value
 
     def get_min_data(self) -> np.ndarray:
         """Per-frame CMND minimum (the C pitch's third output, minArr)."""

@@ -1,11 +1,19 @@
-"""Observability: profiler traces, named stages, and lightweight metrics.
+"""Observability: the port's spans, profiler traces, and lightweight
+metrics.
 
 Counterpart of ``audioflux_tpu/observe.py``.  Three pieces, free when
 unused:
 
-- ``scope(name)``: a ``torch.profiler.record_function`` range, plus an
-  NVTX range when CUDA is available, so that the ops inside group under a
-  readable stage name in a trace.
+- ``scope(name)``: the one way the port opens a span.  While a profiler
+  records (``torch.profiler.profile``, or ``torch.autograd.profiler``), it
+  is a ``torch.profiler.record_function`` range: a ``user_annotation``
+  event on the profiler's clock, nested by time under the caller's spans,
+  in the same trace as the CUDA kernels launched inside it.  Otherwise it
+  is one shared no-op context, and costs a check of the profiler's state.
+  The port's spans are ``af.<Class>.<method>`` around the entry calls and
+  ``af.kernel.<wrapper>`` around each kernel wrapper (``PERF.md`` section 3
+  lists them).  For NVTX ranges, run the code under
+  ``torch.autograd.profiler.emit_nvtx()``, which records the same spans.
 - ``trace(logdir)``: ``torch.profiler.profile`` over the enclosed code (the
   CPU and, when available, CUDA activity); its Chrome trace is written,
   gzipped, to ``logdir/plugins/profile/<run>/<host>.trace.json.gz``, where
@@ -27,22 +35,21 @@ from collections import defaultdict
 
 import torch
 
-__all__ = ["scope", "trace", "annotate", "summarize_trace", "Metrics",
-           "metrics"]
+__all__ = ["scope", "trace", "summarize_trace", "Metrics", "metrics"]
+
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()   # the span while no profiler records
 
 
-@contextlib.contextmanager
 def scope(name: str):
-    """Named stage scope: groups ops under ``name`` in profiler traces."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+    """A span named ``name`` around a ``with`` block: a
+    ``torch.profiler.record_function`` range while a profiler records, else
+    a shared no-op context."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -71,18 +78,16 @@ def trace(logdir: str, create_perfetto_link: bool = False):
         os.remove(raw)
 
 
-def annotate(name: str):
-    """Host-side trace annotation (a range on the profiler's host track)."""
-    return torch.profiler.record_function(name)
-
-
 def summarize_trace(logdir: str, top: int = 25, include_host: bool = False):
     """Per-op durations from the newest trace under ``logdir``.
 
     Returns ``[(op_name, total_us, count), ...]`` sorted by total time,
     parsed from the ``trace.json.gz`` a :func:`trace` capture writes.
-    ``include_host`` keeps the Python-function events (dropped by default:
-    they double-count the work they wrap)."""
+    Where the trace holds device operations (CUDA kernels, copies and
+    sets), only those are ranked; a trace of the CPU alone ranks its
+    operators and spans.  ``include_host`` ranks every host event beside
+    them, the Python-function events too (left out by default: host events
+    nest, so their times double-count the work they wrap)."""
     import collections
     import glob
     import json
@@ -92,15 +97,16 @@ def summarize_trace(logdir: str, top: int = 25, include_host: bool = False):
         raise FileNotFoundError(f"no trace.json.gz under {logdir}")
     with gzip.open(paths[-1]) as fh:
         tr = json.load(fh)
+    events = [e for e in tr.get("traceEvents", []) if e.get("ph") == "X"]
+    device = [e for e in events if e.get("cat") in _DEVICE_CATS]
+    if not include_host:
+        events = device or [e for e in events
+                            if not e.get("name", "").startswith("$")
+                            and e.get("cat") != "python_function"]
     durs = collections.defaultdict(float)
     cnt = collections.Counter()
-    for e in tr.get("traceEvents", []):
+    for e in events:
         name = e.get("name", "")
-        if e.get("ph") != "X":
-            continue
-        if not include_host and (name.startswith("$")
-                                 or e.get("cat") == "python_function"):
-            continue
         durs[name] += float(e.get("dur", 0))
         cnt[name] += 1
     rows = sorted(durs.items(), key=lambda kv: -kv[1])[:top]

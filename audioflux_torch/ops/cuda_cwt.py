@@ -26,6 +26,7 @@ import functools
 import numpy as np
 import torch
 
+from audioflux_torch.observe import scope
 from audioflux_torch.ops import _build
 from audioflux_torch.ops.backend import require_sm90
 from audioflux_torch.ops.cuda_fft import twiddle_table
@@ -158,35 +159,36 @@ def cwt_ifft_bank(F: torch.Tensor, bank: torch.Tensor, *, pad: int,
 
     A CUDA tensor launches the kernel (one cluster launch, sm_90 only) or
     raises; a CPU tensor takes the plain version."""
-    if F.dim() != 2 or bank.dim() != 2 or F.shape[1] != bank.shape[1]:
-        raise ValueError(f"F must be (B, N) and bank (num, N), got "
-                         f"{tuple(F.shape)} and {tuple(bank.shape)}")
-    if F.dtype != torch.complex64 or bank.dtype != torch.float32:
-        raise TypeError(f"F must be complex64 and bank float32, got "
-                        f"{F.dtype} and {bank.dtype}")
-    if bank.device != F.device:
-        raise ValueError("F and bank must lie on one device")
-    n = F.shape[1]
-    if not supports(n, pad, length):
-        raise ValueError(f"cwt_ifft_bank needs pow2 N in [2^14, 2^17] and "
-                         f"pad + length <= N, got N={n}, pad={pad}, "
-                         f"length={length}")
-    if F.device.type == "cpu":
-        return cwt_ifft_bank_ref(F, bank, pad=pad, length=length, det=det)
-    if F.device.type != "cuda":
-        raise ValueError(f"unsupported device {F.device}")
-    if not F.is_contiguous() or not bank.is_contiguous():
-        raise ValueError("F and bank must be contiguous")
-    num = bank.shape[0]
-    if row_h is not None and (
-            row_h.dtype != torch.int32 or row_h.shape != (num,)
-            or row_h.device != F.device or not row_h.is_contiguous()):
-        raise ValueError("row_h must be a contiguous (num,) int32 tensor on "
-                         "F's device")
-    require_sm90(F.device)
-    out = torch.empty((F.shape[0], num, length), dtype=torch.complex64,
-                      device=F.device)
-    return _launch(F, bank, row_h, out, pad, length, det)
+    with scope("af.kernel.cwt_ifft_bank"):
+        if F.dim() != 2 or bank.dim() != 2 or F.shape[1] != bank.shape[1]:
+            raise ValueError(f"F must be (B, N) and bank (num, N), got "
+                             f"{tuple(F.shape)} and {tuple(bank.shape)}")
+        if F.dtype != torch.complex64 or bank.dtype != torch.float32:
+            raise TypeError(f"F must be complex64 and bank float32, got "
+                            f"{F.dtype} and {bank.dtype}")
+        if bank.device != F.device:
+            raise ValueError("F and bank must lie on one device")
+        n = F.shape[1]
+        if not supports(n, pad, length):
+            raise ValueError(f"cwt_ifft_bank needs pow2 N in [2^14, 2^17] and "
+                             f"pad + length <= N, got N={n}, pad={pad}, "
+                             f"length={length}")
+        if F.device.type == "cpu":
+            return cwt_ifft_bank_ref(F, bank, pad=pad, length=length, det=det)
+        if F.device.type != "cuda":
+            raise ValueError(f"unsupported device {F.device}")
+        if not F.is_contiguous() or not bank.is_contiguous():
+            raise ValueError("F and bank must be contiguous")
+        num = bank.shape[0]
+        if row_h is not None and (
+                row_h.dtype != torch.int32 or row_h.shape != (num,)
+                or row_h.device != F.device or not row_h.is_contiguous()):
+            raise ValueError("row_h must be a contiguous (num,) int32 "
+                             "tensor on F's device")
+        require_sm90(F.device)
+        out = torch.empty((F.shape[0], num, length), dtype=torch.complex64,
+                          device=F.device)
+        return _launch(F, bank, row_h, out, pad, length, det)
 
 
 def _launch(F, bank, row_h, out, pad, length, det, cluster=None,

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from audioflux_torch.observe import scope
 from audioflux_torch.ops import _build
 from audioflux_torch.ops.backend import require_sm90
 from audioflux_torch.ops.frame import cal_time_length, frame_signal
@@ -240,12 +241,13 @@ def fft_fwd(xr: torch.Tensor, xi: torch.Tensor | None = None,
     (one packed complex transform, separated in the kernel); from 8192 on
     each real row is one complex transform of n/2 points, and only the
     bins asked for are written."""
-    n = _check_span(xr.shape[-1], n, lo, xi)
-    _check_rows("fft_fwd", n, xr=xr, xi=xi)
-    bins = _check_bins(n, bins, xi)
-    if not xr.is_cuda:
-        return fft_fwd_ref(xr, xi, bins, n, lo)
-    return _fwd(xr, xi, n, bins, lo=lo)
+    with scope("af.kernel.fft_fwd"):
+        n = _check_span(xr.shape[-1], n, lo, xi)
+        _check_rows("fft_fwd", n, xr=xr, xi=xi)
+        bins = _check_bins(n, bins, xi)
+        if not xr.is_cuda:
+            return fft_fwd_ref(xr, xi, bins, n, lo)
+        return _fwd(xr, xi, n, bins, lo=lo)
 
 
 def _fwd(xr, xi, n, bins=None, stages=3, lo=0):
@@ -329,26 +331,28 @@ def fft_inv(yr: torch.Tensor, yi: torch.Tensor, out_imag: bool = True,
     real-row route: Re(ifft(Y)) of any Y (the Hermitian part of Y is
     transformed), or of a half spectrum, one complex transform of n/2
     points a row."""
-    half = n is not None
-    if half:
-        n = _half_n(yr.shape[-1], n)
-        out_imag = False
-    n = _check_rows("fft_inv", n, yr=yr, yi=yi)
-    if not yr.is_cuda:
-        return fft_inv_ref(yr, yi, out_imag, n if half else None)
-    way = route(n, not out_imag)
-    if half and way != "real":     # the register route takes whole spectra
-        yr, yi = _hermitian(yr, yi, n)
-    xr = yr.new_empty(yr.shape[:-1] + (n,))
-    xi = torch.empty_like(xr) if out_imag else None
-    if yr.numel() == 0:
+    with scope("af.kernel.fft_inv"):
+        half = n is not None
+        if half:
+            n = _half_n(yr.shape[-1], n)
+            out_imag = False
+        n = _check_rows("fft_inv", n, yr=yr, yi=yi)
+        if not yr.is_cuda:
+            return fft_inv_ref(yr, yi, out_imag, n if half else None)
+        way = route(n, not out_imag)
+        if half and way != "real":     # the register route takes whole spectra
+            yr, yi = _hermitian(yr, yi, n)
+        xr = yr.new_empty(yr.shape[:-1] + (n,))
+        xi = torch.empty_like(xr) if out_imag else None
+        if yr.numel() == 0:
+            return xr, xi
+        _call(_lib().af_fft_pow2_inv, "fft_pow2 inverse", yr, n, yr.data_ptr(),
+              yi.data_ptr(), xr.data_ptr(),
+              None if xi is None else xi.data_ptr(),
+              extra=(yr.shape[-1], 3))
+        _count(fft_inv, way)
+        fft_inv.half_launches += int(yr.shape[-1] < n)
         return xr, xi
-    _call(_lib().af_fft_pow2_inv, "fft_pow2 inverse", yr, n, yr.data_ptr(),
-          yi.data_ptr(), xr.data_ptr(), None if xi is None else xi.data_ptr(),
-          extra=(yr.shape[-1], 3))
-    _count(fft_inv, way)
-    fft_inv.half_launches += int(yr.shape[-1] < n)
-    return xr, xi
 
 
 def fft_autocorr_ref(xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
@@ -365,17 +369,18 @@ def fft_autocorr(xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
 
     A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
     takes the plain version."""
-    n = _check_rows("fft_autocorr", xr=xr, xi=xi)
-    if not xr.is_cuda:
-        return fft_autocorr_ref(xr, xi)
-    out = torch.empty_like(xr)
-    if xr.numel() == 0:
+    with scope("af.kernel.fft_autocorr"):
+        n = _check_rows("fft_autocorr", xr=xr, xi=xi)
+        if not xr.is_cuda:
+            return fft_autocorr_ref(xr, xi)
+        out = torch.empty_like(xr)
+        if xr.numel() == 0:
+            return out
+        _call(_lib().af_fft_pow2_autocorr, "fft_pow2 autocorrelation", xr, n,
+              xr.data_ptr(), xi.data_ptr(), out.data_ptr())
+        fft_autocorr.launches += 1
+        fft_autocorr.cluster_launches += int(n == CLUSTER_N)
         return out
-    _call(_lib().af_fft_pow2_autocorr, "fft_pow2 autocorrelation", xr, n,
-          xr.data_ptr(), xi.data_ptr(), out.data_ptr())
-    fft_autocorr.launches += 1
-    fft_autocorr.cluster_launches += int(n == CLUSTER_N)
-    return out
 
 
 def resident_clusters(acf: bool = False) -> int:
@@ -421,28 +426,29 @@ def fft_autocorr_frames(frames: torch.Tensor, n: int,
 
     A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
     takes the plain version."""
-    L = frames.shape[-1]
-    if n not in FRAMES_N:
-        raise ValueError(f"fft_autocorr_frames needs n in {FRAMES_N}, "
-                         f"got {n}")
-    if not 1 <= L <= n // 2 or not 1 <= lags <= n:
-        raise ValueError(f"need 1 <= L <= n/2 and 1 <= lags <= n, got L "
-                         f"{L}, lags {lags}, n {n}")
-    if frames.dtype != torch.float32:
-        raise TypeError(f"frames must be float32, got {frames.dtype}")
-    if frames.device.type == "cpu":
-        return fft_autocorr_frames_ref(frames, n, lags)
-    if frames.device.type != "cuda":
-        raise ValueError(f"unsupported device {frames.device}")
-    out = frames.new_empty(frames.shape[:-1] + (lags,))
-    if out.numel() == 0:
+    with scope("af.kernel.fft_autocorr_frames"):
+        L = frames.shape[-1]
+        if n not in FRAMES_N:
+            raise ValueError(f"fft_autocorr_frames needs n in {FRAMES_N}, "
+                             f"got {n}")
+        if not 1 <= L <= n // 2 or not 1 <= lags <= n:
+            raise ValueError(f"need 1 <= L <= n/2 and 1 <= lags <= n, got L "
+                             f"{L}, lags {lags}, n {n}")
+        if frames.dtype != torch.float32:
+            raise TypeError(f"frames must be float32, got {frames.dtype}")
+        if frames.device.type == "cpu":
+            return fft_autocorr_frames_ref(frames, n, lags)
+        if frames.device.type != "cuda":
+            raise ValueError(f"unsupported device {frames.device}")
+        out = frames.new_empty(frames.shape[:-1] + (lags,))
+        if out.numel() == 0:
+            return out
+        rows = frames.reshape(-1, L).contiguous()
+        _call(_lib().af_fft_pow2_autocorr_frames, "fft_pow2 frames "
+              "autocorrelation", rows, n, rows.data_ptr(), out.data_ptr(),
+              extra=(L, lags))
+        fft_autocorr_frames.launches += 1
         return out
-    rows = frames.reshape(-1, L).contiguous()
-    _call(_lib().af_fft_pow2_autocorr_frames, "fft_pow2 frames "
-          "autocorrelation", rows, n, rows.data_ptr(), out.data_ptr(),
-          extra=(L, lags))
-    fft_autocorr_frames.launches += 1
-    return out
 
 
 def fft_autocorr_yin_ref(x: torch.Tensor, fft_length: int,
@@ -470,43 +476,45 @@ def fft_autocorr_yin(x: torch.Tensor, fft_length: int, slide_length: int,
 
     A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
     takes the plain version."""
-    if fft_length not in REGISTER_N:
-        raise ValueError(f"fft_autocorr_yin needs fft_length in "
-                         f"{REGISTER_N}, got {fft_length}")
-    if not 0 <= auto_length < fft_length or slide_length < 1:
-        raise ValueError(f"need 0 <= auto_length < fft_length and "
-                         f"slide_length >= 1, got {auto_length}, "
-                         f"{slide_length}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"x must be float32, got {x.dtype}")
-    samples = x.shape[-1]
-    frames = cal_time_length(samples, fft_length, slide_length)
-    if frames <= 0:
-        raise ValueError(f"signal too short to frame: n={samples} "
-                         f"fft_length={fft_length}")
-    if x.device.type == "cpu":
-        return fft_autocorr_yin_ref(x, fft_length, slide_length, auto_length)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    require_sm90(x.device)
-    lead = x.shape[:-1]
-    out = torch.empty(lead + (frames, fft_length - auto_length),
-                      dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
+    with scope("af.kernel.fft_autocorr_yin"):
+        if fft_length not in REGISTER_N:
+            raise ValueError(f"fft_autocorr_yin needs fft_length in "
+                             f"{REGISTER_N}, got {fft_length}")
+        if not 0 <= auto_length < fft_length or slide_length < 1:
+            raise ValueError(f"need 0 <= auto_length < fft_length and "
+                             f"slide_length >= 1, got {auto_length}, "
+                             f"{slide_length}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"x must be float32, got {x.dtype}")
+        samples = x.shape[-1]
+        frames = cal_time_length(samples, fft_length, slide_length)
+        if frames <= 0:
+            raise ValueError(f"signal too short to frame: n={samples} "
+                             f"fft_length={fft_length}")
+        if x.device.type == "cpu":
+            return fft_autocorr_yin_ref(x, fft_length, slide_length,
+                                        auto_length)
+        if x.device.type != "cuda":
+            raise ValueError(f"unsupported device {x.device}")
+        require_sm90(x.device)
+        lead = x.shape[:-1]
+        out = torch.empty(lead + (frames, fft_length - auto_length),
+                          dtype=torch.float32, device=x.device)
+        if out.numel() == 0:
+            return out
+        x2 = x.reshape(-1, samples).contiguous()
+        tw = twiddle_table(fft_length, x.device)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = _lib().af_fft_pow2_autocorr_yin(
+                x2.data_ptr(), out.data_ptr(), tw.data_ptr(), x2.shape[0],
+                samples, frames, slide_length, auto_length,
+                fft_length.bit_length() - 1, stream)
+        if err:
+            raise RuntimeError(f"fft_pow2 YIN autocorrelation launch failed: "
+                               f"CUDA error {err}")
+        fft_autocorr_yin.launches += 1
         return out
-    x2 = x.reshape(-1, samples).contiguous()
-    tw = twiddle_table(fft_length, x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().af_fft_pow2_autocorr_yin(
-            x2.data_ptr(), out.data_ptr(), tw.data_ptr(), x2.shape[0],
-            samples, frames, slide_length, auto_length,
-            fft_length.bit_length() - 1, stream)
-    if err:
-        raise RuntimeError(f"fft_pow2 YIN autocorrelation launch failed: "
-                           f"CUDA error {err}")
-    fft_autocorr_yin.launches += 1
-    return out
 
 
 fft_fwd.launches = 0

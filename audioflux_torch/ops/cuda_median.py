@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from audioflux_torch.observe import scope
 from audioflux_torch.ops import _build
 from audioflux_torch.ops.backend import require_sm90
 from audioflux_torch.ops.filter import median_filter
@@ -85,20 +86,21 @@ def median_filter_last_axis(x: torch.Tensor, order: int,
 
     A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
     takes the plain version."""
-    if order < 2 or order % 2 == 0:
-        return x
-    if x.dtype != torch.float32:
-        raise TypeError(f"x must be float32, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    if x.dim() == 0:
-        raise ValueError("x must have at least one axis")
-    if x.device.type == "cpu":
-        return median_filter_last_axis_ref(x, order, dim)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    require_sm90(x.device)
-    return _launch(x, order, dim)
+    with scope("af.kernel.median_filter_last_axis"):
+        if order < 2 or order % 2 == 0:
+            return x
+        if x.dtype != torch.float32:
+            raise TypeError(f"x must be float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError("x must be contiguous")
+        if x.dim() == 0:
+            raise ValueError("x must have at least one axis")
+        if x.device.type == "cpu":
+            return median_filter_last_axis_ref(x, order, dim)
+        if x.device.type != "cuda":
+            raise ValueError(f"unsupported device {x.device}")
+        require_sm90(x.device)
+        return _launch(x, order, dim)
 
 
 def _launch(x: torch.Tensor, order: int, dim: int,

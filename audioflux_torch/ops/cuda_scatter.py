@@ -14,6 +14,7 @@ import functools
 
 import torch
 
+from audioflux_torch.observe import scope
 from audioflux_torch.ops import _build
 from audioflux_torch.ops.backend import require_sm90
 
@@ -59,39 +60,42 @@ def columnar_scatter(values: torch.Tensor, fi: torch.Tensor,
 
     A CUDA tensor launches the kernel (sm_90 only, ``out_size <= 512``) or
     raises; a CPU tensor takes the plain version."""
-    if values.dim() != 3 or fi.shape != values.shape:
-        raise ValueError(f"values and fi must share a (B, R, T) shape, got "
-                         f"{tuple(values.shape)} and {tuple(fi.shape)}")
-    if values.dtype != torch.complex64 or fi.dtype != torch.int32:
-        raise TypeError(f"values must be complex64 and fi int32, got "
-                        f"{values.dtype} and {fi.dtype}")
-    if fi.device != values.device:
-        raise ValueError("values and fi must lie on one device")
-    if out_size < 1:
-        raise ValueError("out_size must be positive")
-    if values.device.type == "cpu":
-        return columnar_scatter_ref(values, fi, out_size)
-    if values.device.type != "cuda":
-        raise ValueError(f"unsupported device {values.device}")
-    if out_size > MAX_OUT_SIZE:
-        raise ValueError(f"the kernel takes out_size <= {MAX_OUT_SIZE}, got "
-                         f"{out_size}")
-    if not values.is_contiguous() or not fi.is_contiguous():
-        raise ValueError("values and fi must be contiguous")
-    require_sm90(values.device)
-    B, R, T = values.shape
-    out = torch.empty((B, out_size, T), dtype=torch.complex64,
-                      device=values.device)
-    if out.numel() == 0:
+    with scope("af.kernel.columnar_scatter"):
+        if values.dim() != 3 or fi.shape != values.shape:
+            raise ValueError(f"values and fi must share a (B, R, T) shape, "
+                             f"got {tuple(values.shape)} and "
+                             f"{tuple(fi.shape)}")
+        if values.dtype != torch.complex64 or fi.dtype != torch.int32:
+            raise TypeError(f"values must be complex64 and fi int32, got "
+                            f"{values.dtype} and {fi.dtype}")
+        if fi.device != values.device:
+            raise ValueError("values and fi must lie on one device")
+        if out_size < 1:
+            raise ValueError("out_size must be positive")
+        if values.device.type == "cpu":
+            return columnar_scatter_ref(values, fi, out_size)
+        if values.device.type != "cuda":
+            raise ValueError(f"unsupported device {values.device}")
+        if out_size > MAX_OUT_SIZE:
+            raise ValueError(f"the kernel takes out_size <= {MAX_OUT_SIZE}, "
+                             f"got {out_size}")
+        if not values.is_contiguous() or not fi.is_contiguous():
+            raise ValueError("values and fi must be contiguous")
+        require_sm90(values.device)
+        B, R, T = values.shape
+        out = torch.empty((B, out_size, T), dtype=torch.complex64,
+                          device=values.device)
+        if out.numel() == 0:
+            return out
+        with torch.cuda.device(values.device):
+            stream = torch.cuda.current_stream(values.device).cuda_stream
+            err = _lib()(values.data_ptr(), fi.data_ptr(), out.data_ptr(),
+                         B, R, out_size, T, stream)
+        if err:
+            raise RuntimeError(f"columnar_scatter launch failed: CUDA "
+                               f"error {err}")
+        columnar_scatter.launches += 1
         return out
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = _lib()(values.data_ptr(), fi.data_ptr(), out.data_ptr(), B, R,
-                     out_size, T, stream)
-    if err:
-        raise RuntimeError(f"columnar_scatter launch failed: CUDA error {err}")
-    columnar_scatter.launches += 1
-    return out
 
 
 columnar_scatter.launches = 0

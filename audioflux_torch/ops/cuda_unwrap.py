@@ -21,6 +21,7 @@ import functools
 import numpy as np
 import torch
 
+from audioflux_torch.observe import scope
 from audioflux_torch.ops import _build
 from audioflux_torch.ops.backend import f32_scalar, require_sm90
 
@@ -82,30 +83,31 @@ def unwrap_diff(phase: torch.Tensor) -> torch.Tensor:
 
     A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
     takes the plain version."""
-    if phase.dim() != 2 or phase.shape[1] < 1:
-        raise ValueError(f"phase must be (rows, T >= 1), got "
-                         f"{tuple(phase.shape)}")
-    if phase.dtype != torch.float32:
-        raise TypeError(f"phase must be float32, got {phase.dtype}")
-    if phase.device.type == "cpu":
-        return unwrap_diff_ref(phase)
-    if phase.device.type != "cuda":
-        raise ValueError(f"unsupported device {phase.device}")
-    if not phase.is_contiguous():
-        raise ValueError("phase must be contiguous")
-    require_sm90(phase.device)
-    out = torch.empty_like(phase)
-    if phase.numel() == 0:
+    with scope("af.kernel.unwrap_diff"):
+        if phase.dim() != 2 or phase.shape[1] < 1:
+            raise ValueError(f"phase must be (rows, T >= 1), got "
+                             f"{tuple(phase.shape)}")
+        if phase.dtype != torch.float32:
+            raise TypeError(f"phase must be float32, got {phase.dtype}")
+        if phase.device.type == "cpu":
+            return unwrap_diff_ref(phase)
+        if phase.device.type != "cuda":
+            raise ValueError(f"unsupported device {phase.device}")
+        if not phase.is_contiguous():
+            raise ValueError("phase must be contiguous")
+        require_sm90(phase.device)
+        out = torch.empty_like(phase)
+        if phase.numel() == 0:
+            return out
+        rows, T = phase.shape
+        with torch.cuda.device(phase.device):
+            stream = torch.cuda.current_stream(phase.device).cuda_stream
+            err = _lib().af_unwrap_diff(phase.data_ptr(), out.data_ptr(), rows,
+                                        T, stream)
+        if err:
+            raise RuntimeError(f"unwrap_diff launch failed: CUDA error {err}")
+        unwrap_diff.launches += 1
         return out
-    rows, T = phase.shape
-    with torch.cuda.device(phase.device):
-        stream = torch.cuda.current_stream(phase.device).cuda_stream
-        err = _lib().af_unwrap_diff(phase.data_ptr(), out.data_ptr(), rows,
-                                    T, stream)
-    if err:
-        raise RuntimeError(f"unwrap_diff launch failed: CUDA error {err}")
-    unwrap_diff.launches += 1
-    return out
 
 
 def bin_map(v_signed: torch.Tensor, fre_arr: torch.Tensor, *, scale_kind,
@@ -178,44 +180,46 @@ def synsq_bins(D: torch.Tensor, fre: torch.Tensor, scale_kind: str,
 
     A CUDA tensor launches the kernel (sm_90 only) or raises; a CPU tensor
     takes the plain version."""
-    if D.dtype != torch.complex64 or fre.dtype != torch.float32:
-        raise TypeError(f"D must be complex64 and fre float32, got {D.dtype} "
-                        f"and {fre.dtype}")
-    if D.dim() < 1 or D.shape[-1] < 1:
-        raise ValueError(f"D must be (..., T >= 1), got {tuple(D.shape)}")
-    if scale_kind not in SCALE_KINDS:
-        raise ValueError(f"unknown scale kind {scale_kind!r}")
-    if fre.dim() != 1 or not 1 <= num <= fre.shape[0]:
-        raise ValueError(f"fre must be 1-D with at least num >= 1 entries, "
-                         f"got {tuple(fre.shape)} for num={num}")
-    if fre.device != D.device:
-        raise ValueError("D and fre must lie on one device")
-    if D.device.type == "cpu":
-        return synsq_bins_ref(D, fre, scale_kind, num, samplate, thresh)
-    if D.device.type != "cuda":
-        raise ValueError(f"unsupported device {D.device}")
-    if not D.is_contiguous():
-        raise ValueError("D must be contiguous")
-    if fre.shape[0] > _MAX_FRE:
-        raise ValueError(f"the kernel takes at most {_MAX_FRE} bands")
-    require_sm90(D.device)
-    out = torch.empty(D.shape, dtype=torch.int32, device=D.device)
-    if D.numel() == 0:
+    with scope("af.kernel.synsq_bins"):
+        if D.dtype != torch.complex64 or fre.dtype != torch.float32:
+            raise TypeError(f"D must be complex64 and fre float32, got "
+                            f"{D.dtype} and {fre.dtype}")
+        if D.dim() < 1 or D.shape[-1] < 1:
+            raise ValueError(f"D must be (..., T >= 1), got {tuple(D.shape)}")
+        if scale_kind not in SCALE_KINDS:
+            raise ValueError(f"unknown scale kind {scale_kind!r}")
+        if fre.dim() != 1 or not 1 <= num <= fre.shape[0]:
+            raise ValueError(f"fre must be 1-D with at least num >= 1 "
+                             f"entries, got {tuple(fre.shape)} for "
+                             f"num={num}")
+        if fre.device != D.device:
+            raise ValueError("D and fre must lie on one device")
+        if D.device.type == "cpu":
+            return synsq_bins_ref(D, fre, scale_kind, num, samplate, thresh)
+        if D.device.type != "cuda":
+            raise ValueError(f"unsupported device {D.device}")
+        if not D.is_contiguous():
+            raise ValueError("D must be contiguous")
+        if fre.shape[0] > _MAX_FRE:
+            raise ValueError(f"the kernel takes at most {_MAX_FRE} bands")
+        require_sm90(D.device)
+        out = torch.empty(D.shape, dtype=torch.int32, device=D.device)
+        if D.numel() == 0:
+            return out
+        T = D.shape[-1]
+        fre = fre.contiguous()
+        with torch.cuda.device(D.device):
+            stream = torch.cuda.current_stream(D.device).cuda_stream
+            err = _lib().af_synsq_bins(
+                D.data_ptr(), out.data_ptr(), fre.data_ptr(), fre.shape[0],
+                D.numel() // T, T, SCALE_KINDS.index(scale_kind), num,
+                float(np.float32(samplate)),
+                0.0 if thresh is None else float(np.float32(thresh)),
+                int(thresh is not None), stream)
+        if err:
+            raise RuntimeError(f"synsq_bins launch failed: CUDA error {err}")
+        synsq_bins.launches += 1
         return out
-    T = D.shape[-1]
-    fre = fre.contiguous()
-    with torch.cuda.device(D.device):
-        stream = torch.cuda.current_stream(D.device).cuda_stream
-        err = _lib().af_synsq_bins(
-            D.data_ptr(), out.data_ptr(), fre.data_ptr(), fre.shape[0],
-            D.numel() // T, T, SCALE_KINDS.index(scale_kind), num,
-            float(np.float32(samplate)),
-            0.0 if thresh is None else float(np.float32(thresh)),
-            int(thresh is not None), stream)
-    if err:
-        raise RuntimeError(f"synsq_bins launch failed: CUDA error {err}")
-    synsq_bins.launches += 1
-    return out
 
 
 unwrap_diff.launches = 0

@@ -16,6 +16,7 @@ import functools
 import numpy as np
 import torch
 
+from audioflux_torch.observe import scope
 from audioflux_torch.ops import _build
 from audioflux_torch.ops.backend import as_tensor, require_sm90, resolve_device
 from audioflux_torch.ops.cuda_fft import twiddle_table
@@ -199,20 +200,21 @@ def fused_mel_mfcc(plan: FusedMelPlan, x, fast: bool = False):
     ``fast`` (the TPU kernel's bf16x3 mode) is accepted: both modes run the
     same fp32 kernel, which meets the tighter fp32 contract (1e-5 of the
     peak)."""
-    x = as_tensor(x, plan.device)
-    n = x.shape[-1]
-    if n < plan.n_fft:
-        raise ValueError(f"signal too short to frame: n={n} "
-                         f"fft_length={plan.n_fft}")
-    n_frames = (n - plan.n_fft) // plan.slide + 1
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, n).contiguous()
-    if x2.device.type == "cpu":
-        mel, cc = fused_mel_mfcc_ref(plan, x2)
-    else:
-        mel, cc = _launch(plan, x2, n_frames)
-    return (mel.reshape(lead + mel.shape[-2:]),
-            cc.reshape(lead + cc.shape[-2:]))
+    with scope("af.kernel.fused_mel_mfcc"):
+        x = as_tensor(x, plan.device)
+        n = x.shape[-1]
+        if n < plan.n_fft:
+            raise ValueError(f"signal too short to frame: n={n} "
+                             f"fft_length={plan.n_fft}")
+        n_frames = (n - plan.n_fft) // plan.slide + 1
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, n).contiguous()
+        if x2.device.type == "cpu":
+            mel, cc = fused_mel_mfcc_ref(plan, x2)
+        else:
+            mel, cc = _launch(plan, x2, n_frames)
+        return (mel.reshape(lead + mel.shape[-2:]),
+                cc.reshape(lead + cc.shape[-2:]))
 
 
 fused_mel_mfcc.launches = 0

@@ -26,6 +26,7 @@ from audioflux_torch.filterbank import scales as _sc
 from audioflux_torch.filterbank.auditory import auditory_filter_bank
 from audioflux_torch.filterbank.chroma import (chroma_fold_filter_bank,
                                                chroma_stft_filter_bank)
+from audioflux_torch.observe import scope
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.backend import as_tensor, resolve_device
 from audioflux_torch.ops.frame import cal_time_length, frame_signal
@@ -376,14 +377,15 @@ class Spectrogram:
         With ``is_continue`` set, consecutive calls carry the unconsumed
         sample tail across calls (streaming), like the C spectrogramObj.
         """
-        x = as_tensor(data_arr, self.device)
-        if self._carry is not None:
-            buf = self._carry.feed(x)
-            if buf is None:
-                return torch.zeros(x.shape[:-1] + (self.num, 0),
-                                   dtype=torch.float32, device=self.device)
-            x = buf
-        return self._run(x)
+        with scope(f"af.{type(self).__name__}.spectrogram"):
+            x = as_tensor(data_arr, self.device)
+            if self._carry is not None:
+                buf = self._carry.feed(x)
+                if buf is None:
+                    return torch.zeros(x.shape[:-1] + (self.num, 0),
+                                       dtype=torch.float32, device=self.device)
+                x = buf
+            return self._run(x)
 
     def spectrogram_mfcc_fused(self, data_arr, cc_num: int = 13,
                                tile: int = 200, fast: bool = True):
@@ -398,20 +400,21 @@ class Spectrogram:
         ``fast`` are accepted for call compatibility with the TPU package:
         both modes run fp32.  Returns ((..., num, T), (..., cc_num, T)).
         """
-        S = SpectralFilterBankScaleType
-        if (self.filter_bank is None
-                or self.filter_bank_type in (S.CHROMA, S.LOG_CHROMA)
-                or self.data_type != SpectralDataType.POWER
-                or self.norm_value != 1):
-            raise ValueError("fused path needs a plain POWER filterbank "
-                             "spectrogram; use .spectrogram()")
-        plan = self._fused_cache.get(cc_num)
-        if plan is None:
-            plan = FusedMelPlan(self.window, self.filter_bank,
-                                self._dct[:cc_num], self.slide_length,
-                                device=self.device)
-            self._fused_cache[cc_num] = plan
-        return fused_mel_mfcc(plan, data_arr, fast=fast)
+        with scope(f"af.{type(self).__name__}.spectrogram_mfcc_fused"):
+            S = SpectralFilterBankScaleType
+            if (self.filter_bank is None
+                    or self.filter_bank_type in (S.CHROMA, S.LOG_CHROMA)
+                    or self.data_type != SpectralDataType.POWER
+                    or self.norm_value != 1):
+                raise ValueError("fused path needs a plain POWER filterbank "
+                                 "spectrogram; use .spectrogram()")
+            plan = self._fused_cache.get(cc_num)
+            if plan is None:
+                plan = FusedMelPlan(self.window, self.filter_bank,
+                                    self._dct[:cc_num], self.slide_length,
+                                    device=self.device)
+                self._fused_cache[cc_num] = plan
+            return fused_mel_mfcc(plan, data_arr, fast=fast)
 
     def xxcc(self, m_data_arr, cc_num: int = 13,
              rectify_type: CepstralRectifyType = CepstralRectifyType.LOG):
