@@ -22,6 +22,7 @@ import torch
 
 from audioflux_torch.filterbank.auditory import (_linspace_f32, _revise_fre,
                                                  _scale_funcs)
+from audioflux_torch.observe import scope
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.backend import as_tensor, resolve_device
 from audioflux_torch.ops.cuda_cwt import (band_row_counts, cwt_ifft_bank,
@@ -312,14 +313,15 @@ class CWT:
             self._build_exec()
 
     def _run(self, data_arr, det: bool):
-        x = as_tensor(data_arr, self.device)
-        if x.shape[-1] != self.data_length:
-            raise ValueError(
-                f"data length must be exactly {self.data_length}")
-        return _cwt_conv_body(
-            x, self._det_bank_t if det else self._bank_t, det=det,
-            pad_length=self.pad_length, data_length=self.data_length,
-            row_h=self._det_row_h_t if det else self._row_h_t)
+        with scope("af.CWT.cwt_det" if det else "af.CWT.cwt"):
+            x = as_tensor(data_arr, self.device)
+            if x.shape[-1] != self.data_length:
+                raise ValueError(
+                    f"data length must be exactly {self.data_length}")
+            return _cwt_conv_body(
+                x, self._det_bank_t if det else self._bank_t, det=det,
+                pad_length=self.pad_length, data_length=self.data_length,
+                row_h=self._det_row_h_t if det else self._row_h_t)
 
     def cwt(self, data_arr):
         return self._run(data_arr, det=False)

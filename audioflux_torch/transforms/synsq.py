@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from audioflux_torch.observe import scope
 from audioflux_torch.ops.backend import (as_tensor, f32_scalar,
                                          resolve_device)
 from audioflux_torch.ops.cuda_scatter import MAX_OUT_SIZE
@@ -136,17 +137,18 @@ class Synsq:
         ascending band frequencies.  ``force_xla_unwrap`` pins the PyTorch
         chain with the prefix-sum form of the unwrap also on the card (the
         accuracy gates compare the kernel path with it)."""
-        kind = scale_kind(filter_bank_type)
-        if isinstance(m_data_arr, torch.Tensor):
-            if m_data_arr.device.type != self.device.type:
-                raise ValueError(f"tensor on {m_data_arr.device}, plan on "
-                                 f"{self.device}")
-            D = m_data_arr.to(torch.complex64)
-        else:
-            D = torch.from_numpy(
-                np.array(m_data_arr, dtype=np.complex64)).to(self.device)
-        return _synsq_impl(D, as_tensor(fre_arr, self.device),
-                           scale_kind=kind, num=self.num,
-                           samplate=float(self.samplate),
-                           thresh=self.thresh, order=self.order,
-                           force_xla_unwrap=force_xla_unwrap)
+        with scope("af.Synsq.synsq"):
+            kind = scale_kind(filter_bank_type)
+            if isinstance(m_data_arr, torch.Tensor):
+                if m_data_arr.device.type != self.device.type:
+                    raise ValueError(f"tensor on {m_data_arr.device}, plan "
+                                     f"on {self.device}")
+                D = m_data_arr.to(torch.complex64)
+            else:
+                D = torch.from_numpy(
+                    np.array(m_data_arr, dtype=np.complex64)).to(self.device)
+            return _synsq_impl(D, as_tensor(fre_arr, self.device),
+                               scale_kind=kind, num=self.num,
+                               samplate=float(self.samplate),
+                               thresh=self.thresh, order=self.order,
+                               force_xla_unwrap=force_xla_unwrap)

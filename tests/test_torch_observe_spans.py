@@ -22,7 +22,11 @@ from benchmark import harness, traffic
 CPU = [torch.profiler.ProfilerActivity.CPU]
 
 # the benchmark's cells at a test's size: (clips, samples) a call
-CELLS = {"mel_mfcc.corpus": (3, 2048 + 512 * 7), "mir.corpus": (2, 64000)}
+CELLS = {"mel_mfcc.corpus": (3, 2048 + 512 * 7), "mir.corpus": (2, 64000),
+         "wavelet.corpus": (1, 1 << 13)}
+# plan arguments cut with the request where the plan fixes its length:
+# 2^13 samples, padded to 2^14, still take the CWT kernel's wrapper
+PLANS = {"wavelet.corpus": {"radix2_exp": 13}}
 
 # the entry spans a call of each cell opens, and how often
 ENTRY_SPANS = {
@@ -32,6 +36,7 @@ ENTRY_SPANS = {
                    "af.Spectral.flux": 1,
                    "af.peak_pick": CELLS["mir.corpus"][0],
                    "af.HPSS.hpss": 1},
+    "wavelet.corpus": {"af.CWT.cwt": 1, "af.Synsq.synsq": 1},
 }
 
 
@@ -46,6 +51,8 @@ def _cell_call(cell):
     wl = dict(parts["workload"], pool=1)
     wl["batch"], wl["samples"] = CELLS[cell]
     x = traffic.make_pool(wl, 2**31 + 5, "cpu")[0]
+    for plan in parts["config"]["plans"].values():
+        plan.update(PLANS.get(cell, {}))
     entry = harness.build_entry(parts["config"], "cpu")
     return lambda: entry.call(x, _NoCallerSpans())
 
@@ -147,6 +154,15 @@ def test_each_entry_span_is_recorded_once_a_call(cell, tmp_path):
         assert any(a <= s and e <= b for _, a, b in outer)
     if cell == "mir.corpus":     # HPSS's two medians
         assert counts["af.kernel.median_filter_last_axis"] == 2
+    if cell == "wavelet.corpus":  # the CWT's kernel in its span, the
+        # squeeze's two in theirs
+        spans_of = {n: (a, b) for n, a, b in spans}
+        for entry, kernel in (("af.CWT.cwt", "cwt_ifft_bank"),
+                              ("af.Synsq.synsq", "synsq_bins"),
+                              ("af.Synsq.synsq", "columnar_scatter")):
+            assert counts[f"af.kernel.{kernel}"] == 1
+            (a, b), (s, e) = spans_of[entry], spans_of[f"af.kernel.{kernel}"]
+            assert a <= s and e <= b
 
 
 @pytest.mark.parametrize("name", sorted(KERNELS))
