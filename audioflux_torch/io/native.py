@@ -2,30 +2,27 @@
 
 The API of ``audioflux_tpu/io/native.py`` over the same source.  The
 library is compiled with g++ at first use into
-``audioflux_torch/_build/libafio-<hash>.so`` (the hash covers the source
-and the flags, so an edited source is rebuilt and a stale library never
-loaded; the JAX package builds its own copy elsewhere, and the two never
-race on one file).  A failed build or load raises, with g++'s message,
-when the native path is asked for; :func:`available` reports it.
+``audioflux_torch/_build/libafio-<hash>.so`` by ``_host_build`` (the JAX
+package builds its own copy elsewhere, and the two never race on one
+file).  A failed build or load raises, with g++'s message, when the
+native path is asked for; :func:`available` reports it.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
 
+from audioflux_torch import _host_build
+
 __all__ = ["available", "wav_info", "wav_read", "wav_write", "load_batch",
            "PrefetchLoader", "library_path"]
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG.parent / "native" / "wavio.cpp"
-BUILD_DIR = _PKG / "_build"
+SOURCE = Path(__file__).resolve().parents[2] / "native" / "wavio.cpp"
+BUILD_DIR = _host_build.BUILD_DIR
 FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 
 _lock = threading.Lock()
@@ -34,31 +31,14 @@ _lib = None
 
 def library_path() -> Path:
     """Where the library of the current source and flags is built."""
-    if not SOURCE.exists():
-        raise OSError(f"native IO source {SOURCE} is missing")
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libafio-{h.hexdigest()[:16]}.so"
-
-
-def _build(out: Path) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(["g++", *FLAGS, str(SOURCE), "-o", str(tmp)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise OSError(f"g++ failed to build {out.name}:\n{proc.stderr}")
-    os.replace(tmp, out)
+    return _host_build.library_path(SOURCE, "libafio", FLAGS, BUILD_DIR)
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            path = library_path()
-            if not path.exists():
-                _build(path)
-            lib = ctypes.CDLL(str(path))
+            lib = _host_build.load(SOURCE, "libafio", FLAGS, BUILD_DIR)
             lib.afio_wav_info.restype = ctypes.c_long
             lib.afio_wav_read.restype = ctypes.c_long
             lib.afio_wav_write.restype = ctypes.c_int

@@ -5,23 +5,36 @@ Counterpart of ``audioflux_tpu/mir/onset.py`` (reference
 (:_onsetObj_dealFilterArr), one of 11 novelty functions (the ``Spectral``
 features, on the plan's device), min-subtract/max-divide normalization,
 then sequential peak-picking with preMax/postMax/preAvg/postAvg/wait/delta
-(:__peakPick).  The peak-pick runs in numpy on the fetched envelope: it is
-sequential through ``wait``, in the reference too.
+(:__peakPick).  The peak-pick runs on the host on the fetched envelope: it
+is sequential through ``wait``, in the reference too.  A float32 envelope
+takes one compiled pass (``csrc/peak_pick.cpp``, built with g++ at first
+use); any other takes the numpy form, ``peak_pick_ref``, whose points the
+compiled pass equals bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
+import threading
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
+from audioflux_torch import _host_build
 from audioflux_torch.features.spectral import Spectral
 from audioflux_torch.observe import scope
 from audioflux_torch.ops.backend import as_tensor, resolve_device
 from audioflux_torch.ops.filter import max_filter
 from audioflux_torch.types import NoveltyType
 
-__all__ = ["Onset", "NoveltyParam", "peak_pick"]
+__all__ = ["Onset", "NoveltyParam", "peak_pick", "peak_pick_ref"]
+
+_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "peak_pick.cpp"
+# no FMA or reassociation: the sums keep numpy's float32 order
+_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
+_lock = threading.Lock()
+_lib = None
 
 
 @dataclass
@@ -37,50 +50,99 @@ class NoveltyParam:
     gamma: float = 1.0
 
 
+def _native() -> ctypes.CDLL:
+    """The compiled peak pick, built with g++ at its first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = _host_build.load(_SOURCE, "libafpp", _FLAGS)
+            i64, fp = ctypes.c_int64, ctypes.c_void_p
+            lib.afpp_peak_pick.restype = i64
+            lib.afpp_peak_pick.argtypes = [fp, i64, i64, i64, i64, i64, i64,
+                                           ctypes.c_float, fp]
+            lib.afpp_window_means.restype = None
+            lib.afpp_window_means.argtypes = [fp, i64, i64, i64, fp]
+            _lib = lib
+        return _lib
+
+
 def peak_pick(env: np.ndarray, pre_max: int, post_max: int, pre_avg: int,
               post_avg: int, wait: int, delta: float) -> np.ndarray:
     """Peak-pick (onset_algorithm.c:__peakPick) of a 1-D numpy envelope.
+
+    A 1-D float32 envelope whose threshold numpy adds in float32 (``delta``
+    a Python number or a float32), with windows >= 0 and a max window of
+    at least one row, takes the compiled pass and counts in
+    ``peak_pick.native_calls``; any other input takes
+    :func:`peak_pick_ref`.  The points are the same either way.
+    """
+    with scope("af.peak_pick"):
+        env = np.asarray(env)
+        if not (env.dtype == np.float32 and env.ndim == 1
+                and np.result_type(env, delta) == np.float32
+                and min(pre_max, post_max, pre_avg, post_avg) >= 0
+                and pre_max + post_max > 0):
+            return peak_pick_ref(env, pre_max, post_max, pre_avg, post_avg,
+                                 wait, delta)
+        peak_pick.native_calls += 1
+        env = np.ascontiguousarray(env)
+        n = len(env)
+        out = np.empty(n, np.int64)
+        # windows and waits past the row's length clamp to it
+        k = _native().afpp_peak_pick(
+            env.ctypes.data, n, min(pre_max, n), min(post_max, n),
+            min(pre_avg, n), min(post_avg, n), max(min(wait, n), -1), delta,
+            out.ctypes.data)
+        return out[:k].copy()
+
+
+peak_pick.native_calls = 0
+
+
+def peak_pick_ref(env: np.ndarray, pre_max: int, post_max: int, pre_avg: int,
+                  post_avg: int, wait: int, delta: float) -> np.ndarray:
+    """The numpy form of :func:`peak_pick`, and the plain version its
+    compiled pass is held to.
 
     The local-max and local-mean gates are vectorized (sliding windows,
     the same pairwise-mean semantics as the per-index slice form); only
     the ``wait`` suppression is sequential, over the surviving candidates.
     """
-    with scope("af.peak_pick"):
-        env = np.asarray(env)
-        n = len(env)
-        if n == 0:
-            return np.asarray([], np.int64)
-        swv = np.lib.stride_tricks.sliding_window_view
+    env = np.asarray(env)
+    n = len(env)
+    if n == 0:
+        return np.asarray([], np.int64)
+    swv = np.lib.stride_tricks.sliding_window_view
 
-        # max over the clamped window [max(i-pre_max,0), min(i-1+post_max,n-1)]
-        # (-inf padding == clamping for a max)
-        w1 = pre_max + post_max
-        pad1 = np.concatenate([np.full(pre_max, -np.inf, env.dtype), env,
-                               np.full(max(post_max - 1, 0), -np.inf,
-                                       env.dtype)])
-        is_max = env == swv(pad1, w1)[:n].max(axis=-1)
+    # max over the clamped window [max(i-pre_max,0), min(i-1+post_max,n-1)]
+    # (-inf padding == clamping for a max)
+    w1 = pre_max + post_max
+    pad1 = np.concatenate([np.full(pre_max, -np.inf, env.dtype), env,
+                           np.full(max(post_max - 1, 0), -np.inf,
+                                   env.dtype)])
+    is_max = env == swv(pad1, w1)[:n].max(axis=-1)
 
-        # mean over the clamped window: interior rows by a sliding view (the
-        # same np.mean reduction as env[s2:e2+1].mean()), truncated edge
-        # windows directly
-        w2 = pre_avg + post_avg
-        mean_ok = np.zeros(n, bool)
-        lo, hi = pre_avg, n - post_avg  # rows whose window is untruncated
-        if hi > lo:
-            mean_ok[lo:hi] = env[lo:hi] >= (
-                swv(env, w2)[:hi - lo].mean(axis=-1) + delta)
-        for i in list(range(min(lo, n))) + list(range(max(hi, 0), n)):
-            s2 = max(i - pre_avg, 0)
-            e2 = i - 1 + post_avg if i + post_avg < n else n - 1
-            mean_ok[i] = env[i] >= env[s2:e2 + 1].mean() + delta
+    # mean over the clamped window: interior rows by a sliding view (the
+    # same np.mean reduction as env[s2:e2+1].mean()), truncated edge
+    # windows directly
+    w2 = pre_avg + post_avg
+    mean_ok = np.zeros(n, bool)
+    lo, hi = pre_avg, n - post_avg  # rows whose window is untruncated
+    if hi > lo:
+        mean_ok[lo:hi] = env[lo:hi] >= (
+            swv(env, w2)[:hi - lo].mean(axis=-1) + delta)
+    for i in list(range(min(lo, n))) + list(range(max(hi, 0), n)):
+        s2 = max(i - pre_avg, 0)
+        e2 = i - 1 + post_avg if i + post_avg < n else n - 1
+        mean_ok[i] = env[i] >= env[s2:e2 + 1].mean() + delta
 
-        points = []
-        pre = -wait - 1
-        for i in np.flatnonzero(is_max & mean_ok):
-            if i - pre > wait:
-                points.append(i)
-                pre = i
-        return np.asarray(points, np.int64)
+    points = []
+    pre = -wait - 1
+    for i in np.flatnonzero(is_max & mean_ok):
+        if i - pre > wait:
+            points.append(i)
+            pre = i
+    return np.asarray(points, np.int64)
 
 
 class Onset:
