@@ -640,7 +640,7 @@ autocorr_reg_kernel(AcfArgs g, const float2* __restrict__ tw) {
 // points, xr and xi (xi null: zeros, the C entry's inverse of a spectrum
 // with no imaginary part) -> yr and yi, natural order.  `stages` 1 stores
 // what was loaded (a timing cut: the bytes without the arithmetic), 3 is
-// the whole kernel (2 selects the kViaBuf instantiation, which runs whole).
+// the whole kernel.
 struct RowArgs {
   const float* xr;
   const float* xi;
@@ -660,15 +660,13 @@ struct RowArgs {
 // Z[g + 64 ka + 4096 kb] with thread g C + jb at v[ka]; for a fixed ka a
 // warp's lanes hold 32 / C consecutive g at each of the C values of kb, so
 // the stores straight from registers fill whole 32-byte sectors of yr and
-// yi.  kViaBuf (the forward only, a measurement): each plane of the row
-// goes through the transpose buffer instead and leaves as 16-byte words.
-template <int C, bool kInv, bool kViaBuf>
+// yi.
+template <int C, bool kInv>
 __global__ void __launch_bounds__(64 * C)
 row_reg_kernel(RowArgs a, const float2* __restrict__ tw) {
   using R = afx::RealRoute<C>;
   constexpr int N = R::kN, T = R::kB;
   constexpr int kImag = N + 8;      // the staged imaginary plane starts here
-  constexpr int kSkew = 32 / C;     // the buffer's skew a 4096 (kViaBuf)
   constexpr float kScale = kInv ? 1.f / N : 1.f;
   constexpr float kSign = kInv ? -1.f : 1.f;
   extern __shared__ float4 smem4[];
@@ -730,48 +728,17 @@ row_reg_kernel(RowArgs a, const float2* __restrict__ tw) {
     int tl = t;
     asm volatile("" : "+r"(tl));
     const int g = tl / C, kb = bit_reverse(tl % C, R::kLogC);
-    if constexpr (!kViaBuf) {
-      float* const oyr = a.yr + row * N + g + 4096 * kb;
-      float* const oyi = a.yi + row * N + g + 4096 * kb;
-      // the stores in a loop of their own after the transform: issued
-      // from inside its last pass, between the lanes' shuffles, they made
-      // the forward at 16384 a sixth slower
-      afx::real_route_transform<C, false>(v, buf, fac, tl, a.stages > 1,
-                                          [](int, float2) {});
+    float* const oyr = a.yr + row * N + g + 4096 * kb;
+    float* const oyi = a.yi + row * N + g + 4096 * kb;
+    // the stores in a loop of their own after the transform: issued from
+    // inside its last pass, between the lanes' shuffles, they made the
+    // forward at 16384 a sixth slower
+    afx::real_route_transform<C, false>(v, buf, fac, tl, a.stages > 1,
+                                        [](int, float2) {});
 #pragma unroll
-      for (int ka = 0; ka < 64; ++ka) {
-        oyr[64 * ka] = kScale * v[ka].x;
-        oyi[64 * ka] = kSign * kScale * v[ka].y;
-      }
-    } else {
-      // bin k at buf[k + (k >> 12) kSkew]: the lanes of a warp write 32
-      // distinct banks; a plane at a time, read back as 16-byte words
-      float* const col = buf + g + (4096 + kSkew) * kb;
-      afx::real_route_transform<C, false>(
-          v, buf, fac, tl, true,
-          [&](int ka, float2 z) { col[64 * ka] = kScale * z.x; });
-      const bool wide = ((reinterpret_cast<uintptr_t>(a.yr) |
-                          reinterpret_cast<uintptr_t>(a.yi)) & 15) == 0;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        if (c) {
-#pragma unroll
-          for (int ka = 0; ka < 64; ++ka) {
-            col[64 * ka] = kSign * kScale * v[ka].y;
-          }
-        }
-        __syncthreads();  // the plane stands in the buffer
-        float* const out = (c ? a.yi : a.yr) + row * N;
-        if (wide) {
-          for (int i = 4 * t; i < N; i += 4 * T) {
-            *reinterpret_cast<float4*>(out + i) =
-                *reinterpret_cast<const float4*>(buf + i + (i >> 12) * kSkew);
-          }
-        } else {
-          for (int i = t; i < N; i += T) out[i] = buf[i + (i >> 12) * kSkew];
-        }
-        __syncthreads();  // the buffer is free
-      }
+    for (int ka = 0; ka < 64; ++ka) {
+      oyr[64 * ka] = kScale * v[ka].x;
+      oyi[64 * ka] = kSign * kScale * v[ka].y;
     }
   }
 }
@@ -1548,12 +1515,12 @@ int launch_real(const float* ir, const float* ii, float* or_, float* oi,
 // Complex rows at n = 4096 C: persistent blocks of 64 C threads, each
 // with its staging buffer of two planes, the transpose buffer and an
 // mbarrier.
-template <int C, bool kInv, bool kViaBuf>
+template <int C, bool kInv>
 int launch_row(const RowArgs& a, const float2* tw, cudaStream_t st) {
   using R = afx::RealRoute<C>;
   constexpr int kSmem = 4 * (2 * (R::kN + 8) + R::kBuf) + 16;
   static_assert(kSmem <= 232448, "a block's shared memory on sm_90");
-  auto kernel = row_reg_kernel<C, kInv, kViaBuf>;
+  auto kernel = row_reg_kernel<C, kInv>;
   unsigned grid = 0;
   cudaError_t e = persistent_grid(kernel, kSmem, a.batch, 1, &grid, R::kB);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1562,21 +1529,14 @@ int launch_row(const RowArgs& a, const float2* tw, cudaStream_t st) {
 }
 
 // The complex rows at n = 8192 (C = 2) and 16384 (C = 4): stages 3 the
-// whole kernel, 1 its load and store (a cut), 2 the forward with its
-// stores through the transpose buffer (a measurement).
+// whole kernel, 1 its load and store (a cut).
 int launch_rows(const RowArgs& a, const float2* tw, int log2n, bool forward,
                 cudaStream_t st) {
   const bool c2 = log2n == kRealMinLog2;
   if (!forward) {
-    return c2 ? launch_row<2, true, false>(a, tw, st)
-              : launch_row<4, true, false>(a, tw, st);
+    return c2 ? launch_row<2, true>(a, tw, st) : launch_row<4, true>(a, tw, st);
   }
-  if (a.stages == 2) {
-    return c2 ? launch_row<2, false, true>(a, tw, st)
-              : launch_row<4, false, true>(a, tw, st);
-  }
-  return c2 ? launch_row<2, false, false>(a, tw, st)
-            : launch_row<4, false, false>(a, tw, st);
+  return c2 ? launch_row<2, false>(a, tw, st) : launch_row<4, false>(a, tw, st);
 }
 
 // The autocorrelation in registers at n = 4096 C: persistent blocks of
@@ -1676,13 +1636,13 @@ int transform(const float* xr, const float* xi, float* yr, float* yi,
   if (batch <= 0) return 0;
   const bool real_route =
       log2n >= kRealMinLog2 && (forward ? xi == nullptr : yi == nullptr);
-  // the complex rows at 8192, 16384 (row_reg_kernel) take cuts too, and
-  // always write an imaginary output
+  // the complex rows at 8192, 16384 (row_reg_kernel) take the cut of
+  // stage 1, and always write an imaginary output
   const bool rows =
       !real_route && log2n >= kRealMinLog2 && log2n < kClusterLog2;
   if (bad_args(batch, log2n) || stages < 1 || stages > 3 ||
       (stages != 3 && log2n == kClusterLog2 && !real_route) ||
-      (rows && (yi == nullptr || (stages == 2 && !forward)))) {
+      (rows && (yi == nullptr || stages == 2))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n = 1 << log2n;
@@ -1730,8 +1690,7 @@ int transform(const float* xr, const float* xi, float* yr, float* yi,
 // in registers).  stages: 3 (the whole transform), or at n = 2048 and
 // 4096 and on the real-row route 1 or 2 to cut the kernel for timing (the
 // output is then not the spectrum); on the complex rows at 8192 and 16384
-// 1 (the load and the store alone) or, for the forward, 2 (the spectrum,
-// its stores through the transpose buffer).  Returns the CUDA error code
+// 1 (the load and the store alone).  Returns the CUDA error code
 // of the launch (0 on success).
 extern "C" int af_fft_pow2_fwd(const float* xr, const float* xi, float* yr,
                                float* yi, const void* tw, long long batch,

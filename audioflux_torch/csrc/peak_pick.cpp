@@ -1,6 +1,6 @@
 // Peak pick of a float32 onset envelope (reference onset_algorithm.c
 // :__peakPick) in one sequential pass on the host, built with g++ by
-// audioflux_torch/_host_build.py and bound in audioflux_torch/mir/onset.py.
+// audioflux_torch/ops/_build.py and bound in audioflux_torch/mir/onset.py.
 //
 // Row i is a point when, in this order,
 //   - it lies more than `wait` rows after the last point;

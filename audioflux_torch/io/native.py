@@ -2,7 +2,7 @@
 
 The API of ``audioflux_tpu/io/native.py`` over the same source.  The
 library is compiled with g++ at first use into
-``audioflux_torch/_build/libafio-<hash>.so`` by ``_host_build`` (the JAX
+``audioflux_torch/_build/libafio-<hash>.so`` by ``ops/_build.py`` (the JAX
 package builds its own copy elsewhere, and the two never race on one
 file).  A failed build or load raises, with g++'s message, when the
 native path is asked for; :func:`available` reports it.
@@ -11,50 +11,40 @@ native path is asked for; :func:`available` reports it.
 from __future__ import annotations
 
 import ctypes
-import threading
+import functools
 from pathlib import Path
 
 import numpy as np
 
-from audioflux_torch import _host_build
+from audioflux_torch.ops import _build
 
 __all__ = ["available", "wav_info", "wav_read", "wav_write", "load_batch",
            "PrefetchLoader", "library_path"]
 
-SOURCE = Path(__file__).resolve().parents[2] / "native" / "wavio.cpp"
-BUILD_DIR = _host_build.BUILD_DIR
-FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17", "-pthread"]
-
-_lock = threading.Lock()
-_lib = None
-
 
 def library_path() -> Path:
     """Where the library of the current source and flags is built."""
-    return _host_build.library_path(SOURCE, "libafio", FLAGS, BUILD_DIR)
+    return _build.library_path("libafio")
 
 
+@functools.lru_cache(maxsize=None)
 def _load() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = _host_build.load(SOURCE, "libafio", FLAGS, BUILD_DIR)
-            lib.afio_wav_info.restype = ctypes.c_long
-            lib.afio_wav_read.restype = ctypes.c_long
-            lib.afio_wav_write.restype = ctypes.c_int
-            lib.afio_load_batch.restype = ctypes.c_int
-            lib.afio_pool_create.restype = ctypes.c_void_p
-            lib.afio_pool_create.argtypes = [ctypes.c_int]
-            lib.afio_pool_submit.restype = ctypes.c_int
-            lib.afio_pool_submit.argtypes = [
-                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_float), ctypes.c_long]
-            lib.afio_pool_wait.restype = ctypes.c_int
-            lib.afio_pool_wait.argtypes = [ctypes.c_void_p, ctypes.c_int]
-            lib.afio_pool_destroy.restype = None
-            lib.afio_pool_destroy.argtypes = [ctypes.c_void_p]
-            _lib = lib
-        return _lib
+    lib = _build.load("libafio")
+    lib.afio_wav_info.restype = ctypes.c_long
+    lib.afio_wav_read.restype = ctypes.c_long
+    lib.afio_wav_write.restype = ctypes.c_int
+    lib.afio_load_batch.restype = ctypes.c_int
+    lib.afio_pool_create.restype = ctypes.c_void_p
+    lib.afio_pool_create.argtypes = [ctypes.c_int]
+    lib.afio_pool_submit.restype = ctypes.c_int
+    lib.afio_pool_submit.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_long]
+    lib.afio_pool_wait.restype = ctypes.c_int
+    lib.afio_pool_wait.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.afio_pool_destroy.restype = None
+    lib.afio_pool_destroy.argtypes = [ctypes.c_void_p]
+    return lib
 
 
 def available() -> bool:

@@ -15,26 +15,19 @@ compiled pass equals bit for bit.
 from __future__ import annotations
 
 import ctypes
-import threading
+import functools
 from dataclasses import dataclass
-from pathlib import Path
 
 import numpy as np
 
-from audioflux_torch import _host_build
 from audioflux_torch.features.spectral import Spectral
 from audioflux_torch.observe import scope
+from audioflux_torch.ops import _build
 from audioflux_torch.ops.backend import as_tensor, resolve_device
 from audioflux_torch.ops.filter import max_filter
 from audioflux_torch.types import NoveltyType
 
 __all__ = ["Onset", "NoveltyParam", "peak_pick", "peak_pick_ref"]
-
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "peak_pick.cpp"
-# no FMA or reassociation: the sums keep numpy's float32 order
-_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off"]
-_lock = threading.Lock()
-_lib = None
 
 
 @dataclass
@@ -50,20 +43,17 @@ class NoveltyParam:
     gamma: float = 1.0
 
 
+@functools.lru_cache(maxsize=None)
 def _native() -> ctypes.CDLL:
     """The compiled peak pick, built with g++ at its first use."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = _host_build.load(_SOURCE, "libafpp", _FLAGS)
-            i64, fp = ctypes.c_int64, ctypes.c_void_p
-            lib.afpp_peak_pick.restype = i64
-            lib.afpp_peak_pick.argtypes = [fp, i64, i64, i64, i64, i64, i64,
-                                           ctypes.c_float, fp]
-            lib.afpp_window_means.restype = None
-            lib.afpp_window_means.argtypes = [fp, i64, i64, i64, fp]
-            _lib = lib
-        return _lib
+    lib = _build.load("libafpp")
+    i64, fp = ctypes.c_int64, ctypes.c_void_p
+    lib.afpp_peak_pick.restype = i64
+    lib.afpp_peak_pick.argtypes = [fp, i64, i64, i64, i64, i64, i64,
+                                   ctypes.c_float, fp]
+    lib.afpp_window_means.restype = None
+    lib.afpp_window_means.argtypes = [fp, i64, i64, i64, fp]
+    return lib
 
 
 def peak_pick(env: np.ndarray, pre_max: int, post_max: int, pre_avg: int,

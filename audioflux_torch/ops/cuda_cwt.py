@@ -28,7 +28,6 @@ import torch
 
 from audioflux_torch.observe import scope
 from audioflux_torch.ops import _build
-from audioflux_torch.ops.backend import require_sm90
 from audioflux_torch.ops.cuda_fft import twiddle_table
 
 __all__ = ["supports", "band_row_counts", "cluster_plan",
@@ -185,7 +184,6 @@ def cwt_ifft_bank(F: torch.Tensor, bank: torch.Tensor, *, pad: int,
                 or row_h.device != F.device or not row_h.is_contiguous()):
             raise ValueError("row_h must be a contiguous (num,) int32 "
                              "tensor on F's device")
-        require_sm90(F.device)
         out = torch.empty((F.shape[0], num, length), dtype=torch.complex64,
                           device=F.device)
         return _launch(F, bank, row_h, out, pad, length, det)
@@ -213,17 +211,12 @@ def _launch(F, bank, row_h, out, pad, length, det, cluster=None,
         index = torch.cuda.current_device()
     if n_clusters is None:
         n_clusters = resident_clusters(n, cluster, index)
-    tw = twiddle_table(n, F.device)
-    with torch.cuda.device(F.device):
-        stream = torch.cuda.current_stream(F.device).cuda_stream
-        err = _lib().af_cwt_ifft_bank(
-            F.data_ptr(), bank.data_ptr(),
-            None if row_h is None else row_h.data_ptr(), out.data_ptr(),
-            tw.data_ptr(), F.shape[0], bank.shape[0], n.bit_length() - 1,
-            pad, length, int(bool(det)), cluster.bit_length() - 1,
-            int(n_clusters), stages, stream)
-    if err:
-        raise RuntimeError(f"cwt_ifft_bank launch failed: CUDA error {err}")
+    _build.launch(
+        _lib().af_cwt_ifft_bank, "cwt_ifft_bank", F.device, F.data_ptr(),
+        bank.data_ptr(), None if row_h is None else row_h.data_ptr(),
+        out.data_ptr(), twiddle_table(n, F.device).data_ptr(), F.shape[0],
+        bank.shape[0], n.bit_length() - 1, pad, length, int(bool(det)),
+        cluster.bit_length() - 1, int(n_clusters), stages)
     cwt_ifft_bank.launches += 1
     return out
 

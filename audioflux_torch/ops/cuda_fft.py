@@ -47,7 +47,6 @@ import torch.nn.functional as F
 
 from audioflux_torch.observe import scope
 from audioflux_torch.ops import _build
-from audioflux_torch.ops.backend import require_sm90
 from audioflux_torch.ops.frame import cal_time_length, frame_signal
 
 __all__ = ["supports", "route", "fft_fwd", "fft_fwd_ref", "fft_inv",
@@ -155,30 +154,19 @@ def _check_rows(who: str, n=None, **tensors) -> int:
     return n
 
 
-_SM90_SEEN: set = set()   # the card indices require_sm90 has passed
 _TABLE_PTRS: dict = {}    # (n, card index) -> the kernel table's address
 
 
 def _call(fn, who: str, x: torch.Tensor, n: int, *ptrs, extra=()):
     """Launch ``fn(*ptrs, tw, batch, log2n, *extra, stream)`` on ``x``'s
-    device and current stream, a row of ``x`` an item; raise on a CUDA
-    error.  The per-call host work is kept to dictionary lookups: the
-    card's check and the table are made once a card."""
+    device (:func:`_build.launch`), a row of ``x`` an item.  The table's
+    address is looked up, made once a card."""
     index = x.device.index
-    if index not in _SM90_SEEN:
-        require_sm90(x.device)
-        _SM90_SEEN.add(index)
     tw = _TABLE_PTRS.get((n, index))
     if tw is None:
         tw = _TABLE_PTRS[(n, index)] = _kernel_table(n, x.device).data_ptr()
-    args = (*ptrs, tw, x.numel() // x.shape[-1], n.bit_length() - 1, *extra)
-    if index == torch.cuda.current_device():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    if err:
-        raise RuntimeError(f"{who} launch failed: CUDA error {err}")
+    _build.launch(fn, who, x.device, *ptrs, tw, x.numel() // x.shape[-1],
+                  n.bit_length() - 1, *extra)
 
 
 def _check_bins(n: int, bins, xi) -> int:
@@ -255,11 +243,12 @@ def _fwd(xr, xi, n, bins=None, stages=3, lo=0):
     measurements (the output is then not the spectrum): at n = 2048 and
     4096 after its first or second pass, on the real-row route after the
     load or after the n/2-point transform; on the row route (complex rows
-    at 8192, 16384) 1 is the load and the store alone and 2 the whole
-    spectrum with its stores through the transpose buffer."""
+    at 8192, 16384) only 1, the load and the store alone."""
     bins = n if bins is None else bins
     live = xr.shape[-1]
     way = route(n, xi is None)
+    if way == "row" and stages == 2:
+        raise ValueError("the row route has no cut at stage 2")
     if way != "real" and (n, lo) != (live, 0):   # the kernel reads whole rows
         xr = _padded(xr, n, lo).contiguous()
         live, lo = n, 0
@@ -496,23 +485,18 @@ def fft_autocorr_yin(x: torch.Tensor, fft_length: int, slide_length: int,
                                         auto_length)
         if x.device.type != "cuda":
             raise ValueError(f"unsupported device {x.device}")
-        require_sm90(x.device)
         lead = x.shape[:-1]
         out = torch.empty(lead + (frames, fft_length - auto_length),
                           dtype=torch.float32, device=x.device)
         if out.numel() == 0:
             return out
         x2 = x.reshape(-1, samples).contiguous()
-        tw = twiddle_table(fft_length, x.device)
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = _lib().af_fft_pow2_autocorr_yin(
-                x2.data_ptr(), out.data_ptr(), tw.data_ptr(), x2.shape[0],
-                samples, frames, slide_length, auto_length,
-                fft_length.bit_length() - 1, stream)
-        if err:
-            raise RuntimeError(f"fft_pow2 YIN autocorrelation launch failed: "
-                               f"CUDA error {err}")
+        _build.launch(_lib().af_fft_pow2_autocorr_yin,
+                      "fft_pow2 YIN autocorrelation", x.device, x2.data_ptr(),
+                      out.data_ptr(),
+                      twiddle_table(fft_length, x.device).data_ptr(),
+                      x2.shape[0], samples, frames, slide_length, auto_length,
+                      fft_length.bit_length() - 1)
         fft_autocorr_yin.launches += 1
         return out
 

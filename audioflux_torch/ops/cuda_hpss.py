@@ -26,7 +26,6 @@ import torch
 from audioflux_torch.observe import scope
 from audioflux_torch.ops import _build
 from audioflux_torch.ops import fft as afft
-from audioflux_torch.ops.backend import require_sm90
 from audioflux_torch.ops.cuda_fft import twiddle_table
 from audioflux_torch.ops.frame import cal_time_length, frame_signal
 from audioflux_torch.transforms.stft import _ola_frames
@@ -121,14 +120,6 @@ def _check(x, window, fft_length, slide_length):
     return frames
 
 
-def _launch(fn, who, x, *args):
-    require_sm90(x.device)
-    with torch.cuda.device(x.device):
-        err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{who} launch failed: CUDA error {err}")
-
-
 def hpss_magnitude(x: torch.Tensor, window: torch.Tensor, *,
                    fft_length: int, slide_length: int) -> torch.Tensor:
     """|rfft(frame * window)| of every frame of fp32 signals ``x`` (...,
@@ -147,11 +138,12 @@ def hpss_magnitude(x: torch.Tensor, window: torch.Tensor, *,
         mag = x.new_empty(x.shape[:-1] + (frames, fft_length // 2 + 1))
         if mag.numel() == 0:
             return mag
-        _launch(_lib().af_hpss_magnitude, "hpss_magnitude", x, x2.data_ptr(),
-                x2.shape[0], samples, frames, slide_length,
-                fft_length.bit_length() - 1, window.data_ptr(),
-                twiddle_table(fft_length, x.device).data_ptr(),
-                mag.data_ptr())
+        _build.launch(_lib().af_hpss_magnitude, "hpss_magnitude", x.device,
+                      x2.data_ptr(), x2.shape[0], samples, frames,
+                      slide_length, fft_length.bit_length() - 1,
+                      window.data_ptr(),
+                      twiddle_table(fft_length, x.device).data_ptr(),
+                      mag.data_ptr())
         hpss_magnitude.launches += 1
         return mag
 
@@ -196,11 +188,12 @@ def _resynth(x, window, h, p, fft_length, slide_length, run=0):
     out_p = torch.empty_like(out_h)
     if out_h.numel() == 0:
         return out_h, out_p
-    _launch(_lib().af_hpss_resynth, "hpss_resynth", x, x2.data_ptr(),
-            x2.shape[0], samples, frames, slide_length,
-            fft_length.bit_length() - 1, window.data_ptr(),
-            twiddle_table(fft_length, x.device).data_ptr(), h.data_ptr(),
-            p.data_ptr(), out_h.data_ptr(), out_p.data_ptr(), run)
+    _build.launch(_lib().af_hpss_resynth, "hpss_resynth", x.device,
+                  x2.data_ptr(), x2.shape[0], samples, frames, slide_length,
+                  fft_length.bit_length() - 1, window.data_ptr(),
+                  twiddle_table(fft_length, x.device).data_ptr(),
+                  h.data_ptr(), p.data_ptr(), out_h.data_ptr(),
+                  out_p.data_ptr(), run)
     hpss_resynth.launches += 1
     return out_h, out_p
 

@@ -26,7 +26,6 @@ import torch
 
 from audioflux_torch.observe import scope
 from audioflux_torch.ops import _build
-from audioflux_torch.ops.backend import require_sm90
 from audioflux_torch.ops.filter import median_filter
 from audioflux_torch.ops.median_network import INSTANCES, RUN
 
@@ -99,7 +98,6 @@ def median_filter_last_axis(x: torch.Tensor, order: int,
             return median_filter_last_axis_ref(x, order, dim)
         if x.device.type != "cuda":
             raise ValueError(f"unsupported device {x.device}")
-        require_sm90(x.device)
         return _launch(x, order, dim)
 
 
@@ -118,13 +116,9 @@ def _launch(x: torch.Tensor, order: int, dim: int,
     if not has_network(order) and stages != 2:
         raise ValueError(f"order {order} has no network to cut")
     tl, ti = _tile(order, inner)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().af_median_filter(x.data_ptr(), out.data_ptr(), outer,
-                                      length, inner, order, stages, tl, ti,
-                                      stream)
-    if err:
-        raise RuntimeError(f"median_filter launch failed: CUDA error {err}")
+    _build.launch(_lib().af_median_filter, "median_filter", x.device,
+                  x.data_ptr(), out.data_ptr(), outer, length, inner, order,
+                  stages, tl, ti)
     median_filter_last_axis.launches += 1
     if has_network(order):
         median_filter_last_axis.network_launches += 1
@@ -135,11 +129,8 @@ def minmax_probe(threads: int, iters: int, device) -> torch.Tensor:
     """Launch the min/max issue-rate probe: ``threads`` (a multiple of
     256) x ``iters`` x 38 min/max over random data; returns the data."""
     data = torch.rand((threads, 8), device=device)
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = _lib().af_minmax_probe(data.data_ptr(), threads, iters, stream)
-    if err:
-        raise RuntimeError(f"minmax probe launch failed: CUDA error {err}")
+    _build.launch(_lib().af_minmax_probe, "minmax probe", data.device,
+                  data.data_ptr(), threads, iters)
     return data
 
 

@@ -16,7 +16,6 @@ import torch
 
 from audioflux_torch.observe import scope
 from audioflux_torch.ops import _build
-from audioflux_torch.ops.backend import require_sm90
 
 __all__ = ["MAX_OUT_SIZE", "columnar_scatter", "columnar_scatter_ref"]
 
@@ -81,19 +80,14 @@ def columnar_scatter(values: torch.Tensor, fi: torch.Tensor,
                              f"got {out_size}")
         if not values.is_contiguous() or not fi.is_contiguous():
             raise ValueError("values and fi must be contiguous")
-        require_sm90(values.device)
         B, R, T = values.shape
         out = torch.empty((B, out_size, T), dtype=torch.complex64,
                           device=values.device)
         if out.numel() == 0:
             return out
-        with torch.cuda.device(values.device):
-            stream = torch.cuda.current_stream(values.device).cuda_stream
-            err = _lib()(values.data_ptr(), fi.data_ptr(), out.data_ptr(),
-                         B, R, out_size, T, stream)
-        if err:
-            raise RuntimeError(f"columnar_scatter launch failed: CUDA "
-                               f"error {err}")
+        _build.launch(_lib(), "columnar_scatter", values.device,
+                      values.data_ptr(), fi.data_ptr(), out.data_ptr(), B, R,
+                      out_size, T)
         columnar_scatter.launches += 1
         return out
 

@@ -23,7 +23,7 @@ import torch
 
 from audioflux_torch.observe import scope
 from audioflux_torch.ops import _build
-from audioflux_torch.ops.backend import f32_scalar, require_sm90
+from audioflux_torch.ops.backend import f32_scalar
 
 __all__ = ["c_unwrap", "unwrap_diff", "unwrap_diff_ref", "bin_map",
            "synsq_bins", "synsq_bins_ref", "SCALE_KINDS"]
@@ -95,17 +95,12 @@ def unwrap_diff(phase: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"unsupported device {phase.device}")
         if not phase.is_contiguous():
             raise ValueError("phase must be contiguous")
-        require_sm90(phase.device)
         out = torch.empty_like(phase)
         if phase.numel() == 0:
             return out
         rows, T = phase.shape
-        with torch.cuda.device(phase.device):
-            stream = torch.cuda.current_stream(phase.device).cuda_stream
-            err = _lib().af_unwrap_diff(phase.data_ptr(), out.data_ptr(), rows,
-                                        T, stream)
-        if err:
-            raise RuntimeError(f"unwrap_diff launch failed: CUDA error {err}")
+        _build.launch(_lib().af_unwrap_diff, "unwrap_diff", phase.device,
+                      phase.data_ptr(), out.data_ptr(), rows, T)
         unwrap_diff.launches += 1
         return out
 
@@ -202,22 +197,17 @@ def synsq_bins(D: torch.Tensor, fre: torch.Tensor, scale_kind: str,
             raise ValueError("D must be contiguous")
         if fre.shape[0] > _MAX_FRE:
             raise ValueError(f"the kernel takes at most {_MAX_FRE} bands")
-        require_sm90(D.device)
         out = torch.empty(D.shape, dtype=torch.int32, device=D.device)
         if D.numel() == 0:
             return out
         T = D.shape[-1]
         fre = fre.contiguous()
-        with torch.cuda.device(D.device):
-            stream = torch.cuda.current_stream(D.device).cuda_stream
-            err = _lib().af_synsq_bins(
-                D.data_ptr(), out.data_ptr(), fre.data_ptr(), fre.shape[0],
-                D.numel() // T, T, SCALE_KINDS.index(scale_kind), num,
-                float(np.float32(samplate)),
-                0.0 if thresh is None else float(np.float32(thresh)),
-                int(thresh is not None), stream)
-        if err:
-            raise RuntimeError(f"synsq_bins launch failed: CUDA error {err}")
+        _build.launch(
+            _lib().af_synsq_bins, "synsq_bins", D.device, D.data_ptr(),
+            out.data_ptr(), fre.data_ptr(), fre.shape[0], D.numel() // T, T,
+            SCALE_KINDS.index(scale_kind), num, float(np.float32(samplate)),
+            0.0 if thresh is None else float(np.float32(thresh)),
+            int(thresh is not None))
         synsq_bins.launches += 1
         return out
 

@@ -18,7 +18,7 @@ import torch
 
 from audioflux_torch.observe import scope
 from audioflux_torch.ops import _build
-from audioflux_torch.ops.backend import as_tensor, require_sm90, resolve_device
+from audioflux_torch.ops.backend import as_tensor, resolve_device
 from audioflux_torch.ops.cuda_fft import twiddle_table
 from audioflux_torch.ops.frame import frame_signal
 
@@ -162,7 +162,6 @@ def _launch(plan: FusedMelPlan, x: torch.Tensor, n_frames: int,
     if stages != 4 and not shape["registers"]:
         raise ValueError("the timing cuts exist in the register-resident "
                          "kernel only (n_fft 512 to 4096)")
-    require_sm90(x.device)
     batch, n = x.shape
     mel = torch.empty((batch, plan.num_mel, n_frames), dtype=torch.float32,
                       device=x.device)
@@ -174,20 +173,15 @@ def _launch(plan: FusedMelPlan, x: torch.Tensor, n_frames: int,
     consts = 4 * (n_w + plan.cc_num * plan.num_mel)
     consts_smem = int(shape["registers"] and shape["smem"] + consts <= _SMEM_MAX)
     tw = twiddle_table(plan.n_fft, x.device)
-    fn = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), batch, n, n_frames, plan.slide,
-                 plan.n_fft.bit_length() - 1, plan.window.data_ptr(),
-                 tw.data_ptr(), plan.band_lo.data_ptr(),
-                 plan.band_len.data_ptr(), plan.band_off.data_ptr(),
-                 plan.band_w.data_ptr(), n_w, plan.dct.data_ptr(),
-                 plan.num_mel, plan.cc_num, mel.data_ptr(), cc.data_ptr(),
-                 int(shape["registers"]), shape["threads"], consts_smem,
-                 stages, shape["tile"], shape.get("np", 0),
-                 shape.get("staged", 0), stream)
-    if err:
-        raise RuntimeError(f"fused_mel_mfcc launch failed: CUDA error {err}")
+    _build.launch(_lib(), "fused_mel_mfcc", x.device, x.data_ptr(), batch, n,
+                  n_frames, plan.slide, plan.n_fft.bit_length() - 1,
+                  plan.window.data_ptr(), tw.data_ptr(),
+                  plan.band_lo.data_ptr(), plan.band_len.data_ptr(),
+                  plan.band_off.data_ptr(), plan.band_w.data_ptr(), n_w,
+                  plan.dct.data_ptr(), plan.num_mel, plan.cc_num,
+                  mel.data_ptr(), cc.data_ptr(), int(shape["registers"]),
+                  shape["threads"], consts_smem, stages, shape["tile"],
+                  shape.get("np", 0), shape.get("staged", 0))
     fused_mel_mfcc.launches += 1
     return mel, cc
 

@@ -32,9 +32,8 @@ Phases (any failure exits non-zero; no result line is printed then):
    frames and lags (contiguous and ``unfold`` views), at lag 1 and every
    lag, odd frame lengths and one float off, each call's route held by
    its counter; the route of slice 15: complex rows at 8192 and 16384
-   (``row_reg_kernel``: the forward, the forward with its stores through
-   the transpose buffer, the inverse, a real spectrum's inverse through
-   the C entry) on 1, 3, 2113 and 7,472 rows, aligned and one float off,
+   (``row_reg_kernel``: the forward, the inverse, a real spectrum's
+   inverse through the C entry) on 1, 3, 2113 and 7,472 rows, aligned and one float off,
    each call's route held by its counter; YIN's autocorrelation entry on
    clips of odd
    length, a view at an offset of one float, slides that put frames off
@@ -211,8 +210,7 @@ Phases (any failure exits non-zero; no result line is printed then):
    HarmonicRatio's operands, its frames entry on their frames and lags,
    the general entry at 16384 and 32768, and the complex rows at 8192 and
    16384, the row route, on 7,472 random rows, with its cuts under
-   ``cuts_ms``: the load and store alone, and the forward's stores
-   through the transpose buffer against those from registers) under
+   ``cuts_ms``: the load and store alone against the whole kernel) under
    ``shapes`` of ``fft_pow2``, ``fft_inv`` and ``fft_autocorr`` (whose row
    counts every entry's launches), with ``torch.fft.rfft``/``irfft``
    beside the library call where they give the same values; slice 10
@@ -507,7 +505,7 @@ def network_sass_counts():
         print("  cuobjdump not found: FMNMX counts not read")
         return
     sass = subprocess.run(
-        [cuobjdump, "-sass", str(_build._lib_path("median_filter"))],
+        [cuobjdump, "-sass", str(_build.library_path("median_filter"))],
         capture_output=True, text=True, check=True, timeout=300).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
@@ -950,9 +948,7 @@ def row_route_kernels():
     """The complex rows at n = 8192 and 16384 (``row_reg_kernel``, slice
     15) against the plain versions at 5e-5 of the peak, from a generator of
     their own (the later phases' draws do not move): the forward, the
-    forward with its stores through the transpose buffer (``stages=2``, the
-    measurement variant), the inverse with an imaginary output, and the C
-    entry's inverse of a real spectrum (a null imaginary input, whose
+    inverse with an imaginary output, and the C entry's inverse of a real spectrum (a null imaginary input, whose
     plane the kernel leaves at zero), on 1, 3 (odd), 2113 and 7,472 rows
     (no multiple of the resident blocks at either n), at a 16-byte aligned
     address (TMA) and one float off (``cp.async``).  Each wrapper call's
@@ -968,8 +964,7 @@ def row_route_kernels():
                 xr = buf[off:off + batch * n].view(batch, n)
                 xi = buf[off + batch * n:off + 2 * batch * n].view(batch, n)
                 ref = fft_fwd_ref(xr, xi)
-                worst = max(worst, pair_rel(fft_fwd(xr, xi), ref),
-                            pair_rel(cuda_fft._fwd(xr, xi, n, stages=2), ref))
+                worst = max(worst, pair_rel(fft_fwd(xr, xi), ref))
                 del ref
                 worst = max(worst, pair_rel(fft_inv(xr, xi),
                                             fft_inv_ref(xr, xi)))
@@ -983,15 +978,14 @@ def row_route_kernels():
                 del buf, xr, xi, got
             torch.cuda.synchronize()
             c = read_counts()
-            want = {"fft_pow2": 4, "fft_pow2 row route": 4, "fft_inv": 2,
+            want = {"fft_pow2": 2, "fft_pow2 row route": 2, "fft_inv": 2,
                     "fft_inv row route": 2}
             if any(c[k] != v for k, v in want.items()):
                 raise AssertionError(f"row route n={n}, {batch} rows: "
                                      f"routes {c}")
             check(f"fft_pow2/fft_inv row route n={n}, {batch} rows (forward, "
-                  "forward with its stores through the buffer, inverse, the "
-                  "C entry's inverse of a real spectrum; offsets 0 and 1 "
-                  "float)", worst, FFT_TOL)
+                  "inverse, the C entry's inverse of a real spectrum; "
+                  "offsets 0 and 1 float)", worst, FFT_TOL)
 
 
 def complex_err(got, ref):
@@ -3801,18 +3795,14 @@ def phase4_slice9_timing(d, errs):
         e = shape_row("fft_pow2", fft_fwd, fft_fwd_ref, fwd_lib, (xr_, xi_),
                       16 * xr_.numel(), ops_,
                       f"forward {nrows}x{n_} complex (row route)", e_f)
-        # the cuts: the load and the store alone (stages 1), and the
-        # spectrum with its stores through the transpose buffer (stages 2)
-        # against the stores from registers (the kernel, stages 3)
+        # the cut: the load and the store alone (stages 1) against the
+        # whole kernel (stages 3)
         cut = [cuda_ms(lambda s=s_: cuda_fft._fwd(xr_, xi_, n_, stages=s),
-                       reps=10) for s_ in (1, 2, 3)]
-        e["cuts_ms"] = {"load_store": cut[0], "transform": cut[2] - cut[0],
-                        "stores_via_buffer": cut[1],
-                        "stores_from_registers": cut[2]}
+                       reps=10) for s_ in (1, 3)]
+        e["cuts_ms"] = {"load_store": cut[0], "transform": cut[1] - cut[0]}
         print(f"  split (row route, forward, n={n_}): load + store "
               f"{cut[0]:.3f} ms, the {n_}-point transform "
-              f"{cut[2] - cut[0]:.3f} (whole {cut[2]:.3f}); stores through "
-              f"the buffer {cut[1]:.3f} against from registers {cut[2]:.3f}")
+              f"{cut[1] - cut[0]:.3f} (whole {cut[1]:.3f})")
         e_i = pair_err(fft_inv(xr_, xi_), fft_inv_ref(xr_, xi_))[0]
         e = shape_row("fft_inv", fft_inv, fft_inv_ref, inv_lib, (xr_, xi_),
                       16 * xr_.numel(), ops_,

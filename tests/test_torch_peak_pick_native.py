@@ -7,8 +7,8 @@ bit; the route and its counter; the shared g++ build."""
 import numpy as np
 import pytest
 
-from audioflux_torch import _host_build
 from audioflux_torch.mir import onset as to
+from audioflux_torch.ops import _build
 from audioflux_tpu.mir import onset as jo
 
 LENGTHS = (0, 1, 2, 7, 13, 14, 937, 18747)
@@ -129,13 +129,17 @@ def test_onset_takes_the_native_pass():
         onset.wait, onset.delta))
 
 
-def test_host_build(tmp_path):
-    path = _host_build.library_path(to._SOURCE, "libafpp", to._FLAGS)
+def test_host_build(tmp_path, monkeypatch):
+    path = _build.library_path("libafpp")
     to._native()
-    assert path.parent == _host_build.BUILD_DIR and path.exists()
+    assert path.parent == _build.BUILD_DIR and path.exists()
     bad = tmp_path / "bad.cpp"
     bad.write_text("int f( {\n")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setitem(_build.HOST, "libbad", (bad, ["-shared", "-fPIC"]))
     with pytest.raises(OSError, match="g\\+\\+ failed"):
-        _host_build.load(bad, "libbad", ["-shared", "-fPIC"])
+        _build.load("libbad")
+    monkeypatch.setitem(_build.HOST, "libnone",
+                        (tmp_path / "none.cpp", []))
     with pytest.raises(OSError, match="missing"):
-        _host_build.library_path(tmp_path / "none.cpp", "libnone", [])
+        _build.library_path("libnone")

@@ -144,11 +144,14 @@ def test_native_load_batch_vs_wave(tmp_path):
 
 
 def test_native_build_failure_raises_with_gpp_message(tmp_path, monkeypatch):
+    from audioflux_torch.ops import _build
     bad = tmp_path / "wavio.cpp"
     bad.write_text("this is not C++;\n")
-    monkeypatch.setattr(native, "SOURCE", bad)
-    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setitem(_build.HOST, "libafio",
+                        (bad, _build.HOST["libafio"][1]))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    native._load.cache_clear()
     with pytest.raises(OSError, match="g\\+\\+ failed"):
         native.load_batch([], 10)
     assert not native.available()
