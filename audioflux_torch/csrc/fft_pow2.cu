@@ -120,7 +120,16 @@
 //     (4-byte copies where the frame's address is not 16-byte aligned),
 //     forms z[j] = frame[j] + i frame[lag - j] (j <= lag, else 0) from the
 //     staged frame, and writes only lags >= auto_length, the part YIN
-//     keeps: 4 bytes a point in, 2 out, so its operations bound it;
+//     keeps: 4 bytes a point in, 2 out, so its operations bound it.
+//     yin_reg_kernel (af_fft_pow2_yin_pitch) is the same entry with the
+//     rest of YIN in place of the store (no TPU kernel: the JAX package's
+//     tail is XLA code): the frame's squares go to the transpose buffer as
+//     it is loaded and become its prefix sums there before the forward,
+//     the energies e2 wait in a buffer of their own, and the lags the
+//     inverse leaves become the difference function, the CMND row (stored)
+//     and the first trough below the threshold (pitch and value stored):
+//     one read of each frame and 4 bytes a CMND column out, so the
+//     operations still bound it;
 //   * n = 8192, 16384: acf_reg_kernel, the real-row route's register
 //     transform of n points (fft_real_reg.cuh, 64 points a thread, C = 2
 //     or 4), persistent blocks that stage the next row's operands (TMA
@@ -479,12 +488,181 @@ struct AcfArgs {
   long long items;
 };
 
+// What yin_reg_kernel makes of YIN's lags (AcfArgs as YIN's entry takes
+// them, out unused): the CMND over lags [min_index, max_index], a row of
+// max_index - min_index + 1 floats an item to yin, and the pitch of the
+// first trough below thresh and its CMND value to fre and value.
+struct YinArgs {
+  int min_index, max_index;
+  float thresh, samplate;
+  float* fre;
+  float* value;
+  float* yin;
+};
+
+// Floats of a group's YIN buffer in yin_reg_kernel: the energies e2 at lags
+// 0..max_index in whole 16-byte words, then four words of scratch for the
+// group's scans and its minimum.
+__host__ __device__ constexpr int yin_words(int max_index) {
+  return ((max_index + 4) & ~3) + 4;
+}
+
+// The exclusive prefix sum of x over the T threads of a group (one or two
+// whole warps), in thread order; scr: a word of the group's scratch.
+template <int T, typename Sync>
+__device__ __forceinline__ float group_exclusive_sum(float x, int t,
+                                                     float* scr, Sync& sync) {
+  const int lane = t & 31;
+  float inc = x;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc = __fadd_rn(inc, o);
+  }
+  float exc = __shfl_up_sync(0xffffffffu, inc, 1);
+  if (lane == 0) exc = 0.f;
+  if constexpr (T > 32) {
+    static_assert(T == 64, "a group is one or two warps");
+    if (t == 31) scr[0] = inc;
+    sync();
+    if (t >= 32) exc = __fadd_rn(scr[0], exc);
+    sync();
+  }
+  return exc;
+}
+
+// The least x over the T threads of a group; scr: two words of scratch.
+template <int T, typename Sync>
+__device__ __forceinline__ int group_min(int x, int t, int* scr, Sync& sync) {
+  x = __reduce_min_sync(0xffffffffu, x);
+  if constexpr (T > 32) {
+    if ((t & 31) == 0) scr[t >> 5] = x;
+    sync();
+    x = min(scr[0], scr[1]);
+    sync();
+  }
+  return x;
+}
+
+// YIN's parabolic offset of a trough v2 between v1 and v3, in PyTorch's
+// order of operations and roundings (mir/pitch_yin.py, ops/cuda_yin.py
+// parabolic_offsets: -(v3 - v1) / 2 / (2 ((v1 + v3 - 2 v2) / 2) + 1e-16),
+// 0 where it exceeds 1 in magnitude), no multiply-add contracted, so that
+// the offsets derived from the CMND rows on the host are the ones used here.
+__device__ __forceinline__ float parabolic_offset(float v1, float v2,
+                                                  float v3) {
+  const float num = __fmul_rn(-__fsub_rn(v3, v1), 0.5f);
+  const float curv = __fsub_rn(__fadd_rn(v1, v3), __fmul_rn(2.f, v2));
+  const float den = __fadd_rn(__fmul_rn(2.f, __fmul_rn(curv, 0.5f)), 1e-16f);
+  const float off = __fdiv_rn(num, den);
+  return fabsf(off) <= 1.f ? off : 0.f;
+}
+
+// The frame's energies, while the transpose buffer holds its squares (x_i^2
+// at pad(i) = (i / B) P + i % B, P = B + 1): thread t sums its run [t A,
+// t A + A) in order, the group's exclusive scan of the runs' sums starts
+// each run's prefix, and the buffer takes the inclusive prefix sums csum[i]
+// of the frame alone (one float32 scan a frame, never one over the clip).
+// Then e2[k] = csum[lag + k] - csum[k], 0 below 1e-6 in magnitude, at lags
+// k = 0..max_index into en.  A run of B = 64 is one row of the buffer, so a
+// warp's reads fall in distinct banks; at B = 32 two rows, two ways.
+template <int A, int B, typename Sync>
+__device__ __forceinline__ void yin_energies(float* ex, float* en, float* scr,
+                                             int lag, int max_index, int t,
+                                             Sync& sync) {
+  constexpr int P = B + 1;
+  auto pad = [](int i) { return (i / B) * P + i % B; };
+  float sum = 0.f;
+#pragma unroll 8
+  for (int m = 0; m < A; ++m) sum = __fadd_rn(sum, ex[pad(t * A + m)]);
+  float run = group_exclusive_sum<B>(sum, t, scr, sync);
+#pragma unroll 8
+  for (int m = 0; m < A; ++m) {
+    const int p = pad(t * A + m);
+    run = __fadd_rn(run, ex[p]);
+    ex[p] = run;
+  }
+  sync();
+  for (int k = t; k <= max_index; k += B) {
+    const float e = __fsub_rn(ex[pad(lag + k)], ex[pad(k)]);
+    en[k] = fabsf(e) >= 1e-6f ? e : 0.f;
+  }
+  sync();  // the transpose buffer is free for the forward
+}
+
+// YIN past the difference function, which stands in ex at lags 0..max_index:
+// the CMND yin[c] = d[m + c] / (sum(d[1..m + c]) / (m + c) + 1e-16) over the
+// columns c of lags m + c = min_index..max_index, its row stored, and the
+// first trough below thresh (the first column needs a strict rise after it,
+// an interior column a strict fall before it and no fall after, the last
+// column never counts) made into the frame's pitch and CMND value, both 0
+// where there is none.  The scan: thread t sums an odd run of ch lags from
+// 1 + t ch (an odd stride puts a warp's reads in distinct banks) and the
+// group's exclusive scan starts each run; the trough: each thread's first
+// of the columns t, t + T, ..., then the group's least.
+template <int T, typename Sync>
+__device__ __forceinline__ void yin_epilogue(float* ex, float* scr,
+                                             long long item,
+                                             const YinArgs& y, int t,
+                                             Sync& sync) {
+  const int mx = y.max_index, mn = y.min_index;
+  const int ch = ((mx + T - 1) / T) | 1;
+  const int k0 = 1 + t * ch, k1 = min(k0 + ch, mx + 1);
+  float sum = 0.f;
+  for (int k = k0; k < k1; ++k) sum = __fadd_rn(sum, ex[k]);
+  float run = group_exclusive_sum<T>(sum, t, scr, sync);
+  for (int k = k0; k < k1; ++k) {
+    const float d = ex[k];
+    run = __fadd_rn(run, d);
+    if (k >= mn) {
+      const float mean = __fdiv_rn(run, static_cast<float>(k));
+      ex[k] = __fdiv_rn(d, __fadd_rn(mean, 1e-16f));
+    }
+  }
+  sync();
+  const int L = mx - mn + 1;
+  const float* col = ex + mn;
+  float* row = y.yin + item * L;
+  int first = L;
+  for (int c = t; c < L; c += T) {
+    const float a = col[c];
+    row[c] = a;
+    if (first == L && c < L - 1 && a < y.thresh &&
+        (c == 0 ? a < col[1] : a <= col[c + 1] && a < col[c - 1])) {
+      first = c;
+    }
+  }
+  first = group_min<T>(first, t, reinterpret_cast<int*>(scr) + 2, sync);
+  if (t == 0) {
+    float fre = 0.f, value = 0.f;
+    if (first < L) {
+      const float off =
+          first == 0 ? 0.f
+                     : parabolic_offset(col[first - 1], col[first],
+                                        col[first + 1]);
+      // samplate / (min_index + c + off), as PyTorch divides a number by a
+      // tensor: the reciprocal, then the product
+      fre = __fmul_rn(
+          __frcp_rn(__fadd_rn(static_cast<float>(mn + first), off)),
+          y.samplate);
+      value = col[first];
+    }
+    y.fre[item] = fre;
+    y.value[item] = value;
+  }
+}
+
 // The autocorrelation 0.5 * Im(ifft(fft(z)^2)) of n = A * B points in
 // registers (see the note at the top): groups of B threads, kRegThreads / B
-// groups a block, persistent blocks.
-template <int A, int B, bool kYin>
-__global__ void __launch_bounds__(kRegThreads)
-autocorr_reg_kernel(AcfArgs g, const float2* __restrict__ tw) {
+// groups a block, persistent blocks.  kPitch (YIN's entry only): the
+// squares of the staged frame go to the transpose buffer as it is loaded,
+// the energies are taken there before the forward (yin_energies), and the
+// lags go on to the pitch (yin_epilogue) in place of the store.
+template <int A, int B, bool kYin, bool kPitch>
+__device__ __forceinline__ void autocorr_reg_body(AcfArgs g,
+                                                  const float2* __restrict__ tw,
+                                                  YinArgs y) {
+  static_assert(kYin || !kPitch, "the pitch needs YIN's entry");
   constexpr int T = B;           // a thread a first-pass column
   constexpr int N = A * B;
   constexpr int P = B + 1;       // a padded row of the table and the buffer
@@ -500,6 +678,10 @@ autocorr_reg_kernel(AcfArgs g, const float2* __restrict__ tw) {
   const int grp = tid / T, t = tid % T;
   float* stage = stages_all + grp * kStaged * N;
   float* ex = stages_all + kGroups * kStaged * N + grp * A * P;
+  // kPitch: the group's energies and scratch (yin_words)
+  const int yw = kPitch ? yin_words(y.max_index) : 0;
+  float* en = stages_all + kGroups * (kStaged * N + A * P) + grp * yw;
+  float* scr = en + yw - 4;
   const long long stride = static_cast<long long>(gridDim.x) * kGroups;
   long long item = static_cast<long long>(blockIdx.x) * kGroups + grp;
 
@@ -553,10 +735,15 @@ autocorr_reg_kernel(AcfArgs g, const float2* __restrict__ tw) {
       } else {
         im = stage[N + i];
       }
-      v[bit_reverse(j, kLogA)] = make_float2(stage[i], im);
+      const float re = stage[i];
+      if constexpr (kPitch) ex[j * P + t] = __fmul_rn(re, re);
+      v[bit_reverse(j, kLogA)] = make_float2(re, im);
     }
     group_sync();  // the staging buffer is free: fetch the next rows
     if (item + stride < g.items) fetch(item + stride);
+    if constexpr (kPitch) {
+      yin_energies<A, B>(ex, en, scr, g.lag, y.max_index, t, group_sync);
+    }
 
     // forward: the A-point DFT of column t, times W_n^(t k1); the transpose
     // gives each thread its rows; the B-point DFT over n2 leaves bin
@@ -626,14 +813,46 @@ autocorr_reg_kernel(AcfArgs g, const float2* __restrict__ tw) {
       group_sync();
     }
     reg_dft<A>(v);
+    if constexpr (kPitch) {
+      // the difference function d[k] = e2[0] + e2[k] - 2 acf[k] at lags
+      // k = i - lag <= max_index, acf 0 below 1e-6 in magnitude
+      const float e0 = en[0];
 #pragma unroll
-    for (int j1 = 0; j1 < A; ++j1) {
-      const int i = t + B * j1;
-      if (i >= lo) ex[i] = scale * v[j1].y;
+      for (int j1 = 0; j1 < A; ++j1) {
+        const int k = t + B * j1 - lo;
+        if (k >= 0 && k <= y.max_index) {
+          float a = scale * v[j1].y;
+          a = fabsf(a) >= 1e-6f ? a : 0.f;
+          ex[k] = __fsub_rn(__fadd_rn(e0, en[k]), __fmul_rn(2.f, a));
+        }
+      }
+      group_sync();
+      yin_epilogue<T>(ex, scr, item, y, t, group_sync);
+    } else {
+#pragma unroll
+      for (int j1 = 0; j1 < A; ++j1) {
+        const int i = t + B * j1;
+        if (i >= lo) ex[i] = scale * v[j1].y;
+      }
+      flush_row(g.out + item * out_len, ex + lo, static_cast<int>(out_len),
+                t, T, group_sync);
     }
-    flush_row(g.out + item * out_len, ex + lo, static_cast<int>(out_len), t,
-              T, group_sync);
   }
+}
+
+template <int A, int B, bool kYin>
+__global__ void __launch_bounds__(kRegThreads)
+autocorr_reg_kernel(AcfArgs g, const float2* __restrict__ tw) {
+  autocorr_reg_body<A, B, kYin, false>(g, tw, YinArgs{});
+}
+
+// YIN from the clips to the pitch: YIN's entry of the autocorrelation with
+// the energies, the difference function, the CMND and the trough search in
+// the epilogue (autocorr_reg_body's kPitch).
+template <int A, int B>
+__global__ void __launch_bounds__(kRegThreads)
+yin_reg_kernel(AcfArgs g, YinArgs y, const float2* __restrict__ tw) {
+  autocorr_reg_body<A, B, true, true>(g, tw, y);
 }
 
 // What row_reg_kernel reads and writes: complex rows of n = 4096 C
@@ -1455,6 +1674,22 @@ int launch_acf(const AcfArgs& a, const float2* tw, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int A, int B>
+int launch_yin(const AcfArgs& a, const YinArgs& y, const float2* tw,
+               cudaStream_t st) {
+  // at most 4096 energies a group: 230,976 bytes at n = 4096
+  const int smem = acf_smem_bytes(A, B, 1) +
+                   4 * (kRegThreads / B) * yin_words(y.max_index);
+  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = yin_reg_kernel<A, B>;
+  unsigned grid = 0;
+  cudaError_t e =
+      persistent_grid(kernel, smem, a.items, kRegThreads / B, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, kRegThreads, smem, st>>>(a, y, tw);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The real-row route at N = 4096 C: persistent blocks of 64 C threads,
 // each with its staging buffer, the transpose buffer and an mbarrier.
 template <int C>
@@ -1802,4 +2037,37 @@ extern "C" int af_fft_pow2_autocorr_yin(const float* x, float* out,
                   clips * frames};
   return log2n == 11 ? launch_acf<64, 32, true>(a, twf, st)
                      : launch_acf<64, 64, true>(a, twf, st);
+}
+
+// YIN from the clips to the pitch, n = 2048 or 4096: frames and their
+// autocorrelation as af_fft_pow2_autocorr_yin takes them (x, clips,
+// samples, frames, slide, lag), then per frame the energies, the
+// difference function, the CMND over lags [min_index, max_index] (1 <=
+// min_index, min_index + 2 <= max_index < n - lag) and the first trough
+// below thresh: yin (clips * frames, max_index - min_index + 1) the CMND
+// rows, fre and value (clips * frames) the pitch (samplate over the
+// trough's lag and parabolic offset) and the CMND at the trough, 0 and 0
+// where no column is a trough.  tw as YIN's entry takes it.
+extern "C" int af_fft_pow2_yin_pitch(const float* x, float* fre, float* value,
+                                     float* yin, const void* tw,
+                                     long long clips, long long samples,
+                                     int frames, int slide, int lag,
+                                     int min_index, int max_index,
+                                     float thresh, float samplate, int log2n,
+                                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float2* twf = static_cast<const float2*>(tw);
+  if (clips <= 0 || frames <= 0) return 0;
+  const int n = 1 << log2n;
+  if ((log2n != 11 && log2n != 12) || slide < 1 || lag < 0 || lag >= n ||
+      min_index < 1 || max_index < min_index + 2 || max_index >= n - lag ||
+      static_cast<long long>(frames - 1) * slide + n > samples ||
+      clips > INT32_MAX / frames) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const AcfArgs a{nullptr, nullptr, x, samples, frames, slide, lag, nullptr,
+                  clips * frames};
+  const YinArgs y{min_index, max_index, thresh, samplate, fre, value, yin};
+  return log2n == 11 ? launch_yin<64, 32>(a, y, twf, st)
+                     : launch_yin<64, 64>(a, y, twf, st);
 }

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from audioflux_torch.observe import scope
-from audioflux_torch.ops import cuda_fft
+from audioflux_torch.ops import cuda_fft, cuda_yin
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.backend import as_tensor, resolve_device
 from audioflux_torch.ops.frame import frame_signal
@@ -26,7 +26,6 @@ __all__ = ["PitchYIN"]
 
 def _yin_impl(x, *, fft_length, slide_length, auto_length, min_index,
               max_index, samplate, thresh, packed_fft=None):
-    diff_length = fft_length - auto_length
     frames = frame_signal(x, fft_length, slide_length)  # (..., T, N)
 
     # autocorrelation via circular convolution with the reversed prefix
@@ -61,49 +60,9 @@ def _yin_impl(x, *, fft_length, slide_length, auto_length, min_index,
         A = afft.rfft(frames, dim=-1)
         B = afft.rfft(rev, n=fft_length, dim=-1)
         acf = afft.irfft(A * B, n=fft_length, dim=-1)[..., auto_length:]
-    acf = torch.where(acf.abs() >= 1e-6, acf, torch.zeros_like(acf))
-
-    # frame energies over sliding auto_length windows (:372-390)
-    csum = torch.cumsum(frames * frames, dim=-1)
-    e2 = csum[..., auto_length:] - csum[..., :diff_length]
-    e2 = torch.where(e2.abs() >= 1e-6, e2, torch.zeros_like(e2))
-
-    diff = e2[..., :1] + e2 - 2.0 * acf  # (..., T, diff)
-
-    # CMND (:398-430)
-    num = diff[..., min_index:max_index + 1]
-    csum_d = torch.cumsum(diff[..., 1:max_index + 1], dim=-1)
-    mean = csum_d / torch.arange(1, max_index + 1, dtype=torch.float32,
-                                 device=x.device)
-    den = mean[..., min_index - 1:max_index]
-    yin = num / (den + 1e-16)  # (..., T, yin_length)
-
-    # parabolic interp offsets (:462-494)
-    v1 = yin[..., :-2]
-    v2 = yin[..., 1:-1]
-    v3 = yin[..., 2:]
-    offs = -(v3 - v1) / 2.0 / (2.0 * ((v1 + v3 - 2 * v2) / 2.0) + 1e-16)
-    offs = torch.where(offs.abs() <= 1.0, offs, torch.zeros_like(offs))
-    interp = F.pad(offs, (1, 1))
-
-    # first trough below thresh (:520-548): the first column needs a strict
-    # rise after it, an interior column a strict fall before it and no fall
-    # after it, the last column never counts
-    below = yin < thresh
-    is_trough = torch.cat(
-        [(yin[..., :1] < yin[..., 1:2]) & below[..., :1],
-         (yin[..., 1:-1] <= yin[..., 2:]) & (yin[..., 1:-1] < yin[..., :-2])
-         & below[..., 1:-1],
-         torch.zeros_like(below[..., -1:])], dim=-1)
-    any_t = is_trough.any(dim=-1)
-    # argmax of an integer tensor returns the first of several equal maxima
-    t_idx = torch.argmax(is_trough.to(torch.uint8), dim=-1)
-    off = torch.gather(interp, -1, t_idx[..., None])[..., 0]
-    fre = samplate / (min_index + t_idx + off)
-    fre = torch.where(any_t, fre, torch.zeros_like(fre))
-    value = torch.gather(yin, -1, t_idx[..., None])[..., 0]
-    value = torch.where(any_t, value, torch.zeros_like(value))
-    return fre, value, yin, interp
+    return cuda_yin.yin_tail(frames, acf, auto_length=auto_length,
+                             min_index=min_index, max_index=max_index,
+                             samplate=samplate, thresh=thresh)
 
 
 class PitchYIN:
@@ -144,21 +103,30 @@ class PitchYIN:
             return 0
         return (data_length - self.fft_length) // self.slide_length + 1
 
+    def _plan(self) -> dict:
+        return dict(fft_length=self.fft_length,
+                    slide_length=self.slide_length,
+                    auto_length=self.auto_length, min_index=self.min_index,
+                    max_index=self.max_index, samplate=float(self.samplate),
+                    thresh=self.thresh)
+
     def _run(self, data_arr, packed_fft=None):
-        return _yin_impl(as_tensor(data_arr, self.device),
-                         fft_length=self.fft_length,
-                         slide_length=self.slide_length,
-                         auto_length=self.auto_length,
-                         min_index=self.min_index, max_index=self.max_index,
-                         samplate=float(self.samplate), thresh=self.thresh,
+        """The PyTorch form, ``_yin_impl``: (fre, value, yin, interp)."""
+        return _yin_impl(as_tensor(data_arr, self.device), **self._plan(),
                          packed_fft=packed_fft)
 
     def pitch(self, data_arr):
-        """(..., n) -> (fre_arr, value_arr) each (..., time)."""
+        """(..., n) -> (fre_arr, value_arr) each (..., time).  On the card
+        at radix2_exp 11 or 12 one kernel runs YIN from the clips to the
+        pitch (``ops.cuda_yin``); every other call runs ``_yin_impl``."""
         with scope("af.PitchYIN.pitch"):
-            fre, value, yin, interp = self._run(data_arr)
+            x = as_tensor(data_arr, self.device)
+            if cuda_yin.supports(x, self.fft_length, self.min_index,
+                                 self.max_index):
+                fre, value, yin = cuda_yin.yin_pitch(x, **self._plan())
+            else:
+                fre, value, yin, _ = _yin_impl(x, **self._plan())
             self._yin_mat = yin
-            self._interp_mat = interp
             return fre, value
 
     def get_min_data(self) -> np.ndarray:
@@ -170,12 +138,13 @@ class PitchYIN:
         _pitch_yin.c:246 / dealResult:586-625): every CMND local trough
         below thresh, as (fre_rows, trough_rows, len_arr).
 
-        Uses the matrices cached by the last ``pitch`` call, or computes
-        them from ``data_arr``.  1-D input only."""
+        Uses the CMND rows cached by the last ``pitch`` call, or computes
+        them from ``data_arr``, and their parabolic offsets.  1-D input
+        only."""
         if data_arr is not None:
             self.pitch(data_arr)
         yin = self._yin_mat.cpu().numpy()
-        interp = self._interp_mat.cpu().numpy()
+        interp = cuda_yin.parabolic_offsets(self._yin_mat).cpu().numpy()
         if yin.ndim != 2:
             raise ValueError("get_trough_data expects 1-D audio input")
         T, yl = yin.shape

@@ -33,7 +33,8 @@ Which route takes a call (:func:`route`):
 (the real-row route's transform of n points, then the same passes in the
 opposite order); :func:`fft_autocorr_frames` is its entry for frames
 (NCF, HarmonicRatio), which forms both operands on the card and writes
-only the lags asked for.
+only the lags asked for.  The library's YIN kernel, YIN's entry with the
+rest of YIN in its epilogue, has its wrapper in ``ops/cuda_yin.py``.
 """
 
 from __future__ import annotations
@@ -116,11 +117,14 @@ def _lib():
     inv = [p, p, p, p, p, ll, i, i, i, p]
     auto = [p, p, p, p, ll, i, p]
     yin = [p, p, p, ll, ll, i, i, i, i, p]
+    pitch = [p, p, p, p, p, ll, ll, i, i, i, i, i, ctypes.c_float,
+             ctypes.c_float, i, p]
     frames = [p, p, p, ll, i, i, i, p]
     for fn, argtypes in ((lib.af_fft_pow2_fwd, fwd),
                          (lib.af_fft_pow2_inv, inv),
                          (lib.af_fft_pow2_autocorr, auto),
                          (lib.af_fft_pow2_autocorr_yin, yin),
+                         (lib.af_fft_pow2_yin_pitch, pitch),
                          (lib.af_fft_pow2_autocorr_frames, frames),
                          (lib.af_fft_pow2_resident_clusters, [i])):
         fn.argtypes = argtypes

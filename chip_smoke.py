@@ -84,6 +84,7 @@ Phases (any failure exits non-zero; no result line is printed then):
       slide_length=512, h_order=21, p_order=31).hpss`` (which must launch
       the HPSS kernels and the median networks and no FFT kernel),
       ``PitchYIN(samplate=32000, radix2_exp=12, slide_length=1024).pitch``
+      (which must launch YIN's kernel and no autocorrelation entry)
       and ``STFT(radix2_exp=11, HANN, 512).stft`` -> ``.istft``; every
       kernel's whole-batch output against its plain version on the card
       (the HPSS back end also with runs of 7 slabs, equal to ``HPSS.hpss``
@@ -182,8 +183,8 @@ Phases (any failure exits non-zero; no result line is printed then):
       STFT; the frame-sharded CQT (``mode="gspmd"``) on one 10-min clip
       at 1e-5 of the peak of ``CQT.cqt``;
 4. timing with CUDA events: each kernel's entries, their plain versions
-   and the library yardsticks at the main paths' shapes, the splits of
-   ``PitchYIN.pitch`` and ``Synsq.synsq``, the fused kernel,
+   and the library yardsticks at the main paths' shapes, ``PitchYIN.pitch``
+   against its PyTorch form, the split of ``Synsq.synsq``, the fused kernel,
    ``cwt_ifft_bank`` and the FFT's register route cut after each stage
    (their splits), the median at runs of 4, 8 and 16 and cut after its
    loads and stores, its bound from a probe of the min/max issue rate,
@@ -299,6 +300,7 @@ from audioflux_torch.ops.cuda_fft import (  # noqa: E402
     fft_fwd_ref, fft_inv, fft_inv_ref)
 from audioflux_torch.ops.cuda_hpss import (  # noqa: E402
     hpss_magnitude, hpss_magnitude_ref, hpss_resynth, hpss_resynth_ref)
+from audioflux_torch.ops.cuda_yin import yin_pitch, yin_pitch_ref  # noqa: E402,E501
 from audioflux_torch.ops.cuda_median import (  # noqa: E402
     median_filter_last_axis, median_filter_last_axis_ref)
 from audioflux_torch.ops.cuda_scatter import (  # noqa: E402
@@ -465,7 +467,7 @@ def phase0_identity():
 # register arrays must stay in registers)
 NO_SPILL = ("autocorr_reg_kernel", "unwrap_rows_kernel", "real_fwd_kernel",
             "real_inv_kernel", "acf_reg_kernel", "cluster_kernel",
-            "row_reg_kernel")
+            "row_reg_kernel", "yin_reg_kernel")
 
 
 def phase1_build():
@@ -529,7 +531,7 @@ def phase2_kernels(gen):
     # max |kernel - plain| at the main paths' n, for the kernels line
     errs = {"fft_pow2": 0.0, "fused_mel_mfcc": 0.0, "fft_inv": 0.0,
             "hpss_magnitude": 0.0, "hpss_resynth": 0.0,
-            "fft_autocorr": 0.0, "fft_autocorr_yin": 0.0,
+            "fft_autocorr": 0.0, "fft_autocorr_yin": 0.0, "yin_pitch": 0.0,
             "median_filter": 0.0}
     for n in (2048, 4096, 8192, 16384, 32768):
         xr = randn((64, n), gen)
@@ -1203,7 +1205,8 @@ COUNTERS = {"fft_pow2": (fft_fwd, "launches"),
             "median_filter network": (median_filter_last_axis,
                                       "network_launches"),
             "hpss_magnitude": (hpss_magnitude, "launches"),
-            "hpss_resynth": (hpss_resynth, "launches")}
+            "hpss_resynth": (hpss_resynth, "launches"),
+            "yin_pitch": (yin_pitch, "launches")}
 
 
 def zero_counts():
@@ -1401,8 +1404,10 @@ def phase3_mir_path(gen, errs):
     yin_counts = read_counts()
     print(f"  PitchYIN.pitch: peak device memory above its input "
           f"{(torch.cuda.max_memory_allocated() - held) / 1e9:.2f} GB")
-    require_launched("PitchYIN.pitch", {"fft_autocorr_yin":
-                                        yin_counts["fft_autocorr_yin"]})
+    require_launched("PitchYIN.pitch", {"yin_pitch":
+                                        yin_counts["yin_pitch"]})
+    if yin_counts["fft_autocorr_yin"]:
+        raise AssertionError("PitchYIN.pitch launched fft_autocorr_yin")
     zero_counts()
     D = st.stft(x)
     xrt = st.istft(D)
@@ -1414,7 +1419,7 @@ def phase3_mir_path(gen, errs):
     launches = {k: hpss_counts[k] + yin_counts[k] + stft_counts[k]
                 for k in ("fft_pow2", "fft_inv", "fft_autocorr",
                           "fft_autocorr_yin", "median_filter",
-                          "hpss_magnitude", "hpss_resynth")}
+                          "hpss_magnitude", "hpss_resynth", "yin_pitch")}
     mir_peak = max(mir_peak, torch.cuda.max_memory_allocated())
     print(f"  peak device memory on the MIR path: {mir_peak / 1e9:.2f} GB")
 
@@ -1512,6 +1517,14 @@ def phase3_mir_path(gen, errs):
         lambda t: fft_autocorr_yin(t, 1 << YIN_R2E, YIN_SLIDE, auto),
         lambda t: fft_autocorr_yin_ref(t, 1 << YIN_R2E, YIN_SLIDE, auto),
         (x,), 8, FFT_TOL))
+    # YIN's kernel: its CMND rows over the whole batch against the plain
+    # version's, at the gates' 1e-4 of the peak (the difference function
+    # cancels near a period: 5.8e-5 off at 8 x 300 s, PERF.md); the pitch
+    # is gated against the CPU below
+    errs["yin_pitch"] = whole_batch(
+        f"yin_pitch CMND rows, all {fr.numel() >> YIN_R2E} frames vs plain",
+        lambda t: yin_pitch(t, **yin._plan())[2],
+        lambda t: yin_pitch_ref(t, **yin._plan())[2], (x,), 8, GATE_TOL)
 
     # the first and the last clip against the port on the CPU
     ends = [0, MIR_CLIPS - 1]
@@ -2102,6 +2115,24 @@ def phase4_mir_timing(mir, mel_launches, errs):
         rows.append(kernel_row(name, "hpss", none, launches[name], errs[name],
                                k_ms, p_ms, l_ms, n_bytes, n_ops, what))
 
+    # YIN's kernel: the clips in, per frame the CMND row, the pitch and
+    # its value out; its operations counted as the autocorrelation's (the
+    # epilogue's few a lag left out: a lower bound); the library column is
+    # the port's PyTorch form at once
+    ykw = yin._plan()
+    cols = yin.max_index - yin.min_index + 1
+    k_ms = cuda_ms(lambda: yin_pitch(x, **ykw), reps=10)
+    p_ms = cuda_ms(chunked(lambda t: yin_pitch_ref(t, **ykw), (x,), 8),
+                   reps=3, warmup=1)
+    impl_ms = cuda_ms(lambda: yin._run(x), reps=3, warmup=1)
+    rows.append(kernel_row(
+        "yin_pitch", "fft_pow2", "none (the JAX package's YIN tail is XLA "
+        "code, audioflux_tpu/mir/pitch_yin.py)", launches["yin_pitch"],
+        errs["yin_pitch"], k_ms, p_ms, impl_ms,
+        4 * x.numel() + 4 * yrows * (cols + 2), acf_ops,
+        f"{x.shape[0]} clips of {x.shape[1]} -> {yrows} frames' pitch and "
+        f"{cols} CMND columns"))
+
     # --- the users' calls: audio-hours per second ------------------------
     call_ms = {}
     for clips in (MIR_CLIPS, MIR_SMALL):
@@ -2116,19 +2147,11 @@ def phase4_mir_timing(mir, mel_launches, errs):
             print(f"  {name} {clips}x{MIR_SECONDS} s: {ms:.3f} ms, "
                   f"{hours / (ms / 1e3):.1f} audio-hours/s")
 
-    # --- PitchYIN.pitch's split at 64 clips ------------------------------
-    frames = x.unfold(-1, ny, YIN_SLIDE)
-    energy_ms = cuda_ms(lambda: torch.cumsum(frames * frames, dim=-1),
-                        reps=5, warmup=1)
-    whole = call_ms["PitchYIN.pitch", MIR_CLIPS]
-    for name, ms in (("fft_autocorr_yin (framing, reversed prefix, "
-                      "autocorrelation, the lags kept)", yin_ms),
-                     ("energy: frames * frames, cumsum", energy_ms),
-                     ("the rest: thresholds, the difference function, CMND, "
-                      "trough search (the call less the two above)",
-                      whole - yin_ms - energy_ms)):
-        print(f"  split of PitchYIN.pitch at {MIR_CLIPS} clips: {name}: "
-              f"{ms:.3f} ms")
+    # --- PitchYIN.pitch at 64 clips: the kernel, and the PyTorch form ---
+    print(f"  PitchYIN.pitch at {MIR_CLIPS} clips: "
+          f"{call_ms['PitchYIN.pitch', MIR_CLIPS]:.3f} ms (yin_pitch); the "
+          f"PyTorch form (_yin_impl) {impl_ms:.3f} ms, fft_autocorr_yin in it "
+          f"{yin_ms:.3f} ms")
     return rows
 
 
@@ -2561,7 +2584,7 @@ def phase3_slice7_paths(gen, errs):
         f"config 5 (YIN + mel flux + HPSS, {MIR_SMALL} x {MIR_SECONDS} s)",
         lambda: config5_stages(x5, yin, mel, sp, hp, param),
         ("fft_pow2", "fft_pow2 register route", "hpss_magnitude",
-         "hpss_resynth", "fft_autocorr_yin", "median_filter"))
+         "hpss_resynth", "yin_pitch", "median_filter"))
     add(c)
     points = onset_points(env, on)
     Te = mel.cal_time_length(n5)
@@ -2781,7 +2804,8 @@ def merge_slice7(rows, launches, shapes):
              "fft_autocorr": launches.get("fft_autocorr_yin", 0),
              "median_filter": launches.get("median_filter", 0),
              "hpss_magnitude": launches.get("hpss_magnitude", 0),
-             "hpss_resynth": launches.get("hpss_resynth", 0)}
+             "hpss_resynth": launches.get("hpss_resynth", 0),
+             "yin_pitch": launches.get("yin_pitch", 0)}
     for row in rows:
         row["launches"] += extra.get(row["name"], 0)
         for e in row.get("entries", ()):
@@ -3525,8 +3549,8 @@ def phase3_slice9_paths(gen):
     p["tune"].clear()
     tf, _ = count_call(f"TuneTrack.tune, {one}",
                   lambda: p["tune"].tune(x1),
-                  ("fft_pow2", "fft_autocorr_frames", "fft_autocorr_yin"),
-                  0.5, launches, ("fft_autocorr",))
+                  ("fft_pow2", "fft_autocorr_frames", "yin_pitch"),
+                  0.5, launches, ("fft_autocorr", "fft_autocorr_yin"))
     pc["tune"].clear()
     tf_c = pc["tune"].tune(x1c)
     share_gate("3f TuneTrack fre vs CPU, more than one bin", tf, tf_c,
@@ -3997,6 +4021,7 @@ S10_COUNTERS = {"fused_mel_mfcc": (fused_mel_mfcc, "launches"),
                 "fft_inv real-row route": (fft_inv, "real_launches"),
                 "fft_autocorr": (fft_autocorr, "launches"),
                 "fft_autocorr_yin": (fft_autocorr_yin, "launches"),
+                "yin_pitch": (yin_pitch, "launches"),
                 "median_filter": (median_filter_last_axis, "launches"),
                 "hpss_magnitude": (hpss_magnitude, "launches"),
                 "hpss_resynth": (hpss_resynth, "launches"),
@@ -4366,7 +4391,7 @@ def phase3_slice10_paths(gen):
     s10_equal("gate 3g e batch-mapped HPSS p vs unsharded", p, p0, 0.0)
     del h, p, h0, p0
     got = call("3g e: PitchYIN.pitch through the batch map", lambda: f_yin(xm),
-               {"fft_autocorr_yin": S10_DATA}, 4.0)
+               {"yin_pitch": S10_DATA}, 4.0)
     ref = yin.pitch(xm)
     for a, b in zip(got, ref):
         s10_equal("gate 3g e batch-mapped YIN vs unsharded", a, b, 0.0)
@@ -4923,7 +4948,7 @@ def phase3_slice12_paths(d, gen):
                  "median_filter": S10_DATA}, 20.0, hours)
     pair("PitchYIN.pitch through the batch map", lambda: d["f_yin"](xm),
          lambda f=sharded_batch_map_fn(yin.pitch, mesh, keep_sharded=True):
-         f(xm), {"fft_autocorr_yin": S10_DATA}, 4.0, hours)
+         f(xm), {"yin_pitch": S10_DATA}, 4.0, hours)
     s12.update(ccwt=(lambda: f_cc(xl), lambda: f_cck(xl)),
                cst=(lambda: f_cs(xc), lambda: f_csk(xc)))
     return s12

@@ -16,7 +16,8 @@ import torch
 
 from audioflux_torch import observe
 from audioflux_torch.ops import (cuda_cwt, cuda_fft, cuda_hpss, cuda_median,
-                                 cuda_scatter, cuda_unwrap, fused_mel)
+                                 cuda_scatter, cuda_unwrap, cuda_yin,
+                                 fused_mel)
 from benchmark import harness, traffic
 
 CPU = [torch.profiler.ProfilerActivity.CPU]
@@ -90,6 +91,9 @@ KERNELS = {
         _real(3, 100), 4096, 50),
     "fft_autocorr_yin": lambda: cuda_fft.fft_autocorr_yin(
         _real(1, 4096), 2048, 512, 1024),
+    "yin_pitch": lambda: cuda_yin.yin_pitch(
+        _real(1, 4096), fft_length=2048, slide_length=512, auto_length=1024,
+        min_index=16, max_index=1023, samplate=32000.0, thresh=0.1),
     "median_filter_last_axis": lambda: cuda_median.median_filter_last_axis(
         _real(4, 50), 5),
     "cwt_ifft_bank": lambda: cuda_cwt.cwt_ifft_bank(
