@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from audioflux_torch.mir.pitch import autocorr_rows
+from audioflux_torch.observe import scope
 from audioflux_torch.ops.backend import as_tensor, resolve_device
 from audioflux_torch.ops.frame import frame_signal
 from audioflux_torch.ops.window import get_fft_window
@@ -95,8 +96,9 @@ class HarmonicRatio:
 
     def harmonic_ratio(self, data_arr):
         """(..., n) -> (..., time) harmonic ratio in [0, 1]."""
-        return _hr_impl(as_tensor(data_arr, self.device), self._window_t,
-                        window_length=self.window_length,
-                        slide_length=self.slide_length,
-                        fft_length=self.fft_length,
-                        max_length=self.max_length)
+        with scope("af.HarmonicRatio.harmonic_ratio"):
+            return _hr_impl(as_tensor(data_arr, self.device), self._window_t,
+                            window_length=self.window_length,
+                            slide_length=self.slide_length,
+                            fft_length=self.fft_length,
+                            max_length=self.max_length)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from audioflux_torch.observe import scope
 from audioflux_torch.ops import cuda_fft
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.backend import as_tensor, resolve_device
@@ -113,14 +114,15 @@ class PitchNCF(_PitchBase):
 
     def pitch(self, data_arr):
         """(..., n) -> (..., time) fundamental frequency."""
-        L2 = self.fft_length * 2
-        acf = autocorr_rows(self._frames(data_arr), L2,
-                            min(self.max_index + 1, L2))
-        acf = acf / np.sqrt(L2)
-        rms = torch.sqrt(acf[..., :1])
-        lags = acf[..., self.min_index:self.max_index + 1] / rms
-        idx = self._pick(lags, self.min_index)
-        return self.samplate / idx.to(torch.float32)
+        with scope("af.PitchNCF.pitch"):
+            L2 = self.fft_length * 2
+            acf = autocorr_rows(self._frames(data_arr), L2,
+                                min(self.max_index + 1, L2))
+            acf = acf / np.sqrt(L2)
+            rms = torch.sqrt(acf[..., :1])
+            lags = acf[..., self.min_index:self.max_index + 1] / rms
+            idx = self._pick(lags, self.min_index)
+            return self.samplate / idx.to(torch.float32)
 
 
 class PitchCEP(_PitchBase):
@@ -204,8 +206,9 @@ class PitchHPS(_HarmonicGrid):
 
     def pitch(self, data_arr):
         """(..., n) -> (..., time) fundamental frequency."""
-        return self._to_fre(torch.prod(
-            self._harmonics(data_arr, lambda m: m), dim=-1))
+        with scope("af.PitchHPS.pitch"):
+            return self._to_fre(torch.prod(
+                self._harmonics(data_arr, lambda m: m), dim=-1))
 
 
 class PitchLHS(_HarmonicGrid):
@@ -362,11 +365,12 @@ class PitchPEF(_PitchBase):
 
     def pitch(self, data_arr):
         """(..., n) -> (..., time) fundamental frequency."""
-        pr, pi = self._xcorr_spectrum(self._log_power(data_arr))
-        xc = afft.ifft_parts(pr, pi, n=self.xcorr_fft_length)
-        del pr, pi
-        # lag pick (dealResult, len=maxIndex+1): the winning index IS the
-        # lag, mapped through the log grid
-        band = xc[..., self.min_index:self.max_index + 1]
-        lag = self._pick(band, self.min_index)
-        return self._log_fre_t[lag]
+        with scope("af.PitchPEF.pitch"):
+            pr, pi = self._xcorr_spectrum(self._log_power(data_arr))
+            xc = afft.ifft_parts(pr, pi, n=self.xcorr_fft_length)
+            del pr, pi
+            # lag pick (dealResult, len=maxIndex+1): the winning index IS
+            # the lag, mapped through the log grid
+            band = xc[..., self.min_index:self.max_index + 1]
+            lag = self._pick(band, self.min_index)
+            return self._log_fre_t[lag]

@@ -24,7 +24,7 @@ CPU = [torch.profiler.ProfilerActivity.CPU]
 
 # the benchmark's cells at a test's size: (clips, samples) a call
 CELLS = {"mel_mfcc.corpus": (3, 2048 + 512 * 7), "mir.corpus": (2, 64000),
-         "wavelet.corpus": (1, 1 << 13)}
+         "wavelet.corpus": (1, 1 << 13), "pitch.corpus": (2, 8192)}
 # plan arguments cut with the request where the plan fixes its length:
 # 2^13 samples, padded to 2^14, still take the CWT kernel's wrapper
 PLANS = {"wavelet.corpus": {"radix2_exp": 13}}
@@ -38,6 +38,9 @@ ENTRY_SPANS = {
                    "af.peak_pick": CELLS["mir.corpus"][0],
                    "af.HPSS.hpss": 1},
     "wavelet.corpus": {"af.CWT.cwt": 1, "af.Synsq.synsq": 1},
+    "pitch.corpus": {"af.PitchNCF.pitch": 1, "af.PitchHPS.pitch": 1,
+                     "af.PitchPEF.pitch": 1,
+                     "af.HarmonicRatio.harmonic_ratio": 1},
 }
 
 
