@@ -16,7 +16,9 @@ transform over all frames of all clips:
   bins the gather reads) and a (max_index + 1) x harmonics gather;
 - PEF: a forward at 2N, a log-grid interpolation (a gather), and a
   cross-correlation with the comb filter at ``xcorr_fft_length``, whose
-  spectrum is built once per plan on its device.
+  spectrum is built once per plan on its device.  On the card at the
+  lengths ``ops.cuda_pef.supports`` names, two kernels do all of it
+  (``pef_log_power``, ``pef_xcorr_pitch``); elsewhere ``_pef_impl``.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from audioflux_torch.observe import scope
-from audioflux_torch.ops import cuda_fft
+from audioflux_torch.ops import cuda_fft, cuda_pef
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.backend import as_tensor, resolve_device
 from audioflux_torch.ops.frame import frame_signal
@@ -279,7 +281,9 @@ class PitchPEF(_PitchBase):
         linf = self._linear_fre
         pos = np.clip(np.searchsorted(linf, lf, side="left") - 1, 0, N - 1)
         w = ((lf - linf[pos]) / (linf[pos + 1] - linf[pos])).astype(np.float32)
-        self._pos_t = torch.from_numpy(pos).to(self.device)
+        self._pos_t = torch.from_numpy(pos.astype(np.int32)).to(self.device)
+        # the linear bins the grid reads, which the front kernel keeps
+        self._pos_bins = (int(pos.min()), int(pos.max()) + 1)
         self._w_t = as_tensor(w, self.device)
         self._band_width_t = as_tensor(self._band_width, self.device)
         self._log_fre_t = as_tensor(self._log_fre.astype(np.float32),
@@ -308,9 +312,13 @@ class PitchPEF(_PitchBase):
         X = self.xcorr_fft_length
         Ff = afft.fft(as_tensor(np.pad(self._filter, (0, X - N)),
                                 self.device))
-        # conj(Ff) as parts, for the product with each frame's spectrum
+        # conj(Ff) as parts, for the product with each frame's spectrum,
+        # and its bins 0 .. X / 2 as (re, im) pairs
         self._ff_re = Ff.real.contiguous()
         self._ff_im_neg = (-Ff.imag).contiguous()
+        self._ff_half = torch.stack([self._ff_re[:X // 2 + 1],
+                                     self._ff_im_neg[:X // 2 + 1]],
+                                    dim=-1).contiguous()
 
     def set_filter_params(self, alpha: float, beta: float, gamma: float):
         """Re-derive the comb filter (pitchPEFObj_setFilterParams):
@@ -328,14 +336,10 @@ class PitchPEF(_PitchBase):
     def _log_power(self, data_arr):
         """The frames' power spectrum resampled onto the log grid, (...,
         T, 2 fft_length): the cross-correlation's live samples."""
-        N = self.fft_length
-        frames = self._frames(data_arr)
-        Fs = afft.rfft(frames, n=2 * N, dim=-1)
-        power = Fs.real ** 2 + Fs.imag ** 2
-        del Fs
-        p1 = power[..., self._pos_t]
-        p2 = power[..., self._pos_t + 1]
-        return (p1 + self._w_t * (p2 - p1)) * self._band_width_t
+        return cuda_pef.pef_log_power_ref(
+            as_tensor(data_arr, self.device), self._window_t, self._pos_t,
+            self._w_t, self._band_width_t, fft_length=self.fft_length,
+            slide_length=self.slide_length)
 
     def _xcorr_rows(self, data_arr):
         """The cross-correlation's input as the reference builds it: the
@@ -363,14 +367,33 @@ class PitchPEF(_PitchBase):
         return ((br * fr - bi * fi).contiguous(),
                 (br * fi + bi * fr).contiguous())
 
+    def _xcorr_plan(self) -> dict:
+        return dict(xcorr_length=self.xcorr_fft_length, pad_num=self._pad_num,
+                    min_index=self.min_index, max_index=self.max_index)
+
+    def _pef_impl(self, x):
+        """The pitch by the FFT kernels (or ``torch.fft``) and PyTorch
+        code: the log-grid power, the cross-correlation's half spectrum
+        times conj(Ff), its inverse, the lag pick (dealResult,
+        len=maxIndex+1: the winning index IS the lag, mapped through the
+        log grid)."""
+        return cuda_pef.pef_xcorr_pitch_ref(
+            self._log_power(x), self._ff_half, self._log_fre_t,
+            **self._xcorr_plan())
+
     def pitch(self, data_arr):
-        """(..., n) -> (..., time) fundamental frequency."""
+        """(..., n) -> (..., time) fundamental frequency.  A CUDA float32
+        input at the kernels' lengths (``ops.cuda_pef.supports``) takes the
+        two PEF kernels; any other takes ``_pef_impl``."""
         with scope("af.PitchPEF.pitch"):
-            pr, pi = self._xcorr_spectrum(self._log_power(data_arr))
-            xc = afft.ifft_parts(pr, pi, n=self.xcorr_fft_length)
-            del pr, pi
-            # lag pick (dealResult, len=maxIndex+1): the winning index IS
-            # the lag, mapped through the log grid
-            band = xc[..., self.min_index:self.max_index + 1]
-            lag = self._pick(band, self.min_index)
-            return self._log_fre_t[lag]
+            x = as_tensor(data_arr, self.device)
+            if not cuda_pef.supports(x, self.fft_length,
+                                     self.xcorr_fft_length):
+                return self._pef_impl(x)
+            lp = cuda_pef.pef_log_power(
+                x, self._window_t, self._pos_t, self._w_t,
+                self._band_width_t, fft_length=self.fft_length,
+                slide_length=self.slide_length, bins=self._pos_bins)
+            return cuda_pef.pef_xcorr_pitch(lp, self._ff_half,
+                                            self._log_fre_t,
+                                            **self._xcorr_plan())

@@ -66,10 +66,10 @@ Phases (any failure exits non-zero; no result line is printed then):
    ``fft_inv`` at 32768 on the half product (the real-row route, PEF's
    call), on the whole product to real output and to complex output
    (clusters), and ``fft_pow2`` at 8192 on PEF's frames (4,096 live, the
-   bins its rfft keeps), at 5e-5; then ``PitchHPS``, ``PitchLHS``,
-   ``PitchPEF`` and ``xcorr`` must launch the real-row route with a live
-   span (PEF and xcorr the half-spectrum inverse too) and never a
-   complex-row route;
+   bins its rfft keeps), at 5e-5; then ``PitchHPS``, ``PitchLHS`` and
+   ``xcorr`` must launch the real-row route with a live span (xcorr the
+   half-spectrum inverse too) and never a complex-row route, and
+   ``PitchPEF`` its two kernels and no FFT kernel;
 3. the main paths at full size, each with the launch counts set to 0 just
    before it and read just after (on the MIR path, before and after each
    user's call; the route counts show the FFT's register route and the
@@ -143,9 +143,9 @@ Phases (any failure exits non-zero; no result line is printed then):
       ``HPSSNMF`` on its first clip; ``nmf`` (k 16) on HPSSNMF's
       magnitude, an ``HMM(16, 64)`` trained on 16 steps and decoded, and
       ``viterbi`` (log domain) over 7,472 steps; NCF and HarmonicRatio
-      must launch ``fft_autocorr_frames`` and not the general entry, HPS,
-      LHS and PEF the FFT's real-row route with a live span (PEF its
-      half-spectrum inverse too) and no complex-row route, TuneTrack
+      must launch ``fft_autocorr_frames`` and not the general entry, HPS
+      and LHS the FFT's real-row route with a live span and no
+      complex-row route, PEF its two kernels and no FFT kernel, TuneTrack
       ``fft_autocorr_yin`` and (its HarmonicRatio) the frames entry; each against
       the port on the CPU (first and last clip): at most 2% of the frames
       off by more than one step of the engine's grid, HarmonicRatio by
@@ -234,6 +234,10 @@ touches (``tools/reassign_gate_probe.py`` runs it over many draws).  The second-
 line is the kernels JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 ``--upto N`` stops after phase N (a development aid: no result lines).
+``--pef`` runs phases 0 and 1 and PEF's phase alone (2h/4h: PEF's two
+kernels against the plain path on the benchmark's plan at 8 x 30 s and
+8 x 300 s, their times, bounds and launches, and the FFT kernels PEF
+called before at its cell's shapes; in a full run it follows 4f).
 ``--s10-worker RANK PORT OUT`` is one process of phase 3g's two-process
 call (the script starts both itself).
 """
@@ -288,7 +292,7 @@ from audioflux_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
 from audioflux_torch.parallel.sharded import _time_blocks  # noqa: E402
 from audioflux_torch.ops import _build  # noqa: E402
 from audioflux_torch.ops import (cuda_cwt, cuda_fft, cuda_hpss,  # noqa: E402
-                                 cuda_median)
+                                 cuda_median, cuda_pef)
 from audioflux_torch.ops import median_network  # noqa: E402
 from audioflux_torch.ops.cuda_cwt import (band_row_counts,  # noqa: E402
                                           cluster_plan, cwt_ifft_bank,
@@ -467,7 +471,10 @@ def phase0_identity():
 # register arrays must stay in registers)
 NO_SPILL = ("autocorr_reg_kernel", "unwrap_rows_kernel", "real_fwd_kernel",
             "real_inv_kernel", "acf_reg_kernel", "cluster_kernel",
-            "row_reg_kernel", "yin_reg_kernel")
+            "row_reg_kernel", "yin_reg_kernel", "pef_log_power_kernel")
+# kernels at the 255-register cap allowed a few spilled scalars (bytes of
+# stack frame at most): not a register array, whose spill is hundreds
+SMALL_STACK = {"pef_xcorr_pitch_kernel": 16}
 
 
 def phase1_build():
@@ -486,14 +493,21 @@ def phase1_build():
                 fn = line.split("Function properties for")[1].strip()
             elif "registers" in line or "spill" in line:
                 print(f"  {name}:   {line.strip()}")
-                if ("stack frame" in line and any(k in fn for k in NO_SPILL)
-                        and any(int(w) for w in line.split()
-                                if w.isdigit())):
-                    spilled.append(f"{fn}: {line.strip()}")
+                if "stack frame" in line:
+                    frame = int(line.split()[0])
+                    cap = next((v for k, v in SMALL_STACK.items()
+                                if k in fn), None)
+                    if (cap is not None and frame > cap) or (
+                            any(k in fn for k in NO_SPILL)
+                            and any(int(w) for w in line.split()
+                                    if w.isdigit())):
+                        spilled.append(f"{fn}: {line.strip()}")
     print(f"  build seconds: {seconds:.2f}")
     if spilled:
         raise AssertionError("stack or spill in " + "; ".join(spilled))
-    print(f"  {', '.join(NO_SPILL)}: no stack, no spill")
+    print(f"  {', '.join(NO_SPILL)}: no stack, no spill; "
+          f"{', '.join(f'{k} at most {v} bytes' for k, v in SMALL_STACK.items())}"
+          " of stack")
     network_sass_counts()
 
 
@@ -1206,7 +1220,9 @@ COUNTERS = {"fft_pow2": (fft_fwd, "launches"),
                                       "network_launches"),
             "hpss_magnitude": (hpss_magnitude, "launches"),
             "hpss_resynth": (hpss_resynth, "launches"),
-            "yin_pitch": (yin_pitch, "launches")}
+            "yin_pitch": (yin_pitch, "launches"),
+            "pef_log_power": (cuda_pef.pef_log_power, "launches"),
+            "pef_xcorr_pitch": (cuda_pef.pef_xcorr_pitch, "launches")}
 
 
 def zero_counts():
@@ -3396,28 +3412,30 @@ def phase2_slice9_kernels(gen):
         f"fft_pow2 real {n8} bins={b8} (rfft), 4096 live, PEF's frames, "
         f"{what}", *live_fwd(n8, b8), (r["pef8"],), 1, FFT_TOL)
     del r
-    # the users' calls: HPS, LHS, PEF and xcorr launch the real-row route
-    # with a live span (PEF and xcorr its half-spectrum inverse too) and
-    # never a complex-row route
+    # the users' calls: HPS, LHS and xcorr launch the real-row route with a
+    # live span (xcorr its half-spectrum inverse too) and never a
+    # complex-row route; PEF its two kernels and no FFT kernel
     own = torch.Generator(device="cuda")
     own.manual_seed(13)
     xs = randn((C3_CLIPS, C3_N), own, 0.2)
+    live = ("fft_pow2 real-row route", "fft_pow2 live span")
     for label, fn, need in (
-            ("PitchHPS.pitch", lambda: p["hps"].pitch(x), ()),
-            ("PitchLHS.pitch", lambda: p["lhs"].pitch(x), ()),
+            ("PitchHPS.pitch", lambda: p["hps"].pitch(x), live),
+            ("PitchLHS.pitch", lambda: p["lhs"].pitch(x), live),
             ("PitchPEF.pitch", lambda: p["pef"].pitch(x),
-             ("fft_inv half spectrum",)),
+             ("pef_log_power", "pef_xcorr_pitch")),
             (f"xcorr, {C3_CLIPS} x {C3_N}", lambda: xcorr(xs, xs.roll(1, 0)),
-             ("fft_inv half spectrum",))):
+             (*live, "fft_inv half spectrum"))):
         zero_counts()
         fn()
         torch.cuda.synchronize()
         c = read_counts()
-        require_launched(label, {k: c[k] for k in (
-            "fft_pow2 real-row route", "fft_pow2 live span", *need)})
+        require_launched(label, {k: c[k] for k in need})
         if any(c[f"{d} {w} route"] for d in ("fft_pow2", "fft_inv")
                for w in ("row", "cluster")):
             raise AssertionError(f"{label} took a complex-row route: {c}")
+        if label == "PitchPEF.pitch" and c["fft_pow2"] + c["fft_inv"]:
+            raise AssertionError(f"{label} launched an FFT kernel: {c}")
     return errs
 
 
@@ -3462,21 +3480,20 @@ def phase3_slice9_paths(gen):
     xc = x[ends].cpu()
     rows = MIR_SMALL * p["ncf"].cal_time_length(x.shape[-1])
     row_gb = rows * 4 / 1e9            # one fp32 value a frame
-    real_f, real_i = "fft_pow2 real-row route", "fft_inv real-row route"
+    real_f = "fft_pow2 real-row route"
     complex_routes = ("fft_pow2 cluster route", "fft_inv cluster route",
                       "fft_pow2 row route", "fft_inv row route")
     # --- the batched engines and HarmonicRatio on 8 x 30 s -------------
     # reckoned: NCF its frames (4096 a row, made contiguous), the lags the
     # frames entry writes and their scaled copy (2 x 1001); HPS/LHS the frames (4096; the transform reads
     # them as they are), the kept bins' parts, their complex copy and
-    # magnitude (5 x 10001) and the gather; PEF the spectrum's kept bins at
-    # 8192 and their power (3 x 4097), the log-grid power (8192), the half
-    # spectrum's and the product's parts (4 x 16385) and the inverse
-    # (32768); CEP torch.fft's complex tiles (6 x 8192).  HPS, LHS and PEF
-    # must take the real-row route with a live span (PEF's inverse from the
-    # half spectrum) and never a complex-row route; NCF and HarmonicRatio
-    # the frames entry of the autocorrelation, never the general entry
-    live, half = "fft_pow2 live span", "fft_inv half spectrum"
+    # magnitude (5 x 10001) and the gather; PEF the log-grid rows its front
+    # kernel writes (8192); CEP torch.fft's complex tiles (6 x 8192).  HPS
+    # and LHS must take the real-row route with a live span and never a
+    # complex-row route; PEF its two kernels and no FFT kernel; NCF and
+    # HarmonicRatio the frames entry of the autocorrelation, never the
+    # general entry
+    live = "fft_pow2 live span"
     batched = (("ncf", ("fft_autocorr_frames",), ("fft_autocorr",),
                 4096 + 2 * 1001),
                ("cep", (), ("fft_pow2", "fft_inv", "fft_autocorr"), 6 * 8192),
@@ -3484,8 +3501,8 @@ def phase3_slice9_paths(gen):
                 4096 + 6 * 10001),
                ("lhs", ("fft_pow2", real_f, live), complex_routes,
                 4096 + 6 * 10001),
-               ("pef", ("fft_pow2", real_f, live, "fft_inv", real_i, half),
-                complex_routes, 8192 + 4 * 16385 + 32768 + 3 * 4097))
+               ("pef", ("pef_log_power", "pef_xcorr_pitch"),
+                ("fft_pow2", "fft_inv"), 8192 + 1))
     out = {}
     for name, req, forbid, per_row in batched:
         plan = p[name]
@@ -3928,10 +3945,16 @@ def phase4_slice9_timing(d, errs):
           f"{call_ms['HarmonicRatio']:.3f} (PyTorch "
           f"{call_ms['HarmonicRatio'] - k_hr:.3f})")
     k_pef = k_8 + k_buf + k_inv
-    print(f"  split PitchPEF: kernels {k_pef:.3f} ms (forward 8192 {k_8:.3f}, "
-          f"forward 32768 {k_buf:.3f}, inverse 32768 {k_inv:.3f}) of "
-          f"{call_ms['PitchPEF']:.3f} (PyTorch "
-          f"{call_ms['PitchPEF'] - k_pef:.3f})")
+    pef = p["pef"]
+    lp = pef_front(pef, x)
+    k_front = cuda_ms(lambda: pef_front(pef, x), reps=10)
+    k_back = cuda_ms(lambda: pef_back(pef, lp), reps=10)
+    del lp
+    print(f"  split PitchPEF: its kernels {k_front + k_back:.3f} ms "
+          f"(pef_log_power {k_front:.3f}, pef_xcorr_pitch {k_back:.3f}) of "
+          f"{call_ms['PitchPEF']:.3f}; the FFT kernels at its old shapes "
+          f"{k_pef:.3f} (forward 8192 {k_8:.3f}, forward 32768 "
+          f"{k_buf:.3f}, inverse 32768 {k_inv:.3f})")
     ffp = p["ffp"]._chain
     fr1 = (x1.unfold(-1, ffp.fft_length, ffp.slide_length)
            * ffp._window_t).contiguous()
@@ -3958,6 +3981,158 @@ def phase4_slice9_timing(d, errs):
           "iteration)")
     shapes["frames_entry"] = frames_entry["ncf"]
     return shapes
+
+
+PEF_RECS = 8                 # the benchmark's pitch.corpus call: 8 x 300 s
+PEF_SECONDS = (30, 300)      # 7,472 and 74,976 frames
+PEF_SHARE = 2e-3             # frames whose pitch may differ from the plain
+PEF_NEAR_TIE = 1e-6          # ... where their lags' values lie this close,
+                             # one lag apart
+PEF_FRONT_TOL = 1e-6         # the front's rows, of each row's peak
+
+
+def pef_front(p, x):
+    return cuda_pef.pef_log_power(
+        x, p._window_t, p._pos_t, p._w_t, p._band_width_t,
+        fft_length=p.fft_length, slide_length=p.slide_length,
+        bins=p._pos_bins)
+
+
+def pef_back(p, lp):
+    return cuda_pef.pef_xcorr_pitch(lp, p._ff_half, p._log_fre_t,
+                                    **p._xcorr_plan())
+
+
+def pef_pitch_gate(label, p, x, got):
+    """The kernels' pitch against ``_pef_impl``: equal but on PEF_SHARE of
+    the frames, each other frame a near tie of two neighbouring lags in the
+    plain path's float32 cross-correlation (whose values there may be
+    equal: the peak is flat on the fine log grid).  Returns (the frames
+    that differ, the gate's failures)."""
+    want = p._pef_impl(x)
+    diff = (got != want).reshape(-1)
+    n_diff = int(diff.sum())
+    print(f"  {label}: {n_diff} of {diff.numel()} frames differ from "
+          f"_pef_impl")
+    fails = []
+    if n_diff > PEF_SHARE * diff.numel():
+        fails.append(f"{label}: {n_diff} frames differ")
+    if n_diff:
+        lp = p._log_power(x).reshape(-1, 2 * p.fft_length)[diff]
+        xc = fft_inv(*p._xcorr_spectrum(lp), n=p.xcorr_fft_length)[0]
+        lags = [[int(torch.nonzero(p._log_fre_t == f)[0]) for f in v]
+                for v in (got.reshape(-1)[diff], want.reshape(-1)[diff])]
+        gaps = []
+        for r, (lg, lw) in enumerate(zip(*lags)):
+            gap = abs(xc[r, lg].item() - xc[r, lw].item())
+            top = abs(xc[r, lw].item())
+            gaps.append((lg, lw, round(gap / top, 9)))
+            if gap > PEF_NEAR_TIE * top or abs(lg - lw) > 1:
+                fails.append(f"{label}: lag {lg} for {lw} is no near tie")
+        print(f"    (kernel lag, plain lag, gap / value): {gaps[:40]}")
+    return n_diff, fails
+
+
+def phase_pef(gen):
+    """PEF's two kernels on the benchmark's plan at 8 x 30 s and 8 x 300 s
+    (its cell's call): the front against its plain version, the pitch
+    against ``_pef_impl``, one launch of each and no FFT kernel a call;
+    CUDA-event times of each kernel, the call, the plain path and its
+    parts, with their bounds; and the FFT kernels PEF called before,
+    which its other callers keep, at the cell's shapes."""
+    phase("phase 2h/4h: PEF's kernels (pef_log_power, pef_xcorr_pitch)")
+    p = PitchPEF(samplate=SR, low_fre=32.0, high_fre=2000.0, cut_fre=4000.0,
+                 radix2_exp=12, slide_length=1024, device="cuda")
+    out, failed = {}, []
+    for secs in PEF_SECONDS:
+        x = mir_signal(PEF_RECS, secs * SR, gen)
+        frames = PEF_RECS * ((secs * SR - 4096) // 1024 + 1)
+        tag = f"{PEF_RECS} x {secs} s ({frames} frames)"
+        lp = pef_front(p, x)
+        ref = p._log_power(x)
+        err = ((lp - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
+        same = (lp == ref).float().mean().item()
+        del ref
+        check(f"pef_log_power {tag} vs plain, of each row's peak "
+              f"({same:.4f} of the values equal)", err, PEF_FRONT_TOL)
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fre = p.pitch(x)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        c = read_counts()
+        require_launched(f"PitchPEF.pitch {tag}",
+                         {k: c[k] for k in ("pef_log_power",
+                                            "pef_xcorr_pitch")})
+        if (c["pef_log_power"], c["pef_xcorr_pitch"]) != (1, 1) or (
+                c["fft_pow2"] + c["fft_inv"]):
+            raise AssertionError(f"PitchPEF.pitch {tag}: launches {c}")
+        n_diff, fails = pef_pitch_gate(f"PitchPEF.pitch {tag}", p, x, fre)
+        failed += fails
+        k_front = cuda_ms(lambda: pef_front(p, x))
+        k_back = cuda_ms(lambda: pef_back(p, lp))
+        call = cuda_ms(lambda: p.pitch(x))
+        plain = cuda_ms(lambda: p._pef_impl(x), reps=5, warmup=1)
+        p_front = cuda_ms(lambda: p._log_power(x), reps=5, warmup=1)
+        p_back = cuda_ms(lambda: cuda_pef.pef_xcorr_pitch_ref(
+            lp, p._ff_half, p._log_fre_t, **p._xcorr_plan()), reps=5,
+            warmup=1)
+        # counts/pitch_track_32k.py's pruned transforms: the front's forward
+        # at 8192 of 4096 samples, the back's forward and inverse at 32768
+        # (8,192 live, 7,244 lags read); bytes: audio in and rows out, rows
+        # in and the pitch out
+        b_front = bound_ms(4 * x.numel() + 4 * lp.numel(),
+                           frames * 2.5 * 8192 * 12)
+        b_back = bound_ms(4 * lp.numel() + 4 * frames,
+                          frames * 2 * 2.5 * 32768 * 13)
+        hours = x.numel() / SR / 3600.0
+        print(f"  pef_log_power {tag}: {k_front:.3f} ms (bound {b_front[0]:.3f},"
+              f" {b_front[1]}), plain {p_front:.3f}")
+        print(f"  pef_xcorr_pitch {tag}: {k_back:.3f} ms (bound "
+              f"{b_back[0]:.3f}, {b_back[1]}), plain {p_back:.3f}")
+        print(f"  PitchPEF.pitch {tag}: {call:.3f} ms "
+              f"({hours / (call / 1e3):.3f} audio-h/s), _pef_impl "
+              f"{plain:.3f} ms; peak {peak:.2f} GB above the input")
+        out[frames] = dict(front_ms=k_front, back_ms=k_back, call_ms=call,
+                           plain_ms=plain, plain_front_ms=p_front,
+                           plain_back_ms=p_back, front_bound_ms=b_front[0],
+                           back_bound_ms=b_back[0], front_err=err,
+                           differ=n_diff, peak_gb=peak)
+        del fre
+        if secs != PEF_SECONDS[-1]:
+            del x, lp
+            torch.cuda.empty_cache()
+            continue
+        # the FFT kernels PEF called before, at the cell's shapes: their
+        # other callers keep them, and their binaries did not change
+        win = (x.unfold(-1, 4096, 1024) * p._window_t).reshape(-1, 4096)
+        win = win.contiguous()
+        rect = x.unfold(-1, 4096, 1024).reshape(-1, 4096).contiguous()
+        del x
+        rows = lp.reshape(-1, 2 * p.fft_length)
+        fft8 = cuda_ms(lambda: fft_fwd(win, bins=4097, n=8192))
+        hps = cuda_ms(lambda: fft_fwd(win, bins=10001, n=32768))
+        yr, yi = fft_fwd(rows, bins=16385, n=32768, lo=p._pad_num)
+        fwd32 = cuda_ms(lambda: fft_fwd(rows, bins=16385, n=32768,
+                                        lo=p._pad_num))
+        inv32 = cuda_ms(lambda: fft_inv(yr, yi, n=32768))
+        del yr, yi
+        acf = cuda_ms(lambda: fft_autocorr_frames(rect, 8192, 1001))
+        print(f"  at {frames} frames: real_fwd_kernel<1> (8192) {fft8:.3f} "
+              f"ms, real_fwd_kernel<4> (HPS's 32768) {hps:.3f}, "
+              f"real_fwd_kernel<4> (PEF's old 32768) {fwd32:.3f}, "
+              f"real_inv_kernel<4, true> {inv32:.3f}, acf_reg_kernel<2, "
+              f"true> (NCF's frames) {acf:.3f}")
+        out["fft_kernels_ms"] = dict(real_fwd_8192=fft8, real_fwd_hps=hps,
+                                     real_fwd_pef=fwd32, real_inv_half=inv32,
+                                     acf_frames=acf)
+        del win, rect, rows, lp
+        torch.cuda.empty_cache()
+    print(json.dumps({"pef": out}))
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
 
 
 def merge_slice9(rows, launches, shapes):
@@ -5060,6 +5235,9 @@ def main():
     gen.manual_seed(0)
     if upto < 2:
         return
+    if "--pef" in sys.argv:
+        phase_pef(gen)
+        return
     errs = phase2_kernels(gen)
     phase2_wavelet_kernels(gen, errs)
     phase2_slice7_kernels(gen, errs)
@@ -5108,6 +5286,8 @@ def main():
                         phase4_slice9_timing(slice9, errs9))
     later.append(slice9["launches"])
     del slice9
+    torch.cuda.empty_cache()
+    phase_pef(gen)
     torch.cuda.empty_cache()
     slice10 = phase3_slice10_paths(gen)
     slice12 = phase3_slice12_paths(slice10, gen)

@@ -15,9 +15,10 @@ import pytest
 import torch
 
 from audioflux_torch import observe
+from audioflux_torch.mir.pitch import PitchPEF
 from audioflux_torch.ops import (cuda_cwt, cuda_fft, cuda_hpss, cuda_median,
-                                 cuda_scatter, cuda_unwrap, cuda_yin,
-                                 fused_mel)
+                                 cuda_pef, cuda_scatter, cuda_unwrap,
+                                 cuda_yin, fused_mel)
 from benchmark import harness, traffic
 
 CPU = [torch.profiler.ProfilerActivity.CPU]
@@ -122,16 +123,31 @@ HPSS_KERNELS = {
         **_HPSS_PLAN),
 }
 
+_PEF = PitchPEF(device="cpu")
+
+# PEF's kernels' wrappers: on the CPU their plain versions call the FFT
+# wrappers too
+PEF_KERNELS = {
+    "pef_log_power": lambda: cuda_pef.pef_log_power(
+        _real(1, 6144), _PEF._window_t, _PEF._pos_t, _PEF._w_t,
+        _PEF._band_width_t, fft_length=4096, slide_length=1024,
+        bins=_PEF._pos_bins),
+    "pef_xcorr_pitch": lambda: cuda_pef.pef_xcorr_pitch(
+        _real(2, 8192).abs(), _PEF._ff_half, _PEF._log_fre_t,
+        **_PEF._xcorr_plan()),
+}
+
 CALLS = ({f"cell:{c}": c for c in CELLS}
          | {f"kernel:{k}": k for k in KERNELS}
-         | {f"kernel:{k}": k for k in HPSS_KERNELS})
+         | {f"kernel:{k}": k for k in HPSS_KERNELS}
+         | {f"kernel:{k}": k for k in PEF_KERNELS})
 
 
 def _make(case):
     kind, name = case.split(":")
     if kind == "cell":
         return _cell_call(name)
-    return KERNELS.get(name) or HPSS_KERNELS[name]
+    return KERNELS.get(name) or HPSS_KERNELS.get(name) or PEF_KERNELS[name]
 
 
 def _recorded(fn, tmp_path):
@@ -178,15 +194,25 @@ def test_each_kernel_wrapper_records_its_span_once(name, tmp_path):
     assert [n for n, _, _ in spans] == [f"af.kernel.{name}"]
 
 
-@pytest.mark.parametrize("name", sorted(HPSS_KERNELS))
-def test_hpss_kernel_wrappers_record_their_spans(name, tmp_path):
-    spans = _recorded(HPSS_KERNELS[name], tmp_path)
+def _hold_nested(name, fn, tmp_path):
+    """One span of the wrapper, the FFT wrappers' inside it."""
+    spans = _recorded(fn, tmp_path)
     own = [sp for sp in spans if sp[0] == f"af.kernel.{name}"]
     assert len(own) == 1
     _, a, b = own[0]
     inner = [sp for sp in spans if sp is not own[0]]
     assert inner and all(n.startswith("af.kernel.fft_") for n, _, _ in inner)
     assert all(a <= s and e <= b for _, s, e in inner)
+
+
+@pytest.mark.parametrize("name", sorted(HPSS_KERNELS))
+def test_hpss_kernel_wrappers_record_their_spans(name, tmp_path):
+    _hold_nested(name, HPSS_KERNELS[name], tmp_path)
+
+
+@pytest.mark.parametrize("name", sorted(PEF_KERNELS))
+def test_pef_kernel_wrappers_record_their_spans(name, tmp_path):
+    _hold_nested(name, PEF_KERNELS[name], tmp_path)
 
 
 @pytest.mark.parametrize("case", sorted(CALLS))
