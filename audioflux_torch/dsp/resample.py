@@ -35,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from audioflux_torch.observe import scope
 from audioflux_torch.ops.backend import as_tensor, f32_scalar, resolve_device
 from audioflux_torch.ops.window import get_window
 from audioflux_torch.types import ResampleQualityType, WindowType
@@ -199,25 +200,27 @@ class WindowResample:
         235-244); the remainder is dropped as in the C, or carried into the
         next call when ``tail_carry=True``.
         """
-        x = as_tensor(data_arr, self.device)
-        if self.is_continue and self.q > 1:
-            if x.ndim != 1:
-                raise ValueError("is_continue streaming expects 1-D input")
-            if self.tail_carry and self._tail is not None:
-                x = torch.cat([self._tail, x])
-            n = x.shape[-1] - x.shape[-1] % self.q
-            if self.tail_carry:
-                self._tail = x[n:].clone()
-            x = x[:n]
-            out_len = n * self.p // self.q
-        else:
-            out_len = int(np.floor(x.shape[-1] * self.ratio))
-        plan = self._plan()
-        y = _poly_resample(x, plan.mat, p=plan.p, q=plan.q, out_len=out_len,
-                           max_l=plan.max_l)
-        if self.is_scale:
-            y = y / f32_scalar(np.sqrt(self.ratio), y.device)
-        return y
+        with scope(f"af.{type(self).__name__}.resample"):
+            x = as_tensor(data_arr, self.device)
+            if self.is_continue and self.q > 1:
+                if x.ndim != 1:
+                    raise ValueError(
+                        "is_continue streaming expects 1-D input")
+                if self.tail_carry and self._tail is not None:
+                    x = torch.cat([self._tail, x])
+                n = x.shape[-1] - x.shape[-1] % self.q
+                if self.tail_carry:
+                    self._tail = x[n:].clone()
+                x = x[:n]
+                out_len = n * self.p // self.q
+            else:
+                out_len = int(np.floor(x.shape[-1] * self.ratio))
+            plan = self._plan()
+            y = _poly_resample(x, plan.mat, p=plan.p, q=plan.q,
+                               out_len=out_len, max_l=plan.max_l)
+            if self.is_scale:
+                y = y / f32_scalar(np.sqrt(self.ratio), y.device)
+            return y
 
 
 class Resample(WindowResample):

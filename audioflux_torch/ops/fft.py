@@ -40,12 +40,16 @@ def _prep(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
 def rfft(x: torch.Tensor, n=None, dim=-1, exact=False) -> torch.Tensor:
     ln = n if n is not None else x.shape[dim]
     if not _kernel_tier(ln, exact):
+        rfft.library_calls += 1
         return torch.fft.rfft(x, n=n, dim=dim)
     # rows shorter than n are not padded: the kernel reads the live
     # samples alone
     v = _prep(x, min(ln, x.shape[dim]), dim).to(torch.float32).contiguous()
     yr, yi = cuda_fft.fft_fwd(v, bins=ln // 2 + 1, n=ln)
     return torch.complex(yr, yi).movedim(-1, dim)
+
+
+rfft.library_calls = 0   # calls that took torch.fft (off the kernel tier)
 
 
 def fft(x: torch.Tensor, n=None, dim=-1, exact=False) -> torch.Tensor:

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from audioflux_torch.dsp.resample import Resample
 from audioflux_torch.features.deconv import Deconv, _ceil_pow2
+from audioflux_torch.observe import scope
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.backend import as_tensor, resolve_device
 from audioflux_torch.ops.frame import frame_signal
@@ -314,30 +315,32 @@ class CQTBase:
         With ``is_continue`` set, consecutive calls carry the unconsumed
         sample tail (cqtObj isContinue); each call emits the frames that
         the accumulated samples complete."""
-        x = as_tensor(data_arr, self.device)
-        if self._carry is not None:
-            buf = self._carry.feed(x)
-            if buf is None:
-                return torch.zeros(x.shape[:-1] + (self.num, 0),
-                                   dtype=torch.complex64, device=self.device)
-            x = buf
-            # the carried buffer: (len - fft) // slide + 1 frames
-            T = (x.shape[-1] - self.fft_length) // self.slide_length + 1
-        else:
-            T = x.shape[-1] // self.slide_length + 1
-        slide = self.slide_length
-        blocks = [None] * self.octave_num
-        for i in range(self.octave_num - 1, -1, -1):
-            spec = self._octave_spec(x, slide, self._kernels_t[i])
-            cur_T = spec.shape[-2]
-            if cur_T < T:
-                spec = F.pad(spec, (0, 0, 0, T - cur_T))
-            blocks[i] = spec[..., :T, :]
-            if i > 0:
-                x = self._resampler.resample(x)
-                slide //= 2
-        out = torch.cat(blocks, dim=-1) * self._scale_t   # (..., T, num)
-        return out.transpose(-1, -2).contiguous()
+        with scope(f"af.{type(self).__name__}.cqt"):
+            x = as_tensor(data_arr, self.device)
+            if self._carry is not None:
+                buf = self._carry.feed(x)
+                if buf is None:
+                    return torch.zeros(x.shape[:-1] + (self.num, 0),
+                                       dtype=torch.complex64,
+                                       device=self.device)
+                x = buf
+                # the carried buffer: (len - fft) // slide + 1 frames
+                T = (x.shape[-1] - self.fft_length) // self.slide_length + 1
+            else:
+                T = x.shape[-1] // self.slide_length + 1
+            slide = self.slide_length
+            blocks = [None] * self.octave_num
+            for i in range(self.octave_num - 1, -1, -1):
+                spec = self._octave_spec(x, slide, self._kernels_t[i])
+                cur_T = spec.shape[-2]
+                if cur_T < T:
+                    spec = F.pad(spec, (0, 0, 0, T - cur_T))
+                blocks[i] = spec[..., :T, :]
+                if i > 0:
+                    x = self._resampler.resample(x)
+                    slide //= 2
+            out = torch.cat(blocks, dim=-1) * self._scale_t   # (..., T, num)
+            return out.transpose(-1, -2).contiguous()
 
     def _cqt_frames(self, x, t0: int, t1: int):
         """Output frames [t0, t1) of :meth:`cqt` (not in continue mode):
@@ -362,19 +365,20 @@ class CQTBase:
                data_type: SpectralDataType = SpectralDataType.POWER,
                norm_type: ChromaDataNormalType = ChromaDataNormalType.MAX):
         """Fold the complex CQT into chroma (cqt_algorithm.c:cqtObj_chroma)."""
-        cfb = self._chroma_t.get(chroma_num)
-        if cfb is None:
-            cfb = self._chroma_t[chroma_num] = as_tensor(
-                chroma_cqt_filter_bank(chroma_num, self.num,
-                                       self.bin_per_octave, self.low_fre),
-                self.device)
-        D = _as_complex(m_cqt_data, self.device).transpose(-1, -2)
-        P = D.real.square() + D.imag.square()
-        if SpectralDataType(data_type) == SpectralDataType.MAG:
-            P = P.sqrt()
-        out = chroma_normalize(torch.matmul(P, cfb.T),
-                               ChromaDataNormalType(norm_type))
-        return out.transpose(-1, -2).contiguous()
+        with scope(f"af.{type(self).__name__}.chroma"):
+            cfb = self._chroma_t.get(chroma_num)
+            if cfb is None:
+                cfb = self._chroma_t[chroma_num] = as_tensor(
+                    chroma_cqt_filter_bank(chroma_num, self.num,
+                                           self.bin_per_octave, self.low_fre),
+                    self.device)
+            D = _as_complex(m_cqt_data, self.device).transpose(-1, -2)
+            P = D.real.square() + D.imag.square()
+            if SpectralDataType(data_type) == SpectralDataType.MAG:
+                P = P.sqrt()
+            out = chroma_normalize(torch.matmul(P, cfb.T),
+                                   ChromaDataNormalType(norm_type))
+            return out.transpose(-1, -2).contiguous()
 
     def cqcc(self, m_data_arr, cc_num: int = 13,
              rectify_type: CepstralRectifyType = CepstralRectifyType.LOG):

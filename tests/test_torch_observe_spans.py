@@ -19,13 +19,15 @@ from audioflux_torch.mir.pitch import PitchPEF
 from audioflux_torch.ops import (cuda_cwt, cuda_fft, cuda_hpss, cuda_median,
                                  cuda_pef, cuda_scatter, cuda_unwrap,
                                  cuda_yin, fused_mel)
+from audioflux_torch.ops import fft as afft
 from benchmark import harness, traffic
 
 CPU = [torch.profiler.ProfilerActivity.CPU]
 
 # the benchmark's cells at a test's size: (clips, samples) a call
 CELLS = {"mel_mfcc.corpus": (3, 2048 + 512 * 7), "mir.corpus": (2, 64000),
-         "wavelet.corpus": (1, 1 << 13), "pitch.corpus": (2, 8192)}
+         "wavelet.corpus": (1, 1 << 13), "pitch.corpus": (2, 8192),
+         "cqt.corpus": (2, 16000)}
 # plan arguments cut with the request where the plan fixes its length:
 # 2^13 samples, padded to 2^14, still take the CWT kernel's wrapper
 PLANS = {"wavelet.corpus": {"radix2_exp": 13}}
@@ -42,7 +44,15 @@ ENTRY_SPANS = {
     "pitch.corpus": {"af.PitchNCF.pitch": 1, "af.PitchHPS.pitch": 1,
                      "af.PitchPEF.pitch": 1,
                      "af.HarmonicRatio.harmonic_ratio": 1},
+    # the octave chain's six 2:1 resamples nest inside the CQT's span
+    "cqt.corpus": {"af.CQT.cqt": 1, "af.CQT.chroma": 1,
+                   "af.Resample.resample": 6},
 }
+# cells whose call runs no hand-written kernel, so opens no kernel span
+NO_KERNEL = {"cqt.corpus"}
+# the calls a cell's call makes to torch.fft through ops.fft.rfft (the
+# CQT's 512-point transform, one an octave)
+RFFT_LIBRARY_CALLS = {"cqt.corpus": 7}
 
 
 class _NoCallerSpans:
@@ -171,7 +181,7 @@ def test_each_entry_span_is_recorded_once_a_call(cell, tmp_path):
                if not n.startswith("af.kernel.")}
     assert entries == ENTRY_SPANS[cell]
     kernels = [s for s in spans if s[0].startswith("af.kernel.")]
-    assert kernels
+    assert bool(kernels) == (cell not in NO_KERNEL)
     outer = [s for s in spans if s[0] in ENTRY_SPANS[cell]]
     for _, s, e in kernels:      # nested by time under an entry's span
         assert any(a <= s and e <= b for _, a, b in outer)
@@ -186,6 +196,21 @@ def test_each_entry_span_is_recorded_once_a_call(cell, tmp_path):
             assert counts[f"af.kernel.{kernel}"] == 1
             (a, b), (s, e) = spans_of[entry], spans_of[f"af.kernel.{kernel}"]
             assert a <= s and e <= b
+    if cell == "cqt.corpus":     # the resamples inside the CQT's span
+        (_, a, b), = [sp for sp in spans if sp[0] == "af.CQT.cqt"]
+        (_, c, d), = [sp for sp in spans if sp[0] == "af.CQT.chroma"]
+        assert b <= c
+        for name, s, e in spans:
+            if name == "af.Resample.resample":
+                assert a <= s and e <= b
+
+
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_rfft_library_calls_a_call(cell):
+    call = _cell_call(cell)
+    before = afft.rfft.library_calls
+    call()
+    assert afft.rfft.library_calls - before == RFFT_LIBRARY_CALLS.get(cell, 0)
 
 
 @pytest.mark.parametrize("name", sorted(KERNELS))
