@@ -46,7 +46,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fft_pow2", "fused_mel_mfcc", "median_filter", "cwt_ifft_bank",
-           "unwrap_diff", "columnar_scatter", "hpss", "pef")
+           "unwrap_diff", "columnar_scatter", "hpss", "pef", "cqt")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC"]
 _HOST_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]

@@ -8,11 +8,19 @@ STFT per octave; lower octaves reuse the top octave's kernel on a
 x2-downsampled signal (cqt_algorithm.c:993-1000, the Brown-Puckette
 recursive scheme) through the FAST Kaiser-sinc resampler.
 
-Each octave is one padded-frame ``ops.fft.rfft`` in natural bin order (the
-FFT kernel for a CUDA tensor at pow2 2048 <= n <= 32768: plans whose top
-octave needs an FFT of 2048 or more) and one complex product with the
-kernel matrix as four fp32 matrix products; only the resampling chain is
-sequential.  VQT (beta > 0) uses per-octave kernels.
+A CUDA float32 call of a plan with ``fft_length`` 512
+(``ops.cuda_cqt.supports``: the default 84-bin CQT, ``SimpleCQT``,
+``VQT`` at 12 bins an octave, at slides the kernel's shared memory holds)
+runs the resampling chain, then takes all octaves in one kernel
+(``ops.cuda_cqt.cqt_octaves``: the padding, the frames, the 512-point real
+transform, the product with the octave's kernel over each row's run of
+nonzero bins, the scale and the final layout).  Every other call takes the
+kernel's plain version (``ops.cuda_cqt.cqt_octaves_ref``), from the top
+octave down with the chain's next level made after each: each octave as
+one padded-frame ``ops.fft.rfft`` in natural bin order (the FFT kernel for
+a CUDA tensor at pow2 2048 <= n <= 32768: plans whose top octave needs an
+FFT of 2048 or more) and one complex product with the kernel matrix as
+four fp32 matrix products.  VQT (beta > 0) uses per-octave kernels.
 
 Postprocessing: chroma fold (chroma_cqtFilterBank), CQCC (log/cbrt+DCT),
 CQHC (harmonic picks of the band cepstrum), deconv (cqt_algorithm.h:41-58).
@@ -22,22 +30,19 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from audioflux_torch.dsp.resample import Resample
 from audioflux_torch.features.deconv import Deconv, _ceil_pow2
 from audioflux_torch.observe import scope
+from audioflux_torch.ops import cuda_cqt
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.backend import as_tensor, resolve_device
-from audioflux_torch.ops.frame import frame_signal
-from audioflux_torch.ops.pad import pad_signal
 from audioflux_torch.ops.window import get_fft_window
 from audioflux_torch.transforms.spectrogram import (chroma_normalize,
                                                     dct_matrix,
                                                     xxcc_from_spec)
 from audioflux_torch.transforms.stft import TailCarry, _as_complex
 from audioflux_torch.types import (CepstralRectifyType, ChromaDataNormalType,
-                                   PaddingModeType, PaddingPositionType,
                                    ResampleQualityType, SpectralDataType,
                                    SpectralFilterBankNormalType, WindowType)
 from audioflux_torch.utils.convert import note_to_hz
@@ -238,13 +243,10 @@ class CQTBase:
         self._build_exec()
 
     def _build_exec(self):
-        """Upload the kernels (each distinct one once), the scale vector
-        and the DCT to the plan's device."""
-        dev, up = self.device, {}
-        for k in self._kernels:
-            if id(k) not in up:
-                up[id(k)] = (as_tensor(k.real, dev), as_tensor(k.imag, dev))
-        self._kernels_t = [up[id(k)] for k in self._kernels]
+        """Upload the kernels (``cuda_cqt.octave_kernels``), the scale
+        vector and the DCT to the plan's device."""
+        dev = self.device
+        self._kernels_t = cuda_cqt.octave_kernels(self._kernels, dev)
         self._scale_t = as_tensor(self._scale, dev)
         self._dct_t = as_tensor(self._dct, dev)
         self._chroma_t = {}
@@ -267,36 +269,34 @@ class CQTBase:
         self._build_exec()
 
     # ------------------------------------------------------------------
-    def _octave_spec(self, x, slide, kernel, frames=None):
-        """Padded rect-window STFT times the complex kernel ->
-        (..., T', bpo).  Continue mode pads RIGHT instead of CENTER, like
-        the C cqtObj's internal stft (cqt_algorithm.c:1303-1320).
-        ``frames=(t0, t1)``: only frames [t0, t1), those past the octave's
-        last frame zero, (..., t1 - t0, bpo)."""
-        pos = (PaddingPositionType.RIGHT if self.is_continue
-               else PaddingPositionType.CENTER)
-        xp = pad_signal(x, self.fft_length, slide, pos,
-                        PaddingModeType.CONSTANT)
-        if frames is not None:
-            t0, t1 = frames
-            hi = min(t1, (xp.shape[-1] - self.fft_length) // slide + 1)
-            if hi <= t0:
-                return torch.zeros(
-                    x.shape[:-1] + (t1 - t0, kernel[0].shape[0]),
-                    dtype=torch.complex64, device=x.device)
-            seg = xp[..., t0 * slide:(hi - 1) * slide + self.fft_length]
-            return F.pad(self._octave_spec_frames(seg, slide, kernel),
-                         (0, 0, 0, t1 - hi))
-        return self._octave_spec_frames(xp, slide, kernel)
+    def _octave_slides(self) -> list:
+        """Each octave's slide, lowest octave first."""
+        return [self.slide_length >> (self.octave_num - 1 - i)
+                for i in range(self.octave_num)]
 
-    def _octave_spec_frames(self, xp, slide, kernel):
-        """Every frame of the padded ``xp`` times the complex kernel."""
-        S = afft.rfft(frame_signal(xp, self.fft_length, slide), dim=-1)
-        kr, ki = kernel
-        sr_, si_ = S.real, S.imag
-        re = torch.matmul(sr_, kr.T) - torch.matmul(si_, ki.T)
-        im = torch.matmul(si_, kr.T) + torch.matmul(sr_, ki.T)
-        return torch.complex(re, im)
+    def _levels(self, x):
+        """``x``, then each lower octave's level of the resample chain, made
+        as it is asked for."""
+        yield x
+        for _ in range(self.octave_num - 1):
+            x = self._resampler.resample(x)
+            yield x
+
+    def _octaves(self, x, T: int, t0: int = 0):
+        """Every octave's frames [t0, t0 + T) -> complex64 (..., num, T):
+        where ``cuda_cqt.supports`` the call, the whole resample chain and
+        then one kernel; else the plain version, each octave done before
+        the chain makes the next level.  Continue mode pads RIGHT instead
+        of CENTER, like the C cqtObj's internal stft
+        (cqt_algorithm.c:1303-1320)."""
+        slides = self._octave_slides()
+        kw = dict(fft_length=self.fft_length, T=T, t0=t0,
+                  center=not self.is_continue)
+        if cuda_cqt.supports(x, self.fft_length, slides, T):
+            return cuda_cqt.cqt_octaves(list(self._levels(x))[::-1], slides,
+                                        self._kernels_t, self._scale_t, **kw)
+        return cuda_cqt.cqt_octaves_ref(self._levels(x), slides,
+                                        self._kernels_t, self._scale_t, **kw)
 
     def _scale_vec(self) -> np.ndarray:
         """Per-bin output scaling: each octave's sqrt(2^d) downsampling
@@ -328,19 +328,7 @@ class CQTBase:
                 T = (x.shape[-1] - self.fft_length) // self.slide_length + 1
             else:
                 T = x.shape[-1] // self.slide_length + 1
-            slide = self.slide_length
-            blocks = [None] * self.octave_num
-            for i in range(self.octave_num - 1, -1, -1):
-                spec = self._octave_spec(x, slide, self._kernels_t[i])
-                cur_T = spec.shape[-2]
-                if cur_T < T:
-                    spec = F.pad(spec, (0, 0, 0, T - cur_T))
-                blocks[i] = spec[..., :T, :]
-                if i > 0:
-                    x = self._resampler.resample(x)
-                    slide //= 2
-            out = torch.cat(blocks, dim=-1) * self._scale_t   # (..., T, num)
-            return out.transpose(-1, -2).contiguous()
+            return self._octaves(x, T)
 
     def _cqt_frames(self, x, t0: int, t1: int):
         """Output frames [t0, t1) of :meth:`cqt` (not in continue mode):
@@ -349,16 +337,7 @@ class CQTBase:
         body of the frame-sharded ``parallel.sharded_cqt_fn``)."""
         if self.is_continue:
             raise ValueError("frame ranges need is_continue=False")
-        slide = self.slide_length
-        blocks = [None] * self.octave_num
-        for i in range(self.octave_num - 1, -1, -1):
-            blocks[i] = self._octave_spec(x, slide, self._kernels_t[i],
-                                          frames=(t0, t1))
-            if i > 0:
-                x = self._resampler.resample(x)
-                slide //= 2
-        out = torch.cat(blocks, dim=-1) * self._scale_t
-        return out.transpose(-1, -2).contiguous()
+        return self._octaves(x, t1 - t0, t0)
 
     # -- postprocessing ------------------------------------------------------
     def chroma(self, m_cqt_data, chroma_num: int = 12,

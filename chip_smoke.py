@@ -105,6 +105,7 @@ Phases (any failure exits non-zero; no result line is printed then):
       ``.bft()`` on the card and the CPU at 1e-4 of the peak, the fused
       kernel against its plain version over both batches at 1e-5); on
       1000 clips of 4096 samples ``abs(CQT(num=84, slide_length=1024).cqt)``
+      (the octaves' kernel, each block's span of 5 frames at slide 1024)
       and ``chroma_linear`` (against the CPU at 1e-4) and the reassigned
       ``BFT(num=128, radix2_exp=12, slide_length=1024)`` (the benchmark's
       gate against the CPU: cells off by 1e-3 of the peak <= 5e-3 of all,
@@ -238,6 +239,12 @@ line is the kernels JSON object; the last line is
 kernels against the plain path on the benchmark's plan at 8 x 30 s and
 8 x 300 s, their times, bounds and launches, and the FFT kernels PEF
 called before at its cell's shapes; in a full run it follows 4f).
+``--cqt`` runs phases 0 and 1 and the CQT's phase alone (2i/4i: the
+octaves' kernel against the plain path on the benchmark's plan at 128 x
+30 s, one launch and no library FFT a call, a second launch bit for bit
+the call's; the kernel's time beside its bound, the plain path's, the
+library form's, the resample chain's and the call's; in a full run it
+follows PEF's).
 ``--s10-worker RANK PORT OUT`` is one process of phase 3g's two-process
 call (the script starts both itself).
 """
@@ -291,8 +298,8 @@ from audioflux_torch.parallel import sharded_full as sharded_full_mod  # noqa: E
 from audioflux_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
 from audioflux_torch.parallel.sharded import _time_blocks  # noqa: E402
 from audioflux_torch.ops import _build  # noqa: E402
-from audioflux_torch.ops import (cuda_cwt, cuda_fft, cuda_hpss,  # noqa: E402
-                                 cuda_median, cuda_pef)
+from audioflux_torch.ops import (cuda_cqt, cuda_cwt, cuda_fft,  # noqa: E402
+                                 cuda_hpss, cuda_median, cuda_pef)
 from audioflux_torch.ops import median_network  # noqa: E402
 from audioflux_torch.ops.cuda_cwt import (band_row_counts,  # noqa: E402
                                           cluster_plan, cwt_ifft_bank,
@@ -471,7 +478,8 @@ def phase0_identity():
 # register arrays must stay in registers)
 NO_SPILL = ("autocorr_reg_kernel", "unwrap_rows_kernel", "real_fwd_kernel",
             "real_inv_kernel", "acf_reg_kernel", "cluster_kernel",
-            "row_reg_kernel", "yin_reg_kernel", "pef_log_power_kernel")
+            "row_reg_kernel", "yin_reg_kernel", "pef_log_power_kernel",
+            "cqt_octaves_kernel")
 # kernels at the 255-register cap allowed a few spilled scalars (bytes of
 # stack frame at most): not a register array, whose spill is hundreds
 SMALL_STACK = {"pef_xcorr_pitch_kernel": 16}
@@ -1222,7 +1230,8 @@ COUNTERS = {"fft_pow2": (fft_fwd, "launches"),
             "hpss_resynth": (hpss_resynth, "launches"),
             "yin_pitch": (yin_pitch, "launches"),
             "pef_log_power": (cuda_pef.pef_log_power, "launches"),
-            "pef_xcorr_pitch": (cuda_pef.pef_xcorr_pitch, "launches")}
+            "pef_xcorr_pitch": (cuda_pef.pef_xcorr_pitch, "launches"),
+            "cqt_octaves": (cuda_cqt.cqt_octaves, "launches")}
 
 
 def zero_counts():
@@ -2516,8 +2525,9 @@ def phase3_slice7_paths(gen, errs):
              scale_type=SpectralFilterBankScaleType.LINEAR,
              data_type=SpectralDataType.POWER, is_reassign=True)
     torch.cuda.synchronize()
-    C, c = run_counted("config 3 server CQT (top-octave FFT 512: no kernel)",
-                       lambda: cq.cqt(xs).abs(), ())
+    C, c = run_counted("config 3 server CQT (FFT 512: the octaves' kernel, "
+                       "5 frames at slide 1024)",
+                       lambda: cq.cqt(xs).abs(), ("cqt_octaves",))
     add(c)
     ch, c = run_counted("config 3 server chroma_linear",
                         lambda: chroma_linear(xs, chroma_num=12,
@@ -2745,7 +2755,7 @@ def phase4_slice7_timing(d, errs):
         if name == "abs(CQT.cqt)":
             cqt_ms = ms
     # where abs(CQT.cqt)'s time goes: the resampling chain, the octaves'
-    # padded transforms and kernel products, the rest
+    # kernel, the rest
     octave_in = [xs]
     for _ in range(cq.octave_num - 1):
         octave_in.append(cq._resampler.resample(octave_in[-1]))
@@ -2756,17 +2766,15 @@ def phase4_slice7_timing(d, errs):
             y = cq._resampler.resample(y)
 
     def octaves():
-        for i in range(cq.octave_num):
-            cq._octave_spec(octave_in[cq.octave_num - 1 - i],
-                            C3_SLIDE >> (cq.octave_num - 1 - i),
-                            cq._kernels_t[i])
+        cuda_cqt.cqt_octaves(octave_in[::-1], cq._octave_slides(),
+                             cq._kernels_t, cq._scale_t,
+                             fft_length=cq.fft_length, T=C3_N // C3_SLIDE + 1)
     chain_ms = cuda_ms(chain, reps=10)
     oct_ms = cuda_ms(octaves, reps=10)
     for name, ms in ((f"the resampling chain ({cq.octave_num - 1} x 2:1)",
                       chain_ms),
-                     (f"the {cq.octave_num} octaves (pad, frames, FFT 512, "
-                      "kernel products)", oct_ms),
-                     ("the rest (concatenation, scale, abs)",
+                     (f"the {cq.octave_num} octaves (cqt_octaves)", oct_ms),
+                     ("the rest (abs)",
                       cqt_ms - chain_ms - oct_ms)):
         print(f"  split of abs(CQT.cqt) at {C3_CLIPS} clips: {name}: "
               f"{ms:.3f} ms")
@@ -4135,6 +4143,105 @@ def phase_pef(gen):
     return out
 
 
+CQT_CLIPS, CQT_SECONDS = 128, 30   # the benchmark's cqt.corpus call
+CQT_TOL = 1e-5                     # the kernel against the plain path
+
+
+def cqt_need(clips, T, levels, bins, nnz):
+    """(bytes, flops) the octaves need: every level read and the output of
+    ``bins`` x T complex values a clip written once; a 512-point real
+    transform (2.5 N log2 N) and 8 flops a kernel nonzero a frame of every
+    octave."""
+    frames = sum(clips * (lv.shape[-1] // s + 1) for lv, s in levels)
+    return (4 * sum(lv.numel() for lv, _ in levels) + 8 * clips * bins * T,
+            frames * (2.5 * 512 * 9 + 8 * nnz))
+
+
+def phase_cqt(gen):
+    """The CQT's octaves kernel on the benchmark's plan at its cell's call
+    (128 x 30 s): against the plain path (``cqt_octaves_ref``, the port's
+    per-octave PyTorch form) at CQT_TOL of the peak, one launch and no
+    library FFT a call, a second launch bit for bit the call's; CUDA-event
+    times of the kernel beside its bound, of the plain path,
+    of the library form (``torch.fft.rfft`` and the four products an
+    octave), of the resample chain and of the call."""
+    phase("phase 2i/4i: the CQT's octaves kernel (cqt_octaves)")
+    p = CQT(num=84, samplate=SR, device="cuda")
+    x = mir_signal(CQT_CLIPS, CQT_SECONDS * SR, gen)
+    T = x.shape[-1] // p.slide_length + 1
+    tag = f"{CQT_CLIPS} x {CQT_SECONDS} s ({T} frames an octave)"
+    chain = [x]
+    for _ in range(p.octave_num - 1):
+        chain.append(p._resampler.resample(chain[-1]))
+    levels = chain[::-1]
+    slides = p._octave_slides()
+    args = (levels, slides, p._kernels_t, p._scale_t)
+    kw = dict(fft_length=p.fft_length, T=T)
+    zero_counts()
+    lib0 = rfft.library_calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    C = p.cqt(x)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    c = read_counts()
+    require_launched(f"CQT.cqt {tag}", {"cqt_octaves": c["cqt_octaves"]})
+    if c["cqt_octaves"] != 1 or rfft.library_calls != lib0 or (
+            c["fft_pow2"] + c["fft_inv"]):
+        raise AssertionError(f"CQT.cqt {tag}: launches {c}, library calls "
+                             f"{rfft.library_calls - lib0}")
+    top_down = (levels[::-1],) + args[1:]
+    ref = cuda_cqt.cqt_octaves_ref(*top_down, **kw)
+    err = ((C - ref).abs().max() / ref.abs().max()).item()
+    check(f"cqt_octaves {tag} vs the plain path, of the peak", err, CQT_TOL)
+    del ref
+    got = cuda_cqt.cqt_octaves(*args, **kw)
+    if not torch.equal(got, C):
+        raise AssertionError("a second cqt_octaves launch differs from the "
+                             "call's")
+    del got
+    k_ms = cuda_ms(lambda: cuda_cqt.cqt_octaves(*args, **kw))
+    plain = cuda_ms(lambda: cuda_cqt.cqt_octaves_ref(*top_down, **kw),
+                    reps=5, warmup=1)
+
+    def library():
+        for o, (lv, s) in enumerate(zip(levels, slides)):
+            kr, ki = p._kernels_t.planes[o]
+            S = torch.fft.rfft(F.pad(lv, (256, 256)).unfold(-1, 512, s),
+                               dim=-1)
+            torch.matmul(S.real, kr.T) - torch.matmul(S.imag, ki.T)
+            torch.matmul(S.imag, kr.T) + torch.matmul(S.real, ki.T)
+    lib_ms = cuda_ms(library, reps=5, warmup=1)
+
+    def resamples():
+        y = x
+        for _ in range(p.octave_num - 1):
+            y = p._resampler.resample(y)
+    chain_ms = cuda_ms(resamples, reps=5, warmup=1)
+    call = cuda_ms(lambda: p.cqt(x), reps=5, warmup=1)
+    nnz = int(torch.count_nonzero(p._kernels_t.vals.abs().sum(-1)))
+    nnz //= p.octave_num
+    n_bytes, n_flops = cqt_need(CQT_CLIPS, T, list(zip(levels, slides)),
+                                p.num, nnz)
+    bound = bound_ms(n_bytes, n_flops)
+    hours = x.numel() / SR / 3600.0
+    print(f"  cqt_octaves {tag}: {k_ms:.3f} ms (bound {bound[0]:.3f}, "
+          f"{bound[1]}: {n_bytes / 1e9:.3f} GB, {n_flops / 1e9:.1f} GFLOP, "
+          f"{nnz} nonzeros an octave), plain {plain:.3f}, library "
+          f"{lib_ms:.3f}")
+    print(f"  CQT.cqt {tag}: {call:.3f} ms ({hours / (call / 1e3):.3f} "
+          f"audio-h/s): the resample chain {chain_ms:.3f}, the rest "
+          f"{call - chain_ms:.3f}; peak {peak:.2f} GB above the input")
+    out = dict(kernel_ms=k_ms, bound_ms=bound[0],
+               bound_by=bound[1], plain_ms=plain, library_ms=lib_ms,
+               chain_ms=chain_ms, call_ms=call, err=err, peak_gb=peak)
+    print(json.dumps({"cqt": out}))
+    del C, chain, levels, args, top_down, x
+    torch.cuda.empty_cache()
+    return out
+
+
 def merge_slice9(rows, launches, shapes):
     """The kernels line's rows gain the slice-9 paths' launches and the
     FFT rows their readings at slice 9's shapes (under ``shapes``); the
@@ -5238,6 +5345,9 @@ def main():
     if "--pef" in sys.argv:
         phase_pef(gen)
         return
+    if "--cqt" in sys.argv:
+        phase_cqt(gen)
+        return
     errs = phase2_kernels(gen)
     phase2_wavelet_kernels(gen, errs)
     phase2_slice7_kernels(gen, errs)
@@ -5289,6 +5399,7 @@ def main():
     torch.cuda.empty_cache()
     phase_pef(gen)
     torch.cuda.empty_cache()
+    phase_cqt(gen)
     slice10 = phase3_slice10_paths(gen)
     slice12 = phase3_slice12_paths(slice10, gen)
     shapes10 = phase4_slice10_timing(slice10)

@@ -16,9 +16,10 @@ import torch
 
 from audioflux_torch import observe
 from audioflux_torch.mir.pitch import PitchPEF
-from audioflux_torch.ops import (cuda_cwt, cuda_fft, cuda_hpss, cuda_median,
-                                 cuda_pef, cuda_scatter, cuda_unwrap,
-                                 cuda_yin, fused_mel)
+from audioflux_torch.ops import (cuda_cqt, cuda_cwt, cuda_fft, cuda_hpss,
+                                 cuda_median, cuda_pef, cuda_scatter,
+                                 cuda_unwrap, cuda_yin, fused_mel)
+from audioflux_torch.transforms.cqt import CQT
 from audioflux_torch.ops import fft as afft
 from benchmark import harness, traffic
 
@@ -93,6 +94,15 @@ def _fused_mel_mfcc():
     return fused_mel.fused_mel_mfcc(plan, _real(2, 2048))
 
 
+def _cqt_octaves():
+    plan = CQT(num=24, samplate=32000, low_fre=1000.0, device="cpu")
+    levels = [_real(2, 8000 >> (plan.octave_num - 1 - o), seed=o)
+              for o in range(plan.octave_num)]
+    return cuda_cqt.cqt_octaves(levels, plan._octave_slides(), plan._kernels_t,
+                                plan._scale_t, fft_length=plan.fft_length,
+                                T=8000 // plan.slide_length + 1)
+
+
 # one call of each kernel wrapper on CPU tensors, by the wrapper's name
 KERNELS = {
     "fused_mel_mfcc": _fused_mel_mfcc,
@@ -118,6 +128,8 @@ KERNELS = {
     "columnar_scatter": lambda: cuda_scatter.columnar_scatter(
         _complex(1, 3, 5), torch.randint(-1, 5, (1, 3, 5), generator=_rng(),
                                          dtype=torch.int32), 4),
+    # on the CPU its plain version calls rfft's library route, no wrapper
+    "cqt_octaves": _cqt_octaves,
 }
 
 _HPSS_PLAN = dict(fft_length=2048, slide_length=512)
