@@ -28,7 +28,18 @@ Plans and one-shots take ``device=None``, which means ``cuda``: with no
 CUDA device they raise; pass ``device="cpu"`` to run the plain PyTorch
 versions of the kernels on the CPU.  The kernels are compiled with
 ``nvcc`` at first use into ``audioflux_torch/_build/``.
+
+The import is the set-up span ``af.setup.import`` (``observe.setup``).
 """
+
+import time as _time
+
+_IMPORT_START = _time.perf_counter_ns()
+
+from audioflux_torch import observe
+
+_import_span = observe.setup("af.setup.import", start_ns=_IMPORT_START)
+_import_span.__enter__()
 
 from audioflux_torch.types import (
     WindowType,
@@ -101,6 +112,8 @@ from audioflux_torch.io.wave import (
 from audioflux_torch import utils
 from audioflux_torch import parallel
 from audioflux_torch import display
-from audioflux_torch import observe
+
+_import_span.__exit__(None, None, None)
+del _import_span, _IMPORT_START, _time
 
 __version__ = "0.1.0"

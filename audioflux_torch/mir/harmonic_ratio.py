@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from audioflux_torch.mir.pitch import autocorr_rows
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_plan
 from audioflux_torch.ops.backend import as_tensor, resolve_device
 from audioflux_torch.ops.frame import frame_signal
 from audioflux_torch.ops.window import get_fft_window
@@ -66,6 +66,7 @@ class HarmonicRatio:
     """API mirrors ``python/audioflux/mir/harmonic_ratio.py``, plus
     ``device`` (``None`` means ``cuda``)."""
 
+    @setup_plan
     def __init__(self, samplate: int = 32000, low_fre: float = None,
                  radix2_exp: int = 12, slide_length: int = None,
                  window_type: WindowType = WindowType.HAMM, device=None):

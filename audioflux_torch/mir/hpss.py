@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from audioflux_torch.classic.nmf import _nmf_impl
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_plan
 from audioflux_torch.ops import cuda_hpss
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.backend import as_tensor, resolve_device
@@ -53,6 +53,7 @@ class HPSS:
     """API mirrors ``python/audioflux/mir/hpss.py:99-230``, plus
     ``device`` (``None`` means ``cuda``)."""
 
+    @setup_plan
     def __init__(self, radix2_exp: int = 12,
                  window_type: WindowType = WindowType.HAMM,
                  slide_length: int = 1024, h_order: int = 21,

@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from audioflux_torch.features.spectral import Spectral
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_plan
 from audioflux_torch.ops import _build
 from audioflux_torch.ops.backend import as_tensor, resolve_device
 from audioflux_torch.ops.filter import max_filter
@@ -139,6 +139,7 @@ class Onset:
     """API mirrors ``python/audioflux/mir/onset.py:97-250``, plus
     ``device`` (``None`` means ``cuda``)."""
 
+    @setup_plan
     def __init__(self, time_length: int, fre_length: int, slide_length: int,
                  samplate: int = 32000, filter_order: int = 1,
                  novelty_type: NoveltyType = NoveltyType.FLUX, device=None):

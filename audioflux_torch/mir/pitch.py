@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_plan
 from audioflux_torch.ops import cuda_fft, cuda_pef
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.backend import as_tensor, resolve_device
@@ -103,6 +103,7 @@ class PitchNCF(_PitchBase):
     (``python/audioflux/mir/pitch_ncf.py``), plus ``device`` (``None``
     means ``cuda``)."""
 
+    @setup_plan
     def __init__(self, samplate=32000, low_fre=32.0, high_fre=2000.0,
                  radix2_exp=12, slide_length=None,
                  window_type=WindowType.RECT, device=None):
@@ -200,6 +201,7 @@ class PitchHPS(_HarmonicGrid):
     """Harmonic product spectrum (``python/audioflux/mir/pitch_hps.py``),
     plus ``device``."""
 
+    @setup_plan
     def __init__(self, samplate=32000, low_fre=32.0, high_fre=2000.0,
                  radix2_exp=12, slide_length=None,
                  harmonic_count=5, window_type=WindowType.HAMM, device=None):
@@ -233,6 +235,7 @@ class PitchPEF(_PitchBase):
     """Pseudo-energy-filter pitch (``python/audioflux/mir/pitch_pef.py``),
     plus ``device``."""
 
+    @setup_plan
     def __init__(self, samplate=32000, low_fre=32.0, high_fre=2000.0,
                  cut_fre=4000.0, radix2_exp=12, slide_length=None,
                  window_type=WindowType.HAMM,

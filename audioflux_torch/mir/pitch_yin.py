@@ -15,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_plan
 from audioflux_torch.ops import cuda_fft, cuda_yin
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.backend import as_tensor, resolve_device
@@ -69,6 +69,7 @@ class PitchYIN:
     """API mirrors ``python/audioflux/mir/pitch_yin.py:64-200``, plus
     ``device`` (``None`` means ``cuda``)."""
 
+    @setup_plan
     def __init__(self, samplate: int = 32000, low_fre: float = 27.0,
                  high_fre: float = 2000.0, radix2_exp: int = 12,
                  slide_length: int = 1024, auto_length: int = 2048,

@@ -1,7 +1,7 @@
 """Observability: the port's spans, profiler traces, and lightweight
 metrics.
 
-Counterpart of ``audioflux_tpu/observe.py``.  Three pieces, free when
+Counterpart of ``audioflux_tpu/observe.py``.  Four pieces, free when
 unused:
 
 - ``scope(name)``: the one way the port opens a span.  While a profiler
@@ -14,6 +14,17 @@ unused:
   ``af.kernel.<wrapper>`` around each kernel wrapper (``PERF.md`` section 3
   lists them).  For NVTX ranges, run the code under
   ``torch.autograd.profiler.emit_nvtx()``, which records the same spans.
+- ``setup(name)``: a span around work that runs once a key (the package's
+  import, a library's load, build and first launch, a plan's
+  construction, a cached table's build).  Always recorded in memory as
+  ``(name, parent, start_ns, end_ns)`` on ``time.perf_counter_ns``, the
+  parent being the innermost set-up span open on the thread at its start,
+  and read back by ``setup_spans()``; while a profiler records it is also
+  ``scope(name)``'s ``record_function``.  The set-up spans are
+  ``af.setup.import``, ``af.setup.load.<lib>``, ``af.setup.build.<lib>``,
+  ``af.setup.launch.<who>``, ``af.setup.plan.<Class>`` and
+  ``af.setup.table.<module>.<function>``; a steady call opens none, so the
+  record stays bounded.
 - ``trace(logdir)``: ``torch.profiler.profile`` over the enclosed code (the
   CPU and, when available, CUDA activity); its Chrome trace is written,
   gzipped, to ``logdir/plugins/profile/<run>/<host>.trace.json.gz``, where
@@ -26,16 +37,19 @@ unused:
 from __future__ import annotations
 
 import contextlib
+import functools
 import gzip
 import os
 import shutil
 import socket
+import threading
 import time
 from collections import defaultdict
 
 import torch
 
-__all__ = ["scope", "trace", "summarize_trace", "Metrics", "metrics"]
+__all__ = ["scope", "setup", "setup_spans", "setup_plan", "setup_table",
+           "trace", "summarize_trace", "Metrics", "metrics"]
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -50,6 +64,57 @@ def scope(name: str):
     if _profiler_enabled():
         return torch.profiler.record_function(name)
     return _NO_SPAN
+
+
+_SETUP: list = []              # (name, parent, start_ns, end_ns), in order
+_open_setup = threading.local()   # .names: each thread's open set-up spans
+
+
+@contextlib.contextmanager
+def setup(name: str, start_ns: int | None = None):
+    """A set-up span named ``name`` around a ``with`` block: recorded for
+    :func:`setup_spans` when the block ends, and ``scope(name)`` inside.
+    ``start_ns`` (``time.perf_counter_ns``) backdates its start, for a
+    span opened after its work began."""
+    stack = _open_setup.__dict__.setdefault("names", [])
+    parent = stack[-1] if stack else None
+    stack.append(name)
+    start = time.perf_counter_ns() if start_ns is None else start_ns
+    try:
+        with scope(name):
+            yield
+    finally:
+        _SETUP.append((name, parent, start, time.perf_counter_ns()))
+        stack.pop()
+
+
+def setup_spans() -> list:
+    """A copy of the set-up spans recorded so far, in the order they
+    ended: ``[(name, parent, start_ns, end_ns), ...]``."""
+    return list(_SETUP)
+
+
+def setup_plan(init):
+    """Decorate a plan's ``__init__``: each construction is the set-up span
+    ``af.setup.plan.<Class>``, by the class of the object built."""
+    @functools.wraps(init)
+    def wrapped(self, *args, **kwargs):
+        with setup(f"af.setup.plan.{type(self).__name__}"):
+            init(self, *args, **kwargs)
+    return wrapped
+
+
+def setup_table(fn):
+    """Decorate the body of a cached table or library builder (under its
+    ``functools.lru_cache``, so that only a miss runs it): each run is the
+    set-up span ``af.setup.table.<module>.<function>``."""
+    name = f"af.setup.table.{fn.__module__.rsplit('.', 1)[-1]}.{fn.__name__}"
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with setup(name):
+            return fn(*args, **kwargs)
+    return wrapped
 
 
 @contextlib.contextmanager

@@ -23,6 +23,12 @@ compiler's message.
 Every C entry of a kernel takes the stream as its last argument and
 returns a CUDA error code; :func:`launch` is the one way the wrappers call
 them.
+
+The work done once is timed by set-up spans (``observe.setup``): a
+library's first load (``af.setup.load.<lib>``: the hash, any build, the
+dlopen), each compiler process (``af.setup.build.<lib>``) and each C
+entry's first launch on a card (``af.setup.launch.<who>``: the card's
+check, and the module load that CUDA's lazy loading makes there).
 """
 
 from __future__ import annotations
@@ -33,10 +39,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
 
+from audioflux_torch.observe import setup
 from audioflux_torch.ops import median_network
 from audioflux_torch.ops.backend import require_sm90
 
@@ -65,7 +73,7 @@ GENERATED = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-_SM90_SEEN: set = set()   # the card indices require_sm90 has passed
+_LAUNCHED: set = set()   # (who, card index) of the entries launched once
 
 
 def _source(name: str):
@@ -126,12 +134,14 @@ def build(names=SOURCES, verbose: bool = False) -> dict:
                 (gen / file).write_text(text)
             extra += ["-I", str(gen)]
         cmd = [_which(tool), *flags, *extra, "-o", str(tmp), str(source)]
+        start = time.perf_counter_ns()
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
-                       tool, tmp, out)
+                       tool, tmp, out, start)
     reports, failed = {}, []
-    for name, (proc, tool, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+    for name, (proc, tool, tmp, out, start) in procs.items():
+        with setup(f"af.setup.build.{name}", start_ns=start):
+            log, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"{tool} failed to build {out.name}:\n{log}")
             continue
@@ -147,23 +157,29 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            path = library_path(name)
-            if not path.exists():
-                build([name])
-            lib = _libs[name] = ctypes.CDLL(str(path))
+            with setup(f"af.setup.load.{name}"):
+                path = library_path(name)
+                if not path.exists():
+                    build([name])
+                lib = _libs[name] = ctypes.CDLL(str(path))
         return lib
 
 
 def launch(fn, who: str, device: torch.device, *args) -> None:
     """``fn(*args, stream)``: a kernel's C entry on ``device`` and its
     current stream; raise naming ``who`` on a CUDA error.  The host work
-    is kept small, since a small call's time is the host's: the card's
-    sm_90 check is made once a card, and the device guard is opened only
-    off the current card."""
+    is kept small, since a small call's time is the host's: one set lookup
+    finds an entry launched before on the card, and the device guard is
+    opened only off the current card.  An entry's first launch on a card
+    checks the card (sm_90) and is the set-up span
+    ``af.setup.launch.<who>``."""
     index = device.index
-    if index not in _SM90_SEEN:
-        require_sm90(device)
-        _SM90_SEEN.add(index)
+    if (who, index) not in _LAUNCHED:
+        with setup(f"af.setup.launch.{who}"):
+            require_sm90(device)
+            _LAUNCHED.add((who, index))
+            launch(fn, who, device, *args)
+        return
     if index == torch.cuda.current_device():
         err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     else:

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_table
 from audioflux_torch.ops import _build, cuda_fft
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.backend import as_tensor
@@ -118,6 +118,7 @@ def octave_kernels(kernels, device) -> OctaveKernels:
 
 
 @functools.lru_cache(maxsize=None)
+@setup_table
 def _lib():
     lib = _build.load("cqt")
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int

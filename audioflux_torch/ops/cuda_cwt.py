@@ -26,7 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_table
 from audioflux_torch.ops import _build
 from audioflux_torch.ops.cuda_fft import twiddle_table
 
@@ -104,6 +104,7 @@ def cluster_plan(n: int, cluster: int | None = None) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
+@setup_table
 def _lib():
     lib = _build.load("cwt_ifft_bank")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -116,6 +117,7 @@ def _lib():
 
 
 @functools.lru_cache(maxsize=None)
+@setup_table
 def resident_clusters(n: int, cluster: int, device_index: int) -> int:
     """How many clusters of ``cluster`` blocks the card holds at once for
     transform length ``n``: the size of the kernel's persistent grid.

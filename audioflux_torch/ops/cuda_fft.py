@@ -46,7 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_table
 from audioflux_torch.ops import _build
 from audioflux_torch.ops.frame import cal_time_length, frame_signal
 
@@ -78,6 +78,7 @@ def route(n: int, real: bool) -> str:
 
 
 @functools.lru_cache(maxsize=None)
+@setup_table
 def twiddle_table(n: int, device: torch.device) -> torch.Tensor:
     """(n, 2) fp32 table exp(-2 pi i k / n), k < n, on ``device``; built in
     float64 on the host, so the kernels use no fast-math sine or cosine."""
@@ -99,6 +100,7 @@ def _pass1_factors(N: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+@setup_table
 def _kernel_table(n: int, device: torch.device) -> torch.Tensor:
     """The table the kernels take: :func:`twiddle_table` of n, then the
     pass-1 factors of n/2 points (the real-row route's and the clusters'),
@@ -110,6 +112,7 @@ def _kernel_table(n: int, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+@setup_table
 def _lib():
     lib = _build.load("fft_pow2")
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int

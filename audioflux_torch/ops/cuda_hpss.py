@@ -23,7 +23,7 @@ import functools
 
 import torch
 
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_table
 from audioflux_torch.ops import _build
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.cuda_fft import twiddle_table
@@ -48,6 +48,7 @@ def supports(x: torch.Tensor, fft_length: int, slide_length: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
+@setup_table
 def _lib():
     lib = _build.load("hpss")
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int

@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_table
 from audioflux_torch.ops import _build
 from audioflux_torch.ops.filter import median_filter
 from audioflux_torch.ops.median_network import INSTANCES, RUN
@@ -36,6 +36,7 @@ _BLOCK_OUTPUTS = 1024          # rank counting: outputs per block (4 a thread)
 
 
 @functools.lru_cache(maxsize=None)
+@setup_table
 def _lib():
     lib = _build.load("median_filter")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

@@ -36,7 +36,7 @@ import functools
 
 import torch
 
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_table
 from audioflux_torch.ops import _build, cuda_fft
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.frame import cal_time_length, frame_signal
@@ -58,6 +58,7 @@ def supports(x, fft_length: int, xcorr_length: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
+@setup_table
 def _lib():
     lib = _build.load("pef")
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int

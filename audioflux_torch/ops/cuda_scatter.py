@@ -14,7 +14,7 @@ import functools
 
 import torch
 
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_table
 from audioflux_torch.ops import _build
 
 __all__ = ["MAX_OUT_SIZE", "columnar_scatter", "columnar_scatter_ref"]
@@ -23,6 +23,7 @@ MAX_OUT_SIZE = 512     # a column's sums must fit a block's shared memory
 
 
 @functools.lru_cache(maxsize=None)
+@setup_table
 def _lib():
     fn = _build.load("columnar_scatter").af_columnar_scatter
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

@@ -21,7 +21,7 @@ import functools
 import numpy as np
 import torch
 
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_table
 from audioflux_torch.ops import _build
 from audioflux_torch.ops.backend import f32_scalar
 
@@ -56,6 +56,7 @@ def c_unwrap(x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+@setup_table
 def _lib():
     lib = _build.load("unwrap_diff")
     p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,

@@ -16,7 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_table
 from audioflux_torch.ops import _build
 from audioflux_torch.ops.backend import as_tensor, resolve_device
 from audioflux_torch.ops.cuda_fft import twiddle_table
@@ -95,6 +95,7 @@ def fused_mel_mfcc_ref(plan: FusedMelPlan, x: torch.Tensor):
 
 
 @functools.lru_cache(maxsize=None)
+@setup_table
 def _lib():
     fn = _build.load("fused_mel_mfcc").af_fused_mel_mfcc
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

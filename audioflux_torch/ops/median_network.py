@@ -37,6 +37,8 @@ import functools
 
 import numpy as np
 
+from audioflux_torch.observe import setup_table
+
 __all__ = ["Network", "build", "apply", "batcher_single_count", "header_text",
            "RUN", "INSTANCES"]
 
@@ -191,6 +193,7 @@ def _prune(n_taps, ops, outputs):
 
 
 @functools.lru_cache(maxsize=None)
+@setup_table
 def build(order: int, m: int) -> Network:
     """The pruned network of a run of ``m`` windows of odd ``order``."""
     if order < 1 or order % 2 == 0 or m < 1:

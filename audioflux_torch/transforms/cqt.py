@@ -33,7 +33,7 @@ import torch
 
 from audioflux_torch.dsp.resample import Resample
 from audioflux_torch.features.deconv import Deconv, _ceil_pow2
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_plan
 from audioflux_torch.ops import cuda_cqt
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.backend import as_tensor, resolve_device
@@ -153,6 +153,7 @@ class CQTBase:
     """Shared CQT/VQT machinery (``python/audioflux/cqt.py:107-389`` API
     surface), plus ``device`` (``None`` means ``cuda``)."""
 
+    @setup_plan
     def __init__(self, num=84, samplate=32000, low_fre=None,
                  bin_per_octave=12, factor=1.0, beta=0.0, thresh=0.01,
                  window_type=WindowType.HANN, slide_length=None,

@@ -22,7 +22,7 @@ import torch
 
 from audioflux_torch.filterbank.auditory import (_linspace_f32, _revise_fre,
                                                  _scale_funcs)
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_plan
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.backend import as_tensor, resolve_device
 from audioflux_torch.ops.cuda_cwt import (band_row_counts, cwt_ifft_bank,
@@ -218,6 +218,7 @@ class CWT:
     complex64 (..., num, data_length), rows ascending in frequency.
     """
 
+    @setup_plan
     def __init__(self, num=84, radix2_exp=12, samplate=32000,
                  low_fre=None, high_fre=None, bin_per_octave=12,
                  wavelet_type=WaveletContinueType.MORSE,

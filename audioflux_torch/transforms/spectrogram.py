@@ -26,7 +26,7 @@ from audioflux_torch.filterbank import scales as _sc
 from audioflux_torch.filterbank.auditory import auditory_filter_bank
 from audioflux_torch.filterbank.chroma import (chroma_fold_filter_bank,
                                                chroma_stft_filter_bank)
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_plan
 from audioflux_torch.ops import fft as afft
 from audioflux_torch.ops.backend import as_tensor, resolve_device
 from audioflux_torch.ops.frame import cal_time_length, frame_signal
@@ -128,6 +128,7 @@ class Spectrogram:
     ``preprocess``, ``deconv``) is forwarded over the plan's bands.
     """
 
+    @setup_plan
     def __init__(self, num=0, samplate=32000, low_fre=None, high_fre=None,
                  bin_per_octave=12, radix2_exp=12, window_type=None,
                  slide_length=None,

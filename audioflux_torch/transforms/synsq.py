@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from audioflux_torch.observe import scope
+from audioflux_torch.observe import scope, setup_plan
 from audioflux_torch.ops.backend import (as_tensor, f32_scalar,
                                          resolve_device)
 from audioflux_torch.ops.cuda_scatter import MAX_OUT_SIZE
@@ -120,6 +120,7 @@ class Synsq:
     """API mirrors ``python/audioflux/synsq.py``, plus ``device`` (``None``
     means ``cuda``)."""
 
+    @setup_plan
     def __init__(self, num: int, radix2_exp: int, samplate: int = 32000,
                  order: int = 1, thresh: float = 0.001, device=None):
         self.device = resolve_device(device)

@@ -36,7 +36,7 @@ def card(monkeypatch):
         yield
 
     monkeypatch.setattr(_build, "require_sm90", require_sm90)
-    monkeypatch.setattr(_build, "_SM90_SEEN", set())
+    monkeypatch.setattr(_build, "_LAUNCHED", set())
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "device", guard)
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",

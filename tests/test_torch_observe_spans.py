@@ -3,11 +3,18 @@ records, each entry call the benchmark's cells make and each kernel
 wrapper is one ``user_annotation`` event in the exported trace, the
 wrappers' nested by time inside the entries'; while none records, no
 ``record_function`` is entered at all.  On the CPU the wrappers take their
-plain versions, under the same spans."""
+plain versions, under the same spans.
+
+The set-up spans (``observe.setup``): each site records once a key, with
+its parent; a steady call of each cell's entry records none.  Run the
+card's cases with ``python3 -m pytest --noconftest -m card
+tests/test_torch_observe_spans.py``."""
 
 import contextlib
+import functools
 import gzip
 import json
+import shutil
 from collections import Counter
 
 import numpy as np
@@ -16,10 +23,13 @@ import torch
 
 from audioflux_torch import observe
 from audioflux_torch.mir.pitch import PitchPEF
+from audioflux_torch.mir.pitch_yin import PitchYIN
+from audioflux_torch.ops import _build
 from audioflux_torch.ops import (cuda_cqt, cuda_cwt, cuda_fft, cuda_hpss,
                                  cuda_median, cuda_pef, cuda_scatter,
                                  cuda_unwrap, cuda_yin, fused_mel)
 from audioflux_torch.transforms.cqt import CQT
+from audioflux_torch.transforms.spectrogram import MelSpectrogram
 from audioflux_torch.ops import fft as afft
 from benchmark import harness, traffic
 
@@ -61,15 +71,15 @@ class _NoCallerSpans:
         return contextlib.nullcontext()
 
 
-def _cell_call(cell):
+def _cell_call(cell, device="cpu"):
     bench = harness.load_benchmark()
     parts = harness.cell_parts(bench, cell)
     wl = dict(parts["workload"], pool=1)
     wl["batch"], wl["samples"] = CELLS[cell]
-    x = traffic.make_pool(wl, 2**31 + 5, "cpu")[0]
+    x = traffic.make_pool(wl, 2**31 + 5, device)[0]
     for plan in parts["config"]["plans"].values():
         plan.update(PLANS.get(cell, {}))
-    entry = harness.build_entry(parts["config"], "cpu")
+    entry = harness.build_entry(parts["config"], device)
     return lambda: entry.call(x, _NoCallerSpans())
 
 
@@ -94,8 +104,12 @@ def _fused_mel_mfcc():
     return fused_mel.fused_mel_mfcc(plan, _real(2, 2048))
 
 
+# built once, so that a wrapper's call opens no plan's set-up span
+_CQT = CQT(num=24, samplate=32000, low_fre=1000.0, device="cpu")
+
+
 def _cqt_octaves():
-    plan = CQT(num=24, samplate=32000, low_fre=1000.0, device="cpu")
+    plan = _CQT
     levels = [_real(2, 8000 >> (plan.octave_num - 1 - o), seed=o)
               for o in range(plan.octave_num)]
     return cuda_cqt.cqt_octaves(levels, plan._octave_slides(), plan._kernels_t,
@@ -189,8 +203,9 @@ def _recorded(fn, tmp_path):
 def test_each_entry_span_is_recorded_once_a_call(cell, tmp_path):
     spans = _recorded(_cell_call(cell), tmp_path)
     counts = Counter(n for n, _, _ in spans)
+    # the set-up spans a first call may open (a library's load) are apart
     entries = {n: c for n, c in counts.items()
-               if not n.startswith("af.kernel.")}
+               if not n.startswith(("af.kernel.", "af.setup."))}
     assert entries == ENTRY_SPANS[cell]
     kernels = [s for s in spans if s[0].startswith("af.kernel.")]
     assert bool(kernels) == (cell not in NO_KERNEL)
@@ -299,3 +314,196 @@ def test_summarize_trace_keeps_host_and_device_apart(tmp_path):
                                                      include_host=True)}
     assert both == {"af.HPSS.hpss", "aten::mul", "cudaLaunchKernel",
                     "fft_reg_kernel", "Memcpy HtoD", "foo.py(1): f"}
+
+
+# -- set-up spans ------------------------------------------------------------
+
+# the plans each cell's entry builds, by the set-up span of each; Spectral
+# is built inside calls too (``Onset.onset`` with ``index_arr``), so its
+# constructor opens none
+PLAN_SPANS = {
+    "mel_mfcc.corpus": {"af.setup.plan.MelSpectrogram"},
+    "mir.corpus": {"af.setup.plan.PitchYIN", "af.setup.plan.MelSpectrogram",
+                   "af.setup.plan.Onset", "af.setup.plan.HPSS"},
+    "wavelet.corpus": {"af.setup.plan.CWT", "af.setup.plan.Synsq"},
+    "pitch.corpus": {"af.setup.plan.PitchNCF", "af.setup.plan.PitchHPS",
+                     "af.setup.plan.PitchPEF",
+                     "af.setup.plan.HarmonicRatio"},
+    "cqt.corpus": {"af.setup.plan.CQT"},
+}
+
+
+@pytest.fixture
+def record(monkeypatch):
+    """An empty set-up record for the test; returns its reader."""
+    monkeypatch.setattr(observe, "_SETUP", [])
+    return observe.setup_spans
+
+
+def _check_nesting(spans):
+    """Each span ends after it starts and lies inside a span of its
+    parent's name."""
+    for name, parent, s, e in spans:
+        assert s <= e
+        if parent is not None:
+            assert any(n == parent and a <= s and e <= b
+                       for n, _, a, b in spans)
+
+
+def _tables(monkeypatch, tmp_path):
+    """The FFT's kernel table, which holds the twiddle table, three times,
+    through caches of the test's own."""
+    for name in ("twiddle_table", "_kernel_table"):
+        fresh = functools.lru_cache(maxsize=None)(
+            getattr(cuda_fft, name).__wrapped__)
+        monkeypatch.setattr(cuda_fft, name, fresh)
+    for _ in range(3):
+        cuda_fft._kernel_table(256, torch.device("cpu"))
+    return [("af.setup.table.cuda_fft.twiddle_table",
+             "af.setup.table.cuda_fft._kernel_table"),
+            ("af.setup.table.cuda_fft._kernel_table", None)]
+
+
+def _load_and_build(monkeypatch, tmp_path):
+    """The peak pick's host library, loaded three times into an empty
+    build folder: hashed, built and opened once."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the host library cannot be built here")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    libs = [_build.load("libafpp") for _ in range(3)]
+    assert all(lib is libs[0] for lib in libs)
+    return [("af.setup.build.libafpp", "af.setup.load.libafpp"),
+            ("af.setup.load.libafpp", None)]
+
+
+def _launches(monkeypatch, tmp_path):
+    """Two C entries (stand-ins) launched again and again on two cards
+    (stand-ins), the first launch inside a set-up span of the caller's."""
+    monkeypatch.setattr(_build, "require_sm90", lambda device: None)
+    monkeypatch.setattr(_build, "_LAUNCHED", set())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 1000 + index, raising=False)
+    calls = []
+
+    def fn(*args):
+        calls.append(args)
+        return 0
+
+    with observe.setup("af.setup.plan.Caller"):
+        _build.launch(fn, "a", torch.device("cuda", 0))
+    for i in range(20):
+        _build.launch(fn, "a", torch.device("cuda", i % 2))
+        _build.launch(fn, "b", torch.device("cuda", 0))
+    assert len(calls) == 41
+    return [("af.setup.launch.a", "af.setup.plan.Caller"),
+            ("af.setup.plan.Caller", None),
+            ("af.setup.launch.b", None), ("af.setup.launch.a", None)]
+
+
+def _plans(monkeypatch, tmp_path):
+    """A plan built twice, and one built through its base's constructor,
+    named by its own class."""
+    PitchYIN(device="cpu")
+    PitchYIN(device="cpu")
+    MelSpectrogram(num=16, radix2_exp=9, slide_length=128, device="cpu")
+    return [("af.setup.plan.PitchYIN", None)] * 2 + [
+        ("af.setup.plan.MelSpectrogram", None)]
+
+
+SITES = {"table": _tables, "load and build": _load_and_build,
+         "launch": _launches, "plan": _plans}
+
+
+@pytest.mark.parametrize("site", sorted(SITES))
+def test_each_setup_site_records_once_a_key_with_its_parent(
+        site, record, monkeypatch, tmp_path):
+    want = SITES[site](monkeypatch, tmp_path)
+    spans = record()
+    assert [(n, p) for n, p, _, _ in spans] == want
+    _check_nesting(spans)
+
+
+def _outer_and_inner():
+    with observe.setup("af.setup.outer"):
+        with observe.setup("af.setup.inner"):
+            pass
+
+
+def test_setup_is_a_record_function_while_a_profiler_records(record,
+                                                             tmp_path):
+    spans = _recorded(_outer_and_inner, tmp_path)
+    (_, a, b), = [sp for sp in spans if sp[0] == "af.setup.outer"]
+    (_, c, d), = [sp for sp in spans if sp[0] == "af.setup.inner"]
+    assert a <= c and d <= b
+    assert [(n, p) for n, p, _, _ in record()] == [
+        ("af.setup.inner", "af.setup.outer"), ("af.setup.outer", None)]
+
+
+def test_setup_enters_no_record_function_without_a_profiler(record,
+                                                            monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function entered with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    _outer_and_inner()
+    assert [n for n, _, _, _ in record()] == ["af.setup.inner",
+                                              "af.setup.outer"]
+
+
+def test_the_package_import_is_a_setup_span():
+    imports = [sp for sp in observe.setup_spans()
+               if sp[0] == "af.setup.import"]
+    assert len(imports) == 1
+    _, parent, s, e = imports[0]
+    assert parent is None and s < e
+
+
+def test_setup_spans_is_a_copy(record):
+    _outer_and_inner()
+    got = record()
+    got.clear()
+    assert len(record()) == 2
+
+
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_a_steady_call_adds_no_setup_span(cell):
+    before = len(observe.setup_spans())
+    call = _cell_call(cell)
+    built = {n for n, _, _, _ in observe.setup_spans()[before:]}
+    assert built >= PLAN_SPANS[cell]
+    assert "af.setup.plan.Spectral" not in built
+    call()                       # the first call may build tables, load
+    n = len(observe.setup_spans())
+    call()
+    assert len(observe.setup_spans()) == n
+    _check_nesting(observe.setup_spans()[before:])
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: this test runs on the card only")
+    return torch.device("cuda:0")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_a_first_launch_is_a_setup_span_once_an_entry_and_card(
+        card, cell, record, monkeypatch):
+    monkeypatch.setattr(_build, "_LAUNCHED", set())
+    call = _cell_call(cell, card)
+    call()
+    torch.cuda.synchronize(card)
+    launches = Counter(n for n, _, _, _ in record()
+                       if n.startswith("af.setup.launch."))
+    assert launches and set(launches.values()) == {1}
+    n = len(record())
+    call()
+    torch.cuda.synchronize(card)
+    assert len(record()) == n
+    _check_nesting(record())
